@@ -27,6 +27,8 @@ LAUNCH_ARGTYPES = [
     _I, _I, _I,              # seed, blk0, nbounce
     _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
     _P, _P, _P, _P, _I,      # tiles, faces, mats, lights, nl
+    _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
+    _I, _I, _I,              # env_tm, env_l2, textured
     _F, _F, _F,              # env rgb
     _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
     _I, _I, _I, _I,          # shadow max/min, need_uv, has_gloss

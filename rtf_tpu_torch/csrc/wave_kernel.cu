@@ -1,19 +1,33 @@
 // One sample wave, every bounce, one thread per ray.
 //
-// Replaces rtf_tpu/render/fused.py::_wave_kernel (the Pallas TPU kernel
-// behind fused_wave), immediates mesh variant without the surf_out/gi_from
-// rows.  It computes what render/wave.py::wave_plain computes, with the
-// same operations in the same order: closest hit (spheres, planes, then
-// mesh faces in packed Morton order with a strict t < best), checker kd/ks,
-// Blinn direct light with hard or adaptive disk soft shadows, Beer
-// absorption, the environment on a miss, glossy perturbation, Schlick
-// Fresnel/TIR and one Russian-roulette child per bounce.  Output is
-// channel-major [5, N]: rad r, g, b, hit, z.
+// Replaces three Pallas TPU kernels:
+//   * rtf_tpu/render/fused.py::_wave_kernel (pallas_call fused.py:1741, the
+//     kernel behind fused_wave), immediates mesh variant without the
+//     surf_out/gi_from rows: the untextured variant wave_kernel<false>;
+//   * rtf_tpu/render/fused_seg.py::_seg_hit_kernel (pallas_call
+//     fused_seg.py:482) and _seg_shade_kernel (fused_seg.py:516), with the
+//     XLA texture segment between them (_seg_texture, _seg_env): the
+//     textured variant wave_kernel<true>.  The TPU splits each bounce into
+//     a hit kernel, an XLA gather and a shade kernel only because Pallas
+//     TPU has no vector gather; here each thread reads the atlas itself,
+//     so a bounce stays in registers and a wave is one launch.
+// It computes what render/wave.py::wave_plain computes, with the same
+// operations in the same order: closest hit with uv (spheres, planes, then
+// mesh faces in packed Morton order with a strict t < best), kd/ks as the
+// material colour times its texture map (checker, or in the textured
+// variant a bilinear file texture), Blinn direct light with hard or
+// adaptive disk soft shadows, Beer absorption, the environment on a miss
+// (in the textured variant through its angular map), glossy perturbation,
+// Schlick Fresnel/TIR and one Russian-roulette child per bounce.  Output
+// is channel-major [5, N]: rad r, g, b, hit, z.
 //
 // What bounds it on an H100: operations, not bytes.  A wave reads 28 B and
 // writes 20 B per ray, but traces 1-5 closest-hit rays and as many shadow
 // rays per ray, each against every primitive and the mesh faces of the
 // tiles its segment enters: FP32 arithmetic and divergent control flow.
+// A texture sample adds about 40 operations and four 16-byte texel loads
+// that hit L2 (the atlas is a few MB): the textured wave is bound by
+// operations too.
 // What the design does about it:
 //   * the TPU kernel's [nblk,16,8,128] packing, baked immediates, block
 //     reach boxes and pl.when culls are gone; the scene is a few small
@@ -28,15 +42,21 @@
 //     dies, which gives per lane what the TPU's block-wide while loop gives
 //     (dead lanes contribute exactly zero there);
 //   * the soft-shadow escalation is per thread: vis depends only on the
-//     lane's own penumbra flag, so it equals the TPU's per-block pl.when.
+//     lane's own penumbra flag, so it equals the TPU's per-block pl.when;
+//   * texture handling is a template flag: untextured scenes run the
+//     untextured variant's code and registers.  A sample is four __ldg
+//     float4 texel loads and the bilinear weights in FP32, in the plain
+//     version's order; no texture objects, whose hardware filter keeps its
+//     weights in 9-bit fixed point.  A missed lane samples nothing.
 // Built with --fmad=false and without --use_fast_math: IEEE division,
-// sqrtf, expf, powf, sinf and cosf, and no contraction into FMAs, so the
-// kernel rounds like the plain version's one-op-at-a-time arithmetic.
-// Shared-memory staging of the face rows is later work.
+// sqrtf, expf, powf, sinf, cosf and asinf, and no contraction into FMAs,
+// so the kernel rounds like the plain version's one-op-at-a-time
+// arithmetic.  Shared-memory staging of the face rows is later work.
 //
 // RNG: fused.py::_rand01, bit for bit.  Lane i hashes (i % 1024) with the
 // seed of its 1024-lane group, seed + (blk0 + i / 1024) * 7919 (int32
-// wraparound, done here in uint32), whatever the CUDA block size.
+// wraparound, done here in uint32), whatever the CUDA block size.  That is
+// also _seg_shade_kernel's compiled seed, seed + b*101 + program_id*7919.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +73,9 @@ constexpr float TWO_PI_F = 6.283185307179586f;
 constexpr float INV_2PI_F = 0.15915494309189535f;   // 0.5 / pi
 constexpr float INV_PI_F = 0.3183098861837907f;
 constexpr int RT_REFLECT = 1, RT_REFRACT = 2;
-constexpr int INST_W = 24, TILE_W = 8, FACE_W = 40, MAT_W = 64, LIGHT_W = 16;
+constexpr int INST_W = 24, TILE_W = 8, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
+constexpr int TEXMAP_W = 10, TEX_W = 10;
+constexpr float TEX_FILE = 0.0f;
 constexpr int THREADS = 128;
 
 // work counters (optional): what chip_smoke.py turns into a FLOP bound
@@ -66,13 +88,16 @@ enum Stat {
   STAT_TRI_SHADOW = 5,   // triangle tests, shadow rays
   STAT_PRIM_SHADOW = 6,  // sphere/plane tests, shadow rays
   STAT_INST = 7,         // mesh-instance ray transforms
-  NSTAT = 8
+  STAT_TEX_FILE = 8,     // bilinear file-texture samples (kd, ks, env)
+  STAT_TEX_CHECKER = 9,  // checker samples
+  STAT_ENV = 10,         // environment-map uv computations
+  NSTAT = 11
 };
 
 struct Args {
   const float* rays;   // [7, n]: o xyz, d xyz, alive
   float* out;          // [5, n]
-  unsigned long long* stats;  // [8] or null
+  unsigned long long* stats;  // [NSTAT] or null
   int n;
   uint32_t seed, blk0;
   int nbounce;
@@ -83,6 +108,10 @@ struct Args {
   const float* faces;
   const float* mats;
   const float* lights; int nl;
+  const float* texmaps;
+  const float* textures;
+  const float4* atlas; int atlas_w;
+  int env_tm, env_l2;
   float env[3];
   float coef;
   int inverse_square, env_on_reflect_miss;
@@ -358,23 +387,83 @@ __device__ bool occluded(const Args& A, const float o[3], const float d[3],
   return false;
 }
 
-// fused.py::_select_surface_color for one channel set (kd or ks)
-__device__ __forceinline__ void surface_color(const float* M, int base,
-                                              int flag, int chk,
+// ops/texture.py::sample_texmap_ch for one lane with a map (tm >= 0): the
+// map's transform, the tiling, then the checker or (TEXTURED only) the
+// bilinear file texture
+template <bool TEXTURED>
+__device__ __forceinline__ void sample_texmap(const Args& A, int tm, float u,
+                                              float v, float out[3],
+                                              unsigned long long* cnt) {
+  const float* P = A.texmaps + TEXMAP_W * tm;
+  const float du = u - ld(P + 6);
+  const float dv = v - ld(P + 7);
+  const float lu = ld(P + 0) * du + ld(P + 1) * dv - ld(P + 2) * ld(P + 8);
+  const float lv = ld(P + 3) * du + ld(P + 4) * dv - ld(P + 5) * ld(P + 8);
+  const float* X = A.textures + TEX_W * (int)ld(P + 9);
+  const float tu = lu - floorf(lu);
+  const float tv = lv - floorf(lv);
+  if (TEXTURED && ld(X) == TEX_FILE) {
+    if (cnt) cnt[STAT_TEX_FILE] += 1;
+    const float w = ld(X + 1), h = ld(X + 2);
+    const float x = w * tu, y = h * tv;
+    const float flx = floorf(x), fly = floorf(y);
+    const float fx = x - flx, fy = y - fly;
+    const int wi = (int)w, hi = (int)h;
+    const int ix = min(max((int)flx, 0), wi - 1);
+    const int iy = min(max((int)fly, 0), hi - 1);
+    const int ixp = ix + 1 >= wi ? 0 : ix + 1;
+    const int iyp = iy + 1 >= hi ? 0 : iy + 1;
+    const int r0 = (int)ld(X + 3);
+    const float4* row = A.atlas + (long long)(r0 + iy) * A.atlas_w;
+    const float4* rowp = A.atlas + (long long)(r0 + iyp) * A.atlas_w;
+    const float4 c00 = __ldg(row + ix), c10 = __ldg(row + ixp);
+    const float4 c01 = __ldg(rowp + ix), c11 = __ldg(rowp + ixp);
+    const float w00 = (1.0f - fx) * (1.0f - fy);
+    const float w10 = fx * (1.0f - fy);
+    const float w01 = (1.0f - fx) * fy;
+    const float w11 = fx * fy;
+    out[0] = c00.x * w00 + c10.x * w10 + c01.x * w01 + c11.x * w11;
+    out[1] = c00.y * w00 + c10.y * w10 + c01.y * w01 + c11.y * w11;
+    out[2] = c00.z * w00 + c10.z * w10 + c01.z * w01 + c11.z * w11;
+    return;
+  }
+  if (cnt) cnt[STAT_TEX_CHECKER] += 1;
+  const bool odd = (tu <= 0.5f) != (tv <= 0.5f);
+  for (int c = 0; c < 3; ++c) out[c] = odd ? ld(X + 7 + c) : ld(X + 4 + c);
+}
+
+// kd or ks: the material colour times its texture map
+// (fused_seg.py::_seg_texture; fused.py::_select_surface_color)
+template <bool TEXTURED>
+__device__ __forceinline__ void surface_color(const Args& A, const float* M,
+                                              int base, int tm_col,
                                               const Hit& h, bool need_uv,
-                                              float out[3]) {
+                                              float out[3],
+                                              unsigned long long* cnt) {
   for (int c = 0; c < 3; ++c) out[c] = ld(M + base + c);
-  if (!need_uv || !(ld(M + flag) > 0.5f)) return;
-  const float* C = M + chk;
-  float du = h.u - ld(C + 6);
-  float dv = h.v - ld(C + 7);
-  float lu = ld(C + 0) * du + ld(C + 1) * dv - ld(C + 2) * ld(C + 8);
-  float lv = ld(C + 3) * du + ld(C + 4) * dv - ld(C + 5) * ld(C + 8);
-  float tu = lu - floorf(lu);
-  float tv = lv - floorf(lv);
-  bool odd = (tu <= 0.5f) != (tv <= 0.5f);
-  for (int c = 0; c < 3; ++c)
-    out[c] = out[c] * (odd ? ld(C + 12 + c) : ld(C + 9 + c));
+  if (!need_uv) return;
+  const int tm = (int)ld(M + tm_col);
+  if (tm < 0) return;
+  float tex[3];
+  sample_texmap<TEXTURED>(A, tm, h.u, h.v, tex, cnt);
+  for (int c = 0; c < 3; ++c) out[c] = out[c] * tex[c];
+}
+
+// ops/texture.py::env_uv_ch: angular-map uv of a direction
+__device__ __forceinline__ void env_uv(const float d[3], bool l2, float& u,
+                                       float& v) {
+  const float z = asinf(fminf(fmaxf(-d[2], -1.0f), 1.0f)) / PI_F + 0.5f;
+  float denom;
+  if (l2) {
+    denom = sqrtf(d[0] * d[0] + d[1] * d[1]) + 1e-10f;
+  } else {
+    denom = fabsf(d[0]) + fabsf(d[1]);
+    denom = denom == 0.0f ? 1e-30f : denom;
+  }
+  const float x = d[0] / denom;
+  const float y = d[1] / denom;
+  u = 0.5f + z * 0.5f * (x - y);
+  v = 0.5f + z * 0.5f * (x + y);
 }
 
 __device__ __forceinline__ void perturb(const float n[3], float gl,
@@ -397,6 +486,7 @@ __device__ __forceinline__ void perturb(const float n[3], float gl,
   norm3(r[0], r[1], r[2]);
 }
 
+template <bool TEXTURED>
 __global__ void __launch_bounds__(THREADS)
 wave_kernel(const Args A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -411,7 +501,7 @@ wave_kernel(const Args A) {
   float tput[3] = {1.0f, 1.0f, 1.0f}, absorb[3] = {0.0f, 0.0f, 0.0f};
   int rtype = 0;
   float acc[3] = {0.0f, 0.0f, 0.0f}, hit0 = 0.0f, z0 = BIG;
-  unsigned long long cnt_[NSTAT] = {0, 0, 0, 0, 0, 0, 0, 0};
+  unsigned long long cnt_[NSTAT] = {};
   unsigned long long* cnt = A.stats ? cnt_ : nullptr;
   const uint32_t idx = (uint32_t)(i & 1023);
   const uint32_t seed0 = A.seed + (A.blk0 + (uint32_t)(i >> 10)) * 7919u;
@@ -428,8 +518,17 @@ wave_kernel(const Args A) {
       // environment on a refraction-ray miss (main.cpp:634-636)
       bool env_ok = rtype == RT_REFRACT
           || (A.env_on_reflect_miss && rtype == RT_REFLECT);
-      if (env_ok)
-        for (int c = 0; c < 3; ++c) rad[c] = 0.0f + tput[c] * A.env[c];
+      if (env_ok) {
+        float env[3] = {A.env[0], A.env[1], A.env[2]};
+        if (TEXTURED && A.env_tm >= 0) {  // fused_seg.py::_seg_env
+          if (cnt) cnt[STAT_ENV] += 1;
+          float eu, ev, tex[3];
+          env_uv(d, A.env_l2 != 0, eu, ev);
+          sample_texmap<TEXTURED>(A, A.env_tm, eu, ev, tex, cnt);
+          for (int c = 0; c < 3; ++c) env[c] = A.env[c] * tex[c];
+        }
+        for (int c = 0; c < 3; ++c) rad[c] = 0.0f + tput[c] * env[c];
+      }
       for (int c = 0; c < 3; ++c) acc[c] = acc[c] + rad[c];
       alive = false;
       break;
@@ -437,8 +536,8 @@ wave_kernel(const Args A) {
     if (cnt) cnt[STAT_HITS] += 1;
     const float* M = A.mats + MAT_W * h.mtl;
     float kd[3], ks[3];
-    surface_color(M, 0, 22, 24, h, need_uv, kd);
-    surface_color(M, 3, 23, 40, h, need_uv, ks);
+    surface_color<TEXTURED>(A, M, 0, 22, h, need_uv, kd, cnt);
+    surface_color<TEXTURED>(A, M, 3, 23, h, need_uv, ks, cnt);
     const float nrm[3] = {h.nx, h.ny, h.nz};
     const float p[3] = {o[0] + h.t * d[0], o[1] + h.t * d[1],
                         o[2] + h.t * d[2]};
@@ -640,8 +739,10 @@ int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
                     const float* spheres, int ns, const float* planes,
                     int np, const float* insts, int ni, const float* tiles,
                     const float* faces, const float* mats,
-                    const float* lights, int nl, float env_r, float env_g,
-                    float env_b, float coef, int inverse_square,
+                    const float* lights, int nl, const float* texmaps,
+                    const float* textures, const float* atlas, int atlas_w,
+                    int env_tm, int env_l2, int textured, float env_r,
+                    float env_g, float env_b, float coef, int inverse_square,
                     int env_on_reflect_miss, float tot_thr, float col_thr,
                     int shadow_max, int shadow_min, int need_uv,
                     int has_gloss, void* stream) {
@@ -661,6 +762,12 @@ int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
   A.faces = faces;
   A.mats = mats;
   A.lights = lights; A.nl = nl;
+  A.texmaps = texmaps;
+  A.textures = textures;
+  A.atlas = reinterpret_cast<const float4*>(atlas);
+  A.atlas_w = atlas_w;
+  A.env_tm = env_tm;
+  A.env_l2 = env_l2;
   A.env[0] = env_r; A.env[1] = env_g; A.env[2] = env_b;
   A.coef = coef;
   A.inverse_square = inverse_square;
@@ -672,7 +779,10 @@ int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
   A.need_uv = need_uv;
   A.has_gloss = has_gloss;
   int blocks = (n + THREADS - 1) / THREADS;
-  wave_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(A);
+  if (textured)
+    wave_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(A);
+  else
+    wave_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 

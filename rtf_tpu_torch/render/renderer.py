@@ -7,7 +7,8 @@ two-phase scheme (main.cpp:266-307): MIN_SAMPLE samples everywhere, then
 pixels whose per-channel sample variance exceeds THRESHOLD get the
 remaining samples as masked waves.  Output conventions match RenderImage
 (scene.h:540-656): gamma before `Clamp(int(c*255))`, misses show the
-(solid) background, z-buffer and sample-count AOVs.
+background (its colour times its map at uvw = (x/W, y/H, 0)), z-buffer and
+sample-count AOVs.
 
 Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed
 (JAX's threefry key stream is not reproduced).
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.core.math import BIGFLOAT
+from rtf_tpu_torch.ops.texture import sample_background
 from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
 from rtf_tpu_torch.render.config import RenderConfig
 from rtf_tpu_torch.render.scene_tables import (
@@ -122,12 +124,20 @@ def lanes_to_pixels(rad, hits, z, nsamples, order):
     return rad[:, inv], hits[inv], z[inv], nsamples[inv]
 
 
-def _finalize_device(scene, cfg, rad, hits, z):
-    """Average over hit samples, the solid background where no sample hit,
-    gamma and byte conversion (main.cpp:309-338)."""
+def _finalize_device(scene, cfg, tables, rad, hits, z):
+    """Average over hit samples, the background where no sample hit, gamma
+    and byte conversion (main.cpp:309-338; rtf_tpu/render/renderer.py::
+    _finalize_device)."""
+    w, h = scene.width, scene.height
     avg = rad.T / torch.clamp(hits, min=1).to(torch.float32)[:, None]
     miss = hits == 0
-    bg = scene.bg_color.to(avg.device)[None, :].expand_as(avg)
+    # uvw = (x/W, y/H, 0); W and H divide as tensors, a true division as
+    # in rtf_tpu (CUDA divides by a Python scalar through its reciprocal)
+    idx = torch.arange(w * h, dtype=torch.int64, device=avg.device)
+    size = torch.tensor([float(w), float(h)], device=avg.device)
+    bg = sample_background(tables, scene.bg_color,
+                           (idx % w).to(torch.float32) / size[0],
+                           (idx // w).to(torch.float32) / size[1])
     avg = torch.where(miss[:, None], bg, avg)
     zout = torch.where(miss, BIGFLOAT, z)
     if cfg.gamma and cfg.gamma > 0:
@@ -138,9 +148,9 @@ def _finalize_device(scene, cfg, rad, hits, z):
     return img8, avg, zout
 
 
-def finalize(scene, cfg, rad, hits, z, nsamples) -> RenderResult:
+def finalize(scene, cfg, tables, rad, hits, z, nsamples) -> RenderResult:
     w, h = scene.width, scene.height
-    img8, avg, zout = _finalize_device(scene, cfg, rad, hits, z)
+    img8, avg, zout = _finalize_device(scene, cfg, tables, rad, hits, z)
     return RenderResult(
         image=img8.cpu().numpy().reshape(h, w, 3),
         radiance=avg.cpu().numpy().reshape(h, w, 3),
@@ -165,4 +175,4 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     rad, hits, z, ns = render_lanes(scene, cfg, tables, order,
                                     cfg.seed if seed is None else seed)
     rad, hits, z, ns = lanes_to_pixels(rad, hits, z, ns, order)
-    return finalize(scene, cfg, rad, hits, z, ns)
+    return finalize(scene, cfg, tables, rad, hits, z, ns)

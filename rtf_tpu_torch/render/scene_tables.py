@@ -1,10 +1,17 @@
 """The scene as flat float32 tables that the wave kernel reads.
 
 Replaces rtf_tpu/render/fused.py::scene_consts, which bakes the scene into
-TPU kernel immediates (fused.py:14-27).  Here the scene stays data: a few
-small row tables in device memory, shared by the CUDA kernel and by the
-plain PyTorch wave (render/wave.py), so both read exactly the same
-numbers.
+TPU kernel immediates (fused.py:14-27), and the texture tables that
+rtf_tpu's segmented path gathers from in XLA between its two kernels
+(fused_seg.py:265-390).  Here the scene stays data: a few small row tables
+in device memory, shared by the CUDA kernel and by the plain PyTorch wave
+(render/wave.py, ops/texture.py), so both read exactly the same numbers.
+
+Where the textures live: the port's `Scene` keeps rtf_tpu's structured
+TextureTable/TexMapTable (atlas included), and `WaveTables` carries their
+flat copies below, with the environment and background map ids.  The
+kernel, the plain wave and finalize's background all sample the flat
+copies.
 
 Row layouts (float32; integer fields are stored as exact floats):
 
@@ -14,13 +21,19 @@ Row layouts (float32; integer fields are stored as exact floats):
   tiles     [T, 8]   0-2 AABB lo, 3-5 AABB hi (padded, see below),
                      6 first face, 7 face count
   faces     [F, 40]  the packed per-face rows of ops/pack.py, Morton order
-  materials [M, 64]  0-2 kd, 3-5 ks, 6 gloss, 7-9 refl, 10-12 refr, 13 ior,
+  materials [M, 24]  0-2 kd, 3-5 ks, 6 gloss, 7-9 refl, 10-12 refr, 13 ior,
                      14-16 absorb, 17-19 emission, 20 refl gloss,
-                     21 refr gloss, 22/23 kd/ks has a checker,
-                     24-38 kd checker, 40-54 ks checker: itm rows 0-1
-                     (6), pos (3), c1 (3), c2 (3)
+                     21 refr gloss, 22/23 kd/ks texmap id (-1: none)
   lights    [L, 16]  0 kind (0 ambient, 1 direct, 2 point), 1-3 intensity,
                      4-6 direction, 7-9 position, 10 size
+  texmaps   [Q, 10]  0-2 itm row 0, 3-5 itm row 1, 6-8 pos, 9 texture id
+  textures  [X, 10]  0 kind (0 file, 1 checker), 1 width, 2 height,
+                     3 first atlas row, 4-6 checker c1, 7-9 checker c2
+  atlas     [R*W, 4] the texels of the [R, W, 3] row atlas, row-major, each
+                     padded to 4 floats (one 16-byte load in the kernel)
+
+Checker and file textures take the same path: a material's kd/ks texmap
+id picks a texmaps row, whose texture row says which sampler runs.
 
 The tile boxes are padded by 1e-4 * (1 + the largest |coordinate| of the
 box): the triangle vertices lie on the box faces, so a slab entry rounded
@@ -35,13 +48,14 @@ import torch
 
 from rtf_tpu_torch.ops.pack import TRI_LANES
 from rtf_tpu_torch.scene.build import (
-    LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, TEX_CHECKER, TEX_FILE, Scene,
+    LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, Scene,
 )
 
 MAX_FACES = 512        # mesh faces the slice's kernel walks (fused.py:55)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
-INST_W, TILE_W, FACE_W, MAT_W, LIGHT_W = 24, 8, 40, 64, 16
+INST_W, TILE_W, FACE_W, MAT_W, LIGHT_W = 24, 8, 40, 24, 16
+TEXMAP_W, TEX_W = 10, 10
 TILE_PAD = 1e-4
 
 _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
@@ -49,8 +63,10 @@ _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
 
 
 def unsupported_reason(scene: Scene, cfg):
-    """None if this slice renders the scene+config, else why not (the
-    gate of rtf_tpu/render/fused.py::fuse_reason, without a fallback)."""
+    """None if the port renders the scene+config, else why not (the gates
+    of rtf_tpu/render/fused.py::fuse_reason and fused_seg.py::seg_reason,
+    without a fallback).  File or checker textures on kd/ks and
+    environment/background maps are in; other texture maps are not."""
     if cfg.gi_mode != "none":
         return f"gi_mode={cfg.gi_mode!r} (GI is not ported yet)"
     if cfg.resolved_split_mode() != "rr":
@@ -59,17 +75,10 @@ def unsupported_reason(scene: Scene, cfg):
         return "tex_filter (ray-differential filtering is not ported)"
     if scene.dof > 0:
         return "depth of field (the lens is not ported)"
-    if scene.bg_tm >= 0 or scene.env_tm >= 0:
-        return "background/environment texture"
     mt = scene.materials
     for tm in (mt.emission_tm, mt.reflection_tm, mt.refraction_tm):
         if int(tm.max()) >= 0:
             return "emission/reflection/refraction texture maps"
-    kinds = scene.textures.kind.tolist()
-    tex_of = scene.texmaps.tex.tolist()
-    for t in mt.diffuse_tm.tolist() + mt.specular_tm.tolist():
-        if t >= 0 and kinds[tex_of[t]] == TEX_FILE:
-            return "file texture on kd/ks"
     if sum(1 for k in scene.light_kinds if k != "ambient") > MAX_LIGHTS:
         return f"more than {MAX_LIGHTS} non-ambient lights"
     nf = 0 if scene.mesh is None else scene.mesh.tri_a.shape[0]
@@ -88,11 +97,24 @@ class WaveTables:
     mesh_insts: torch.Tensor  # [I, 24]
     tiles: torch.Tensor       # [T, 8]
     faces: torch.Tensor       # [F, 40]
-    materials: torch.Tensor   # [M, 64]
+    materials: torch.Tensor   # [M, 24]
     lights: torch.Tensor      # [L, 16]
+    texmaps: torch.Tensor     # [Q, 10]
+    textures: torch.Tensor    # [X, 10]
+    atlas: torch.Tensor       # [R*W, 4]
+    atlas_w: int              # W, texels per atlas row
     env: tuple                # (r, g, b) floats
-    need_uv: bool             # some material has a checker map
+    env_tm: int               # environment texmap id, -1: plain colour
+    bg_tm: int                # background texmap id, -1: plain colour
+    has_file_tex: bool        # some texture is a file texture
+    need_uv: bool             # some material has a kd/ks texture map
     has_gloss: bool           # some material has glossy refl/refr
+
+    @property
+    def textured(self) -> bool:
+        """The wave needs the kernel's textured variant: file textures or
+        an environment map."""
+        return self.has_file_tex or self.env_tm >= 0
 
     @property
     def device(self) -> torch.device:
@@ -154,21 +176,32 @@ def _materials(scene: Scene) -> np.ndarray:
                    (20, mt.refl_gloss), (21, mt.refr_gloss)):
         x = x.cpu().numpy().reshape(m, -1)
         rows[:, col:col + x.shape[1]] = x
-    kinds = scene.textures.kind.cpu().numpy()
-    c1 = scene.textures.c1.cpu().numpy()
-    c2 = scene.textures.c2.cpu().numpy()
-    tm_tex = scene.texmaps.tex.cpu().numpy()
-    tm_itm = scene.texmaps.itm.cpu().numpy()
-    tm_pos = scene.texmaps.pos.cpu().numpy()
-    for flag, base, tms in ((22, 24, mt.diffuse_tm), (23, 40, mt.specular_tm)):
-        for i, t in enumerate(tms.tolist()):
-            if t < 0 or kinds[tm_tex[t]] != TEX_CHECKER:
-                continue
-            x = tm_tex[t]
-            rows[i, flag] = 1.0
-            rows[i, base:base + 15] = np.concatenate(
-                [tm_itm[t][0], tm_itm[t][1], tm_pos[t], c1[x], c2[x]])
+    rows[:, 22] = mt.diffuse_tm.cpu().numpy()
+    rows[:, 23] = mt.specular_tm.cpu().numpy()
     return rows
+
+
+def _texture_tables(scene: Scene):
+    """texmaps [Q, 10], textures [X, 10], the padded atlas [R*W, 4] and W."""
+    tm, tx = scene.texmaps, scene.textures
+    itm = tm.itm.cpu().numpy()
+    texmaps = np.zeros((itm.shape[0], TEXMAP_W), np.float32)
+    texmaps[:, 0:3] = itm[:, 0]
+    texmaps[:, 3:6] = itm[:, 1]
+    texmaps[:, 6:9] = tm.pos.cpu().numpy()
+    texmaps[:, 9] = tm.tex.cpu().numpy()
+    kind = tx.kind.cpu().numpy()
+    textures = np.zeros((kind.shape[0], TEX_W), np.float32)
+    textures[:, 0] = kind
+    textures[:, 1] = tx.width.cpu().numpy()
+    textures[:, 2] = tx.height.cpu().numpy()
+    textures[:, 3] = tx.row0.cpu().numpy()
+    textures[:, 4:7] = tx.c1.cpu().numpy()
+    textures[:, 7:10] = tx.c2.cpu().numpy()
+    atlas = tx.atlas.cpu().numpy()
+    texels = np.zeros((atlas.shape[0] * atlas.shape[1], 4), np.float32)
+    texels[:, 0:3] = atlas.reshape(-1, 3)
+    return texmaps, textures, texels, atlas.shape[1]
 
 
 def _lights(scene: Scene) -> np.ndarray:
@@ -189,6 +222,7 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
     dev = scene.device if device is None else torch.device(device)
     tiles, faces, ranges = _mesh_tables(scene)
     mats = _materials(scene)
+    texmaps, textures, atlas, atlas_w = _texture_tables(scene)
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.float32),
@@ -200,7 +234,11 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
                                 ranges if len(ranges) else None)),
         tiles=t(tiles), faces=t(faces), materials=t(mats),
         lights=t(_lights(scene)),
+        texmaps=t(texmaps), textures=t(textures), atlas=t(atlas),
+        atlas_w=int(atlas_w),
         env=tuple(float(x) for x in scene.env_color.tolist()),
-        need_uv=bool(mats[:, 22:24].max(initial=0.0) > 0),
+        env_tm=int(scene.env_tm), bg_tm=int(scene.bg_tm),
+        has_file_tex=bool(scene.has_file_tex),
+        need_uv=bool(mats[:, 22:24].max(initial=-1.0) >= 0),
         has_gloss=bool(mats[:, 20:22].max(initial=0.0) > 0),
     )

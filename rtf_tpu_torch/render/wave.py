@@ -2,17 +2,23 @@
 kernel's wrapper.
 
 `wave` is the port of rtf_tpu/render/fused.py::fused_wave and its Pallas
-kernel `_wave_kernel` (immediates mesh variant, no surf_out/gi_from rows).
-For each ray it runs closest hit (spheres, planes, then mesh faces in
-packed order with a strict `t < best`), checker kd/ks, Blinn direct light
-with hard or adaptive disk soft shadows, Beer absorption, the environment
-on a miss, glossy perturbation, Schlick Fresnel/TIR and one
-Russian-roulette child per bounce.
+kernel `_wave_kernel` (immediates mesh variant, no surf_out/gi_from rows),
+and of rtf_tpu/render/fused_seg.py::fused_wave_seg, whose two Pallas
+kernels (`_seg_hit_kernel`, `_seg_shade_kernel`) and XLA texture segment
+(`_seg_texture`, `_seg_env`) it folds into the same per-bounce loop.
+For each ray it runs closest hit with uv (spheres, planes, then mesh faces
+in packed order with a strict `t < best`), kd/ks as the material colour
+times its texture map (checker or bilinear file texture), Blinn direct
+light with hard or adaptive disk soft shadows, Beer absorption, the
+environment (colour or angular map) on a miss, glossy perturbation,
+Schlick Fresnel/TIR and one Russian-roulette child per bounce.
 
 `wave_plain` computes the same function with one tensor lane per ray and
 is what the CPU runs; `wave` launches csrc/wave_kernel.cu for CUDA
-tensors.  Both read the same tables (render/scene_tables.py) and the same
-per-lane hash RNG as the TPU kernel (`_rand01`, fused.py:1136-1150): lane
+tensors, in its textured variant when the scene has file textures or an
+environment map.  Both read the same tables (render/scene_tables.py) and
+the same per-lane hash RNG as the TPU kernel (`_rand01`,
+fused.py:1136-1150): lane
 i draws from the 1024-lane group i // 1024 with per-group seed
 seed + (blk0 + i // 1024) * 7919 in int32, so lane order is the caller's
 ray order and results are per lane comparable with the JAX package.
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.ops.pack import DZ_EPS, ZERO
+from rtf_tpu_torch.ops.texture import env_uv_ch, sample_texmap_ch
 from rtf_tpu_torch.render.scene_tables import WaveTables
 
 BIG = 1.0e30
@@ -34,8 +41,11 @@ RT_PRIMARY, RT_REFLECT, RT_REFRACT = 0, 1, 2
 _M32 = 0xFFFFFFFF
 _CHUNK = 1 << 20      # ray x face elements per plain mesh step
 
-# kernel launches made by `wave` (the plain version never counts)
+# kernel launches made by `wave`, untextured and textured variant (the
+# plain version never counts)
 launches = 0
+launches_textured = 0
+NSTAT = 11            # work counters of the kernel (csrc/wave_kernel.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +74,7 @@ def shade_params(cfg, tables: WaveTables) -> dict:
         coef=(1.0 / max(n_lights, 1)) if cfg.light_average else 1.0,
         inverse_square=bool(cfg.inverse_square),
         env_on_reflect_miss=bool(cfg.env_on_reflect_miss),
+        env_l2=bool(cfg.env_l2),
         total_reflection_threshold=float(cfg.total_reflection_threshold),
         color_threshold=float(cfg.color_threshold),
         shadow_max=int(cfg.shadow_max), shadow_min=int(cfg.shadow_min))
@@ -293,7 +304,9 @@ def _plane(row, o3, d3):
 
 def _closest_hit(h, o3, d3, need_uv):
     """fused.py::_closest_hit: primitives first, then the mesh.  Returns
-    (t, normalized n3, mtl, front, (u, v))."""
+    (t, normalized n3, mtl, front, (u, v)), the rows that
+    fused_seg.py::_seg_hit_kernel writes (without its deferred-resolve fid);
+    u, v stay 0.5 on misses and when `need_uv` is False."""
     t = torch.full_like(o3[0], BIG)
     # separate tensors: _mesh_closest updates them in place
     nx, ny, nz, mtl, front = (torch.zeros_like(t) for _ in range(5))
@@ -350,26 +363,15 @@ def _primitive_anyhit(h, o3, d3, t_cap):
     return occ
 
 
-def _surface_color(M, mrow, base, flag, uv, need_uv):
-    """fused.py::_select_surface_color: kd/ks, times the material's
-    checker (TextureChecker, texture.cpp:125-133) where it has one."""
+def _surface_color(tables, M, mrow, base, tm_col, uv, need_uv):
+    """kd or ks: the material colour times its texture map
+    (fused_seg.py::_seg_texture; TexturedColor::Sample, main.cpp:531-532);
+    a lane without a map keeps the colour (its sample is 1)."""
     col = [M[:, base + c][mrow] for c in range(3)]
     if not need_uv:
         return col
-    k = 24 if base == 0 else 40
-    ch = M[:, k:k + 15][mrow]
-    has = M[:, flag][mrow] > 0.5
-    u, v = uv
-    du = u - ch[:, 6]
-    dv = v - ch[:, 7]
-    lu = ch[:, 0] * du + ch[:, 1] * dv - ch[:, 2] * ch[:, 8]
-    lv = ch[:, 3] * du + ch[:, 4] * dv - ch[:, 5] * ch[:, 8]
-    tu = lu - torch.floor(lu)
-    tv = lv - torch.floor(lv)
-    odd = (tu <= 0.5) ^ (tv <= 0.5)
-    return [torch.where(has, col[c] * torch.where(odd, ch[:, 12 + c],
-                                                    ch[:, 9 + c]), col[c])
-            for c in range(3)]
+    tex = sample_texmap_ch(tables, M[:, tm_col][mrow].to(torch.int64), *uv)
+    return [col[c] * tex[c] for c in range(3)]
 
 
 def _bounce(h, tables, prm, state, seed, lane):
@@ -380,8 +382,8 @@ def _bounce(h, tables, prm, state, seed, lane):
     t, (nx, ny, nz), mtl, front, uv = _closest_hit(h, o3, d3, tables.need_uv)
     M = h.mats
     mrow = mtl.to(torch.long)
-    kd = _surface_color(M, mrow, 0, 22, uv, tables.need_uv)
-    ks = _surface_color(M, mrow, 3, 23, uv, tables.need_uv)
+    kd = _surface_color(tables, M, mrow, 0, 22, uv, tables.need_uv)
+    ks = _surface_color(tables, M, mrow, 3, 23, uv, tables.need_uv)
 
     def mat(col, dims=3):
         if dims == 1:
@@ -500,9 +502,15 @@ def _bounce(h, tables, prm, state, seed, lane):
     if prm["env_on_reflect_miss"]:
         env_ok = env_ok | (rtype == float(RT_REFLECT))
     env_mask = alive & (t >= BIG) & env_ok
+    env3 = tables.env
+    if tables.env_tm >= 0:
+        # the angular map at the ray's direction (fused_seg.py::_seg_env)
+        eu, ev = env_uv_ch(d3[0], d3[1], d3[2], l2=prm["env_l2"])
+        tex = sample_texmap_ch(
+            tables, torch.full_like(mrow, tables.env_tm), eu, ev)
+        env3 = [tables.env[c] * tex[c] for c in range(3)]
     for c in range(3):
-        rad[c] = rad[c] + torch.where(env_mask, tput[c] * tables.env[c],
-                                      zero)
+        rad[c] = rad[c] + torch.where(env_mask, tput[c] * env3[c], zero)
     hitf = hit.to(torch.float32)
     tz = torch.where(hit, t, BIG)
 
@@ -649,10 +657,13 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     """One sample wave through csrc/wave_kernel.cu for CUDA tensors, or
     `wave_plain` for CPU tensors.  Same signature and returns as
     rtf_tpu/render/fused.py::fused_wave (lane order in = lane order out).
+    Scenes with file textures or an environment map launch the kernel's
+    textured variant (counted in `launches_textured`), others the
+    untextured one (counted in `launches`).
 
-    stats: optional CUDA int64 tensor [8] that the kernel adds its work
-    counts to (see csrc/wave_kernel.cu, STAT_*)."""
-    global launches
+    stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
+    work counts to (see csrc/wave_kernel.cu, STAT_*)."""
+    global launches, launches_textured
     if o3.device.type == "cpu":
         return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0)
     if o3.device.type != "cuda":
@@ -662,20 +673,21 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     rays = pack_rays(o3, d3, alive)
     dev = rays.device
     for name in ("spheres", "planes", "mesh_insts", "tiles", "faces",
-                 "materials", "lights"):
+                 "materials", "lights", "texmaps", "textures", "atlas"):
         x = getattr(tables, name)
         if x.device != dev or x.dtype != torch.float32 \
                 or not x.is_contiguous():
             raise ValueError(f"wave: table {name} must be contiguous "
                              f"float32 on {dev}")
-    if tables.faces.data_ptr() % 16:
-        raise ValueError("wave: the face table must be 16-byte aligned "
-                         "(the kernel reads its rows as float4)")
+    for name in ("faces", "atlas"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(f"wave: the {name} table must be 16-byte "
+                             "aligned (the kernel reads its rows as float4)")
     if stats is not None and (stats.device != dev
                               or stats.dtype != torch.int64
-                              or stats.numel() < 8):
-        raise ValueError("wave: stats must be an int64 [8] tensor on "
-                         f"{dev}")
+                              or stats.numel() < NSTAT):
+        raise ValueError(f"wave: stats must be an int64 [{NSTAT}] tensor "
+                         f"on {dev}")
     n = rays.shape[1]
     out = torch.empty((5, n), dtype=torch.float32, device=dev)
     prm = shade_params(cfg, tables)
@@ -698,6 +710,9 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ptr(tables.tiles), ptr(tables.faces),
             ptr(tables.materials), ptr(tables.lights),
             tables.lights.shape[0],
+            ptr(tables.texmaps), ptr(tables.textures), ptr(tables.atlas),
+            tables.atlas_w, tables.env_tm, int(prm["env_l2"]),
+            int(tables.textured),
             *(ctypes.c_float(v) for v in tables.env),
             ctypes.c_float(prm["coef"]), int(prm["inverse_square"]),
             int(prm["env_on_reflect_miss"]),
@@ -709,5 +724,8 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
-    launches += 1
+    if tables.textured:
+        launches_textured += 1
+    else:
+        launches += 1
     return out[0:3], out[3] > 0.0, out[4]

@@ -4,9 +4,8 @@ The port of rtf_tpu/scene/build.py for the render path this package runs:
 the node hierarchy is flattened into per-instance world<->local
 transforms grouped by primitive type, materials become a table, and
 meshes become per-face SoA plus the Morton-packed triangle table of
-ops/pack.py.  There is no BVH (the wave kernel walks the packed tiles)
-and no file-texture atlas (textures are checker maps only; a file
-texture is recorded as kind TEX_FILE and refused by the renderer).
+ops/pack.py.  There is no BVH (the wave kernel walks the packed tiles).
+File textures are stacked into one row atlas, as rtf_tpu/scene/build.py does.
 """
 from __future__ import annotations
 
@@ -109,7 +108,11 @@ class LightTable:
 
 @dataclass
 class TextureTable:
+    atlas: torch.Tensor  # [R, W, 3] float32; file textures stacked by rows
     kind: torch.Tensor   # [X] int32
+    width: torch.Tensor  # [X] int32 (1 for checkers)
+    height: torch.Tensor  # [X] int32 (1 for checkers)
+    row0: torch.Tensor   # [X] int32 first atlas row
     c1: torch.Tensor     # [X,3] checker colors
     c2: torch.Tensor
 
@@ -150,6 +153,8 @@ class Scene:
     mesh_inst_slots: tuple = ()
     world_min: tuple = (-1.0,) * 3
     world_max: tuple = (1.0,) * 3
+    # any file texture exists (the textured kernel variant is needed)
+    has_file_tex: bool = False
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
 
 
@@ -395,21 +400,40 @@ class _Builder:
         )
 
     def pack_textures(self):
-        """Checker textures as colour pairs; a file texture keeps kind
-        TEX_FILE (and zero colours) so the renderer's gate can refuse it."""
+        """Checker textures as colour pairs; file textures stacked into one
+        row atlas [sum of heights, max width, 3] with per-texture width,
+        height and first row (rtf_tpu/scene/build.py::pack_textures)."""
         n = max(len(self.textures), 1)
         kinds = np.zeros(n, I32)
+        widths = np.ones(n, I32)
+        heights = np.ones(n, I32)
+        row0 = np.zeros(n, I32)
         c1 = np.zeros((n, 3), F32)
         c2 = np.zeros((n, 3), F32)
+        slices = []
+        rows, maxw = 0, 1
         for i, t in enumerate(self.textures):
             if t.kind == "file" and t.data is not None:
                 kinds[i] = TEX_FILE
+                h, w = t.data.shape[:2]
+                widths[i], heights[i], row0[i] = w, h, rows
+                rows += h
+                maxw = max(maxw, w)
+                slices.append(t.data)
             else:
                 kinds[i] = TEX_CHECKER
                 c1[i] = np.asarray(t.color1, F32)
                 c2[i] = np.asarray(t.color2, F32)
-        tex_table = TextureTable(kind=self.t(kinds, I32), c1=self.t(c1),
-                                 c2=self.t(c2))
+        atlas = np.zeros((max(rows, 1), maxw, 3), F32)
+        r = 0
+        for img in slices:
+            h, w = img.shape[:2]
+            atlas[r:r + h, :w] = img
+            r += h
+        tex_table = TextureTable(
+            atlas=self.t(atlas), kind=self.t(kinds, I32),
+            width=self.t(widths, I32), height=self.t(heights, I32),
+            row0=self.t(row0, I32), c1=self.t(c1), c2=self.t(c2))
         if not self.texmaps:
             tmap = TexMapTable(tex=self.t([0], I32),
                                itm=self.t(np.eye(3)[None]),
@@ -474,5 +498,7 @@ def build_scene(desc: SceneDesc, device="cuda") -> Scene:
                               for e in b.groups["mesh"]),
         world_min=bounds(b.wmin, -1.0),
         world_max=bounds(b.wmax, 1.0),
+        has_file_tex=any(t.kind == "file" and t.data is not None
+                         for t in b.textures),
         device=dev,
     )

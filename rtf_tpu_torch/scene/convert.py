@@ -5,7 +5,7 @@ numpy arrays keyed by their tree path ("spheres.itm", "mesh.tri_packed",
 "bg_color", ...) and its static fields by name ("width", "light_kinds",
 "mesh.slot_pack", ...), and returns the port's `Scene`.  Nothing here
 imports JAX: the caller flattens the GpuScene.  Leaves the port has no
-field for (the BVH arena, the file-texture atlas) are ignored.
+field for (the BVH arena) are ignored.
 """
 from __future__ import annotations
 

@@ -47,6 +47,60 @@ def checker_desc(w=32, h=24, port=True):
     return desc
 
 
+def textured_desc(w=32, h=24, port=True, seed=0, mesh_subdiv=1,
+                  background=False):
+    """The textured box (chip_smoke.py::textured_desc builds the same):
+    box_scene(w, h, with_mesh=True) with file texture A (512x512) on the
+    walls' kd through Transform().scale(0.25) (plane uv, tiling), file
+    texture B (256x256) on the ball's kd (mesh uv; the icosphere gets
+    spherical vertex uv), checker_desc's scaled checker on the mirror's ks
+    (sphere uv) and file texture C (512x512) as the environment map with
+    colour (1, 1, 1).  Textures are float32 in [0, 1) from
+    np.random.RandomState(seed), drawn in the order A, B, C.
+    `background` adds texture A, scaled by 0.5, as the background map
+    with colour (0.8, 0.9, 1.0)."""
+    if port:
+        from rtf_tpu_torch.core.transform import Transform
+        from rtf_tpu_torch.scene.model import (
+            TexMapDesc, TextureDesc, TexturedColorDesc)
+        from rtf_tpu_torch.scene.procedural import box_scene
+    else:
+        from rtf_tpu.core.transform import Transform
+        from rtf_tpu.scene.model import (
+            TexMapDesc, TextureDesc, TexturedColorDesc)
+        from rtf_tpu.scene.procedural import box_scene
+    desc = box_scene(w, h, with_mesh=True, mesh_subdiv=mesh_subdiv)
+    rng = np.random.RandomState(seed)
+    tex_a, tex_b, tex_c = (
+        TextureDesc(kind="file", name=name,
+                    data=rng.rand(n, n, 3).astype(np.float32))
+        for name, n in (("A", 512), ("B", 256), ("C", 512)))
+    chk = TextureDesc(kind="checker", name="c",
+                      color1=np.array([0.1, 0.1, 0.1]),
+                      color2=np.array([0.9, 0.8, 0.2]))
+    wall = desc.materials["wall"]
+    wall.diffuse = TexturedColorDesc(
+        wall.diffuse.color, TexMapDesc(tex_a, Transform().scale(0.25)))
+    ball = desc.materials["redball"]
+    ball.diffuse = TexturedColorDesc(ball.diffuse.color, TexMapDesc(tex_b))
+    mirror = desc.materials["mirror"]
+    mirror.specular = TexturedColorDesc(
+        mirror.specular.color,
+        TexMapDesc(chk, Transform().scale(0.125).translate([0.1, 0.0, 0.0])))
+    desc.environment = TexturedColorDesc(np.ones(3), TexMapDesc(tex_c))
+    if background:
+        desc.background = TexturedColorDesc(
+            np.array([0.8, 0.9, 1.0]),
+            TexMapDesc(tex_a, Transform().scale(0.5)))
+    mesh = next(n.mesh for n in desc.root.children if n.obj_kind == "mesh")
+    v = mesh.v.astype(np.float64)
+    mesh.vt = np.stack([0.5 + np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi),
+                        0.5 + np.arcsin(np.clip(v[:, 2], -1, 1)) / np.pi,
+                        np.zeros(len(v))], axis=1).astype(np.float32)
+    mesh.ft = mesh.f.copy()
+    return desc
+
+
 def jax_scene_arrays(scene):
     """A JAX GpuScene's leaves {path: np.ndarray} and static fields."""
     import jax
@@ -106,7 +160,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("case", [
-    "faces", "file_texture", "gi", "both_split", "tex_filter", "dof",
+    "faces", "emission_texture", "gi", "both_split", "tex_filter", "dof",
     "lights", "materials"])
 def test_unsupported_scenes_raise(case):
     from rtf_tpu_torch.core.transform import Transform
@@ -121,10 +175,10 @@ def test_unsupported_scenes_raise(case):
                        shadow_min=1, shadow_max=1)
     if case == "faces":
         desc = box_scene(8, 6, mesh_subdiv=3)          # 1280 faces
-    elif case == "file_texture":
+    elif case == "emission_texture":
         m = desc.materials["wall"]
         tex = TextureDesc(kind="file", data=np.zeros((2, 2, 3), np.float32))
-        m.diffuse = TexturedColorDesc(m.diffuse.color, TexMapDesc(tex))
+        m.emission = TexturedColorDesc(np.ones(3), TexMapDesc(tex))
     elif case == "gi":
         cfg = cfg.with_(gi_mode="hemisphere")
     elif case == "both_split":
@@ -145,3 +199,26 @@ def test_unsupported_scenes_raise(case):
     scene = build_scene(desc, device="cpu")
     with pytest.raises(NotImplementedError):
         render(scene, cfg, device="cpu")
+
+
+def test_textured_scene_renders_on_cpu():
+    """File textures on kd, an environment map and a background map: the
+    scene renders (no longer refused), finite and not black, and the
+    background map shows where no sample hit (the back wall is taken out,
+    so primary rays and the mirror's reflections leave the box)."""
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.scene.build import build_scene
+    desc = textured_desc(16, 12, mesh_subdiv=0, background=True)
+    box = desc.root.children[0]
+    box.children = [n for n in box.children if n.name != "back"]
+    scene = build_scene(desc, device="cpu")
+    assert scene.has_file_tex and scene.env_tm >= 0 and scene.bg_tm >= 0
+    res = render(scene, RenderConfig(min_samples=4, max_samples=4, bounces=2,
+                                     shadow_min=1, shadow_max=1,
+                                     split_mode="rr",
+                                     env_on_reflect_miss=True), device="cpu")
+    assert np.isfinite(res.radiance).all()
+    assert res.image.shape == (12, 16, 3) and res.image.mean() > 5.0
+    miss = res.z >= 1e29
+    assert miss.any() and res.radiance[miss].std() > 0.01

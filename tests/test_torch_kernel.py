@@ -7,11 +7,13 @@ Tolerances are chip_smoke.py's: bounce 0 exact hit masks, atol 2e-4 and
 z rtol 1e-4; past bounce 0 at most 1% of lanes outside 2e-4 (a rounding
 flip of a Russian-roulette choice) and the mean within 1%.  Dead lanes
 (the "-dead" cases, as the adaptive ladder's later rungs mask pixels) give
-exactly zero radiance and no hit."""
+exactly zero radiance and no hit.  The "textured" cases (file textures,
+an environment map and a checker; tests/test_torch_common.py) run the
+kernel's textured variant, counted in `launches_textured`."""
 import pytest
 import torch
 
-from test_torch_common import checker_desc
+from test_torch_common import checker_desc, textured_desc
 
 
 @pytest.fixture
@@ -47,6 +49,8 @@ def _desc(name):
     name = name.removesuffix("-dead")
     if name == "checker":
         return checker_desc(64, 48)
+    if name == "textured":
+        return textured_desc(64, 48)
     return box_scene(64, 48, mesh_subdiv=1,
                      light_size=1.0 if name == "soft" else 0.0)
 
@@ -55,20 +59,23 @@ def _desc(name):
 @pytest.mark.parametrize("name,bounces,seed", [
     ("box", 0, 123), ("soft", 0, 2 ** 31 - 5), ("checker", 0, 1),
     ("box", 4, 2 ** 31 - 5), ("soft", 4, 77), ("box-dead", 4, 31),
-    ("soft-dead", 0, 8)])
+    ("soft-dead", 0, 8), ("textured", 0, 3), ("textured", 4, 2 ** 31 - 5),
+    ("textured-dead", 4, 9)])
 def test_kernel_matches_plain(cuda_dev, name, bounces, seed):
     from rtf_tpu_torch.render import wave as W
     soft = name.startswith("soft")
     cfg = _cfg(bounces=bounces, shadow_min=4 if soft else 1,
-               shadow_max=16 if soft else 1)
+               shadow_max=16 if soft else 1, split_mode="rr",
+               env_on_reflect_miss=name.startswith("textured"))
     tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    assert tables.textured == name.startswith("textured")
     if name.endswith("-dead"):
         alive[::2] = False
     pr, ph, pz = W.wave_plain(cfg, tables, o3, d3, alive, seed)
-    before = W.launches
+    before = W.launches + W.launches_textured
     kr, kh, kz = W.wave(cfg, tables, o3, d3, alive, seed)
     torch.cuda.synchronize()
-    assert W.launches == before + 1
+    assert W.launches + W.launches_textured == before + 1
     assert torch.equal(kh, ph)
     assert not bool(kh[~alive].any())
     assert bool((kr[:, ~alive] == 0).all())
@@ -82,15 +89,26 @@ def test_kernel_matches_plain(cuda_dev, name, bounces, seed):
 
 
 @pytest.mark.cuda
-def test_kernel_work_counters(cuda_dev):
+@pytest.mark.parametrize("name", ["box", "textured"])
+def test_kernel_work_counters(cuda_dev, name):
     from rtf_tpu_torch.render import wave as W
-    tables, o3, d3, alive = _setup(_desc("box"), cuda_dev)
-    stats = torch.zeros(8, dtype=torch.int64, device=cuda_dev)
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    stats = torch.zeros(W.NSTAT, dtype=torch.int64, device=cuda_dev)
     alive[::2] = False
-    W.wave(_cfg(bounces=2), tables, o3, d3, alive, 5, stats=stats)
-    rays, hits, shadow = stats.tolist()[:3]
+    W.wave(_cfg(bounces=2, split_mode="rr", env_on_reflect_miss=True),
+           tables, o3, d3, alive, 5, stats=stats)
+    st = stats.tolist()
+    rays, hits, shadow = st[:3]
     assert int(alive.sum()) <= rays <= 3 * int(alive.sum())
     assert hits <= rays and shadow == hits
+    tex_file, tex_checker, env = st[8:11]
+    if name == "box":
+        assert tex_file == tex_checker == env == 0
+    else:
+        # kd and ks of every hit sample one map each at most; every env
+        # sample is one file-texture sample
+        assert 0 < env <= rays - hits and 0 < tex_checker <= hits
+        assert env < tex_file <= 2 * hits + env
 
 
 def test_wave_refuses_other_devices():

@@ -6,7 +6,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from test_torch_common import checker_desc, jax_scene_arrays  # noqa: E402
+from test_torch_common import (  # noqa: E402
+    checker_desc, jax_scene_arrays, textured_desc)
 
 
 def scene_leaves(scene):
@@ -30,10 +31,13 @@ def _descs(name):
     from rtf_tpu_torch.scene.procedural import box_scene as pbox
     if name == "box":
         return (jbox(32, 24, mesh_subdiv=1), pbox(32, 24, mesh_subdiv=1))
+    if name == "textured":
+        return (textured_desc(port=False, background=True),
+                textured_desc(port=True, background=True))
     return checker_desc(port=False), checker_desc(port=True)
 
 
-@pytest.mark.parametrize("name", ["box", "checker"])
+@pytest.mark.parametrize("name", ["box", "checker", "textured"])
 def test_build_scene_matches_jax(name):
     from rtf_tpu.scene.build import build_scene as jbuild
     from rtf_tpu_torch.scene.build import build_scene
@@ -56,15 +60,21 @@ def test_build_scene_matches_jax(name):
                                           err_msg=key)
     for key in ("width", "height", "fov", "focaldist", "dof", "bg_tm",
                 "env_tm", "num_spheres", "num_planes", "num_mesh_inst",
-                "num_lights", "light_kinds", "mesh_inst_slots"):
+                "num_lights", "light_kinds", "mesh_inst_slots",
+                "has_file_tex"):
         assert getattr(port, key) == getattr(ref, key), key
     np.testing.assert_allclose(port.world_min, ref.world_min, atol=1e-6)
     np.testing.assert_allclose(port.world_max, ref.world_max, atol=1e-6)
-    if name == "box":
+    if name != "checker":
         assert port.mesh.slot_faces == ref.mesh.slot_faces
         assert port.mesh.slot_pack == ref.mesh.slot_pack
-    else:
+    if name != "box":
         assert int(port.materials.diffuse_tm.max()) >= 1
+    if name == "textured":
+        # atlas rows: A (512), B (256), C (512); the checker keeps 1x1
+        assert port.has_file_tex and port.env_tm >= 0 and port.bg_tm >= 0
+        assert tuple(port.textures.atlas.shape) == (1280, 512, 3)
+        assert sorted(port.textures.row0.tolist()) == [0, 0, 512, 768]
 
 
 def test_camera_matches_jax():
