@@ -6,14 +6,19 @@
 Run from the root of a checkout, on a host with a CUDA card and nvcc.  It
 imports only the port, torch and numpy, and exits nonzero on any failure:
 
-1. build    builds the wave kernel (both variants) from the sources in the
-            checkout and prints the build time;
+1. build    builds the wave kernel (its four variants: untextured or
+            textured, with or without GI rows) from the sources in the
+            checkout and prints the build time and register counts;
 2. kernel   holds the kernel against its plain PyTorch version on the card
             at 160x120 (box scene at bounces 0 and 4, soft shadows, a
             checker scene, glossy materials, waves with every other lane
             dead; the textured box at bounces 0 and 4, with the
             environment map on reflection misses in L1 and L2 form, and
-            half dead) and at the main path's shape;
+            half dead) and at the main path's shape; then the GI rows in
+            both variants at 160x120 and 800x600: first-hit surface rows,
+            query rows from bounce 1 and from bounce 0, and a hemisphere
+            child wave (non-unit throughput, RT_REFRACT, every other lane
+            dead) without and with query rows;
 3. main     renders the main path (bench.py's scene and config: the box
             scene at 800x600, 64 spp, 4 bounces, hard shadows) through
             `render` on the card: one warm-up frame, best of 3, each frame
@@ -23,7 +28,21 @@ imports only the port, torch and numpy, and exits nonzero on any failure:
 4. textured the same for the textured box (file textures on the walls'
             and the ball's kd, a checker on the mirror's ks, a file
             environment map) at 800x600, 64 spp, 4 bounces: 64 launches
-            of the textured variant per frame.
+            of the textured variant per frame;
+5. gi       bench.py's GI cell (bench.py:177-192): the box at 400x300,
+            8 spp, 2 bounces, gi_mode "hemisphere" with 4 hemisphere
+            samples: one warm-up frame, best of 3, each frame counted
+            (8 x (1 + 4) = 40 launches of the untextured variant); then
+            per launch kind (the primary launch with its rows, a child
+            launch) the kernel's time, work counts and bound, and the
+            plain GI wave's time;
+6. hybrid   the reference's Final structure at full width: the textured
+            box at 800x600, 8 spp, 4 bounces, adaptive 4-16 soft shadows,
+            gi_mode "photon" with 30 hemisphere samples, a photon volume
+            and a caustic volume (each 60x60x45 cells, 171,166 corners,
+            spanning the box, table from a numpy seed): 8 x 31 = 248
+            launches of the textured variant per frame, and the figures
+            of phase 5.
 
 Tolerances: at bounce 0 the hit masks are equal, radiance within atol
 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
@@ -31,9 +50,14 @@ may flip a Russian-roulette choice, so at most 1% of lanes may lie outside
 atol 2e-4 and the mean radiance agrees within 1%.  Dead lanes give
 exactly zero radiance and no hit.
 
+The GI rows follow the same rule: rows of bounce 0 (the surface rows,
+the bounce-0 query) within atol 2e-4 + rtol 1e-4 on every lane, query rows
+past bounce 0 with at most 1% of lanes outside and the mean within 1%;
+every row is finite and the query weight is zero on dead lanes.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
-build/chip_smoke_main.png and build/chip_smoke_textured.png.
+build/chip_smoke_{main,textured,gi,hybrid}.png.
 """
 import json
 import os
@@ -172,6 +196,89 @@ def compare(name, plain, kern, alive, bounces):
     return max_err, share
 
 
+def compare_rows(name, plain, kern, alive, bounces, gi_from):
+    """The rows of a wave with surf_out/gi_from, kernel against plain;
+    returns the max abs error over every row."""
+    import torch
+    (pr, ph, pz, ps, pq), (kr, kh, kz, ks, kq) = plain, kern
+    err, _ = compare(name, (pr, ph, pz), (kr, kh, kz), alive, bounces)
+    check(len(pq) == len(kq) and (ps is None) == (ks is None),
+          f"{name}: row sets differ")
+    rows = [(0, ps, ks)] if ps is not None else []
+    rows += [(gi_from + k, p, k_) for k, (p, k_) in enumerate(
+        zip((torch.cat(q) for q in pq), (torch.cat(q) for q in kq)))]
+    for b, p, k in rows:
+        check(bool(torch.isfinite(k).all()), f"{name}: rows not finite")
+        e = (k - p).abs()
+        err = max(err, float(e.max()))
+        off = (e > ATOL + ZTOL * p.abs()).any(dim=0)
+        if b == 0:
+            check(not bool(off.any()),
+                  f"{name}: bounce-0 rows differ on {int(off.sum())} lanes")
+        else:
+            share = float(off.float().mean())
+            check(share <= FLIP_SHARE,
+                  f"{name}: rows of bounce {b}: {share:.4f} of lanes off")
+            mp, mk = float(p.mean()), float(k.mean())
+            check(abs(mk - mp) <= MEAN_TOL * abs(mp) + 1e-6,
+                  f"{name}: rows of bounce {b}: mean {mk} vs {mp}")
+    for q in kq:
+        check(not bool((q[2][:, ~alive] != 0).any()),
+              f"{name}: a dead lane has a query weight")
+    print(f"[kernel] {name}: rows {ks.shape[0] if ks is not None else 0} "
+          f"surface + {len(kq)} x 9 query, max_abs_err over all rows "
+          f"{err:.3e}", flush=True)
+    return err
+
+
+def bound(tables, st, n, rows_in, rows_out):
+    """The least time of one launch on this card: the larger of its FP32
+    operations (from the work counters) over the FP32 peak and its bytes
+    (each input once: rows_in floats in and rows_out out per ray, the
+    tables and the atlas's texels at 12 bytes) over the HBM rate.  Also
+    the bound with four 16-byte texel reads per file-texture sample
+    instead of the atlas once."""
+    ns, np_ = tables.spheres.shape[0], tables.planes.shape[0]
+    flops = (st["rays"] * (ns * OPS["sphere"] + np_ * OPS["plane"])
+             + st["inst"] * OPS["inst"] + st["tiles"] * OPS["slab"]
+             + (st["tri_closest"] + st["tri_shadow"]) * OPS["tri"]
+             + st["prim_shadow"] * OPS["plane"]
+             + st["hits"] * OPS["shade"] + st["shadow"] * OPS["shadow"]
+             + st["tex_file"] * OPS["tex_file"]
+             + st["tex_checker"] * OPS["tex_checker"]
+             + st["env"] * OPS["env"])
+    table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
+        "spheres", "planes", "mesh_insts", "tiles", "faces", "materials",
+        "lights", "texmaps", "textures"))
+    texels = tables.atlas.shape[0] if tables.has_file_tex else 0
+    nbytes = n * rows_in * 4 + n * rows_out * 4 + table_bytes + texels * 12
+    nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
+    bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return dict(flops=flops, bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_ms_texel_reads=max(nbytes_reads / HBM_BPS * 1e3,
+                                         ops_ms))
+
+
+def box_volume(scene, seed, dev):
+    """An irradiance volume at the committed scene_b volume's size (60 x 60
+    x 45 cells, 171,166 corners) spanning the scene's world bounds: E in
+    [0, 0.5) and mean directions in [-1, 1) from numpy seed `seed`."""
+    import numpy as np
+    from rtf_tpu_torch.gi.volume import volume_from_arrays
+    dims = (60, 60, 45)
+    nc = 61 * 61 * 46
+    rng = np.random.RandomState(seed)
+    table = np.concatenate([rng.uniform(0.0, 0.5, (3, nc)),
+                            rng.uniform(-1.0, 1.0, (3, nc))]).astype(
+                                np.float32)
+    lo = np.asarray(scene.world_min, np.float32)
+    cell = float(np.max((np.asarray(scene.world_max, np.float32) - lo)
+                        / np.asarray(dims, np.float32)))
+    return volume_from_arrays(table, lo, dims, cell, device=dev)
+
+
 def main():
     try:
         import torch
@@ -187,6 +294,8 @@ def main():
 
     from rtf_tpu_torch import _build
     from rtf_tpu_torch.render import wave as W_
+    from rtf_tpu_torch.render.gi import (
+        child_wave_args, gi_wave, primary_gi_from)
     from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
@@ -206,7 +315,7 @@ def main():
     log = _build.build()
     build_s = time.perf_counter() - t0
     for line in log.splitlines():
-        # per variant: wave_kernel<false> (Lb0) and wave_kernel<true> (Lb1)
+        # per variant: wave_kernel<TEXTURED, ROWS>, mangled Lb0/Lb1 pairs
         if any(k in line for k in ("registers", "spill", "entry function")):
             print(f"[build] wave: {line.strip()}", flush=True)
     print(f"[build] built {_build.library_path().name} in {build_s:.2f} s",
@@ -268,12 +377,140 @@ def main():
         plain, kern, al = both(cfg, tables, o3, d3, seed, dead)
         compare(f"{name} {SMALL[0]}x{SMALL[1]}", plain, kern, al,
                 cfg.bounces)
+
+    # the GI rows and child waves, both variants, 160x120 and 800x600
+    rows_err = {"wave_gi": 0.0, "wave_textured_gi": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for key, mk, rcfg in (
+            ("wave_gi", lambda w, h: box_scene(w, h, with_mesh=True),
+             base.with_(bounces=2)),
+            ("wave_textured_gi", lambda w, h: textured_desc(box_scene, w, h),
+             base.with_(bounces=4, shadow_min=4, shadow_max=16))):
+        for w, h in (SMALL, (W, H)):
+            scene = build_scene(mk(w, h), device=dev)
+            tables = scene_tables(scene)
+            o3, d3 = rays(scene, 3)
+            alive = torch.ones(w * h, dtype=torch.bool, device=dev)
+            for tag, kw in (("surf", dict(surf_out=True)),
+                            ("gi_from=1", dict(surf_out=True, gi_from=1)),
+                            ("gi_from=0", dict(surf_out=True, gi_from=0))):
+                plain = W_.wave_plain(rcfg, tables, o3, d3, alive, 17, **kw)
+                kern = W_.wave(rcfg, tables, o3, d3, alive, 17, **kw)
+                torch.cuda.synchronize()
+                e = compare_rows(f"{key} {tag} {w}x{h}", plain, kern, alive,
+                                 rcfg.bounces, kw.get("gi_from", 0))
+                if (w, h) == (W, H):
+                    rows_err[key] = max(rows_err[key], e)
+            # a hemisphere child wave from the primary's surface rows
+            _, hit0, _, surf, _ = plain
+            half = alive.clone()
+            half[::2] = False
+            u = torch.rand((2, w * h), generator=gen, device=dev)
+            args, ckw = child_wave_args(rcfg.with_(hemisphere_samples=4),
+                                        surf, hit0, half, 17, 1, u[0], u[1])
+            check(float(ckw["tput3"].max()) < 1.0 and bool(args[2].any()),
+                  f"{key}: child wave without live lanes")
+            for tag, gkw in (("child", {}), ("child rows", dict(gi_from=0))):
+                plain = W_.wave_plain(rcfg, tables, *args, **ckw, **gkw)
+                kern = W_.wave(rcfg, tables, *args, **ckw, **gkw)
+                torch.cuda.synchronize()
+                name = f"{key} {tag} {w}x{h}"
+                if gkw:
+                    e = compare_rows(name, plain, kern, args[2],
+                                     ckw["bounces"], 0)
+                else:
+                    e, _ = compare(name, plain, kern, args[2],
+                                   ckw["bounces"])
+                if (w, h) == (W, H):
+                    rows_err[key] = max(rows_err[key], e)
     print("[kernel] phase passed", flush=True)
 
     cfg = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=BOUNCES,
                        shadow_min=1, shadow_max=1, gi_mode="none")
     check(cfg.resolved_split_mode() == "rr", "main path must run split rr")
     counters = ("launches", "launches_textured")
+
+    def profile_frame(tag, frame_s, fn):
+        """Where one frame's device time goes (torch.profiler over fn):
+        (device busy us, wave-kernel ms per launch, launches).  Only the
+        device's own events count (kernels, copies): an aten op's device
+        time is that of the kernels it launched, which are listed too."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        dev_us, kern = {}, {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0 and ev.device_type == DeviceType.CUDA:
+                dev_us[ev.key] = us
+                if "wave_kernel" in ev.key:
+                    name = ev.key[ev.key.index("wave_kernel"):]
+                    kern[name.split(">")[0] + ">"] = (us, ev.count)
+        total_us = sum(dev_us.values())
+        kern_us = sum(v[0] for v in kern.values())
+        kern_n = sum(v[1] for v in kern.values())
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+        prof_ms = kern_us / max(kern_n, 1) / 1e3
+        print(f"[{tag}] profiled frame: device busy {total_us / 1e3:.3f} ms "
+              f"= {total_us / 1e4 / frame_s:.2f}% of the best frame; wave "
+              f"kernel {kern_n} launches, {prof_ms:.4f} ms each ("
+              + "; ".join(f"{k} x{c} {u / 1e3 / c:.4f} ms"
+                          for k, (u, c) in kern.items())
+              + "); top: "
+              + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top),
+              flush=True)
+        return total_us, prof_ms, kern_n
+
+    def events_ms(fn, reps=20):
+        """Device time per call of fn (CUDA events).  The device first
+        sleeps while the host queues every call, so the host's work leaves
+        no gaps in the timed run (what is timed is the kernel and the
+        wrapper's small ray-packing ops)."""
+        for _ in range(3):
+            fn()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def host_ms(fn, reps):
+        """Host time per call of fn after one untimed call (the plain
+        version: a stream of small PyTorch kernels)."""
+        fn()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0_) / reps * 1e3
+
+    def profiled_ms(fn, reps=5):
+        """The wave kernel's own device time per call of fn
+        (torch.profiler over reps calls)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and "wave_kernel" in ev.key)
+        return us / reps / 1e3
+
+    def work(fn):
+        stats = torch.zeros(W_.NSTAT, dtype=torch.int64, device=dev)
+        fn(stats=stats)
+        return dict(zip(STATS, stats.tolist()))
 
     def drive(tag, desc, small_desc, counter):
         """Render one path at W x H through `render`, counting the
@@ -322,86 +559,30 @@ def main():
               f"{launches} launches/frame, mean byte {res.image.mean():.2f}, "
               f"png {png.relative_to(ROOT)}", flush=True)
 
-        # where one frame's device time goes (torch.profiler over one frame)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            render(scene, cfg, seed=9, device=dev, tables=tables)
-        dev_us, kern_us, kern_n = {}, 0.0, 0
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", 0.0)
-            if us > 0:
-                dev_us[ev.key] = us
-                if "wave_kernel" in ev.key:
-                    kern_us, kern_n = kern_us + us, kern_n + ev.count
-        total_us = sum(dev_us.values())
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-        prof_ms = kern_us / max(kern_n, 1) / 1e3
-        print(f"[{tag}] profiled frame: device busy {total_us / 1e3:.3f} ms "
-              f"= {total_us / 1e4 / frame_s:.2f}% of the best frame; wave "
-              f"kernel {kern_n} launches, {prof_ms:.4f} ms each; top: "
-              + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top),
-              flush=True)
+        _, prof_ms, _ = profile_frame(
+            tag, frame_s,
+            lambda: render(scene, cfg, seed=9, device=dev, tables=tables))
 
-        # kernel time per launch (CUDA events) and its work counts.  The
-        # device first sleeps while the host queues every launch, so the
-        # host's per-wave work leaves no gaps in the timed run (what is
-        # timed is the kernel and the wrapper's small ray-packing ops).
-        reps = 20
-        for _ in range(3):
-            W_.wave(cfg, tables, o3, d3, alive, 11)
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)
-        e0.record()
-        for _ in range(reps):
-            W_.wave(cfg, tables, o3, d3, alive, 11)
-        e1.record()
-        torch.cuda.synchronize()
-        kern_ms = e0.elapsed_time(e1) / reps
-        stats = torch.zeros(W_.NSTAT, dtype=torch.int64, device=dev)
-        W_.wave(cfg, tables, o3, d3, alive, 11, stats=stats)
-        st = dict(zip(STATS, stats.tolist()))
-        ns, np_ = tables.spheres.shape[0], tables.planes.shape[0]
-        flops = (st["rays"] * (ns * OPS["sphere"] + np_ * OPS["plane"])
-                 + st["inst"] * OPS["inst"] + st["tiles"] * OPS["slab"]
-                 + (st["tri_closest"] + st["tri_shadow"]) * OPS["tri"]
-                 + st["prim_shadow"] * OPS["plane"]
-                 + st["hits"] * OPS["shade"] + st["shadow"] * OPS["shadow"]
-                 + st["tex_file"] * OPS["tex_file"]
-                 + st["tex_checker"] * OPS["tex_checker"]
-                 + st["env"] * OPS["env"])
-        # each input once: 7 floats in and 5 out per ray, the tables, and
-        # the atlas's texels at 12 bytes (its float4 padding is the
+        # kernel time per launch (CUDA events) and its work counts
+        def launch(**kw):
+            return W_.wave(cfg, tables, o3, d3, alive, 11, **kw)
+        kern_ms = events_ms(launch)
+        st = work(launch)
+        # 7 floats in and 5 out per ray (the atlas's float4 padding is the
         # kernel's choice, not the function's)
-        table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
-            "spheres", "planes", "mesh_insts", "tiles", "faces", "materials",
-            "lights", "texmaps", "textures"))
-        texels = tables.atlas.shape[0] if tables.has_file_tex else 0
-        nbytes = n * 7 * 4 + n * 5 * 4 + table_bytes + texels * 12
-        # the same with four 16-byte texel reads per file-texture sample
-        # instead of the atlas once
-        nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
-        bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_reads_ms = max(nbytes_reads / HBM_BPS * 1e3, ops_ms)
+        bd = bound(tables, st, n, 7, 5)
         print(f"[{tag}] kernel {kern_ms:.4f} ms/launch at {W}x{H} (mean of "
-              f"{reps}, CUDA events); work {json.dumps(st)}; {flops:.4e} "
-              f"FP32 ops, {nbytes} bytes; bound {bound_ms:.4f} ms "
-              f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); with four texel "
-              f"reads per sample {nbytes_reads} bytes, bound "
-              f"{bound_reads_ms:.4f} ms", flush=True)
+              f"20, CUDA events); work {json.dumps(st)}; "
+              f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
+              f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
+              f"{bd['bytes_ms']:.4f}); with four texel reads per sample, "
+              f"bound {bd['bound_ms_texel_reads']:.4f} ms", flush=True)
 
         # the plain version's time per wave, at this shape and at 160x120
         def plain_ms(tables_, o3_, d3_, reps_):
             al = torch.ones(o3_.shape[1], dtype=torch.bool, device=dev)
-            W_.wave_plain(cfg, tables_, o3_, d3_, al, 11)
-            torch.cuda.synchronize()
-            t0_ = time.perf_counter()
-            for _ in range(reps_):
-                W_.wave_plain(cfg, tables_, o3_, d3_, al, 11)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0_) / reps_ * 1e3
+            return host_ms(
+                lambda: W_.wave_plain(cfg, tables_, o3_, d3_, al, 11), reps_)
         plain_main = plain_ms(tables, o3, d3, 2)
         small = build_scene(small_desc, device=dev)
         plain_small = plain_ms(scene_tables(small), *rays(small, 0), 5)
@@ -412,11 +593,131 @@ def main():
             "launches": launches, "max_abs_err": err4,
             "max_abs_err_bounce0": err0, "share_outside_atol": share4,
             "ms": kern_ms, "ms_profiler": prof_ms, "plain_ms": plain_main,
-            "plain_ms_160x120": plain_small, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_ms_texel_reads": bound_reads_ms,
+            "plain_ms_160x120": plain_small, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"],
+            "bound_ms_texel_reads": bd["bound_ms_texel_reads"],
             "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
             "work": st}
+
+    def drive_gi(tag, desc, gcfg, counter, volumes=False):
+        """Render one GI path through `render`, every frame counted in
+        `counter` (spp x (1 + hemisphere samples) launches); then per
+        launch kind, the primary launch with its rows and one child
+        launch, the kernel's time, work counts and bound (the output rows'
+        bytes included), and the plain version's time."""
+        scene = build_scene(desc, device=dev)
+        tables = scene_tables(scene)
+        check(tables.textured == (counter == "launches_textured"),
+              f"{tag}: wrong kernel variant")
+        w, h = scene.width, scene.height
+        n = w * h
+        s_hemi, spp = gcfg.hemisphere_samples, gcfg.max_samples
+        check(gcfg.min_samples == spp, f"{tag}: one adaptive rung")
+        expected = spp * (1 + s_hemi)
+        gi_vol = box_volume(scene, 0, dev) if volumes else None
+        caustic_vol = box_volume(scene, 1, dev) if volumes else None
+        if volumes:
+            print(f"[{tag}] volumes: dims {gi_vol.dims}, cell "
+                  f"{gi_vol.cell:.4f}, {gi_vol.table.shape[1]} corners, "
+                  f"{gi_vol.table.numel() * 4} bytes each", flush=True)
+        rkw = dict(device=dev, tables=tables, gi_vol=gi_vol,
+                   caustic_vol=caustic_vol)
+        direct = render(scene, gcfg.with_(gi_mode="none"), seed=1,
+                        device=dev, tables=tables)
+        render(scene, gcfg, **rkw)                         # warm-up frame
+        frame_s, res = float("inf"), None
+        for rep in range(3):
+            for c in counters:
+                setattr(W_, c, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(scene, gcfg, seed=1 + rep, **rkw)
+            dt = time.perf_counter() - t0
+            counts = {c: getattr(W_, c) for c in counters}
+            launches = counts[counter]
+            check(launches == expected and sum(counts.values()) == expected,
+                  f"{tag} frame {rep}: launches {counts}, expected "
+                  f"{expected} of {counter}")
+            check(np.isfinite(out.radiance).all(), "non-finite radiance")
+            check(out.image.shape == (h, w, 3),
+                  f"image shape {out.image.shape}")
+            check((out.sample_count == spp).all(), "sample counts != spp")
+            check(out.image.mean() > 5.0, "frame is black")
+            if dt < frame_s:
+                frame_s, res = dt, out
+        gain = res.radiance.mean() / direct.radiance.mean()
+        check(gain > 1.0, f"{tag}: GI adds no light ({gain:.4f})")
+        (ROOT / "build").mkdir(exist_ok=True)
+        png = ROOT / "build" / f"chip_smoke_{tag}.png"
+        write_png(str(png), res.image)
+        print(f"[{tag}] frame {w}x{h} {spp}spp {gcfg.bounces} bounces "
+              f"gi_mode={gcfg.gi_mode} {s_hemi} hemisphere samples: best of "
+              f"3 {frame_s:.4f} s, {launches} launches/frame, mean radiance "
+              f"{gain:.4f}x the frame without GI, mean byte "
+              f"{res.image.mean():.2f}, png {png.relative_to(ROOT)}",
+              flush=True)
+        busy_us, prof_ms, _ = profile_frame(
+            tag, frame_s, lambda: render(scene, gcfg, seed=9, **rkw))
+
+        # the two launch kinds of a GI sample wave
+        o3, d3 = rays(scene, 0)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        gf = primary_gi_from(gi_vol, caustic_vol)
+
+        def primary(fn=W_.wave, **kw):
+            return fn(gcfg, tables, o3, d3, alive, 11, surf_out=True,
+                      gi_from=gf, **kw)
+        _, hit0, _, surf, _ = primary()
+        u = torch.rand((2, n), generator=gen, device=dev)
+        args, ckw = child_wave_args(gcfg, surf, hit0, alive, 11, 0, u[0],
+                                    u[1])
+        ckw["gi_from"] = 0 if gi_vol is not None else None
+
+        def child(fn=W_.wave, **kw):
+            return fn(gcfg, tables, *args, **ckw, **kw)
+        kinds = {}
+        for kname, fn, rows_in, rows_out in (
+                ("primary", primary, 7,
+                 W_.out_rows(gcfg.bounces + 1, True, gf)),
+                ("child", child, 14,
+                 W_.out_rows(ckw["bounces"] + 1, False, ckw["gi_from"]))):
+            ms = events_ms(fn)
+            ms_prof = profiled_ms(fn)
+            st = work(fn)
+            bd = bound(tables, st, n, rows_in, rows_out)
+            pms = host_ms(lambda: fn(W_.wave_plain), 1)
+            kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
+                                work=st, rows_in=rows_in, rows_out=rows_out,
+                                **bd)
+            print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
+                  f"events), {ms_prof:.4f} ms (profiler, kernel only), "
+                  f"plain {pms:.2f} ms; rows {rows_in} in, "
+                  f"{rows_out} out; work {json.dumps(st)}; "
+                  f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
+                  f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
+                  f"{bd['bytes_ms']:.4f}), by {bd['bound_by']}", flush=True)
+
+        def per_launch(k):
+            return (kinds["primary"][k] + s_hemi * kinds["child"][k]) \
+                / (1 + s_hemi)
+        uni = torch.rand((s_hemi, 2, n), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        gi_wave(gcfg, tables, o3, d3, alive, 11, uni, gi_vol, caustic_vol,
+                wave_fn=W_.wave_plain)
+        torch.cuda.synchronize()
+        plain_gi = (time.perf_counter() - t0) * 1e3
+        print(f"[{tag}] plain GI sample wave ({1 + s_hemi} plain waves and "
+              f"their host work) {plain_gi:.2f} ms", flush=True)
+        print(f"[{tag}] phase passed", flush=True)
+        return {
+            "launches": launches, "max_abs_err": rows_err[
+                "wave_textured_gi" if tables.textured else "wave_gi"],
+            "ms": per_launch("ms"), "ms_profiler": prof_ms,
+            "plain_ms": per_launch("plain_ms"), "plain_gi_wave_ms": plain_gi,
+            "bound_ms": per_launch("bound_ms"),
+            "bound_by": kinds["child"]["bound_by"], "library_ms": None,
+            "frame_s": frame_s, "device_busy_share": busy_us / 1e6 / frame_s,
+            "per_launch_kind": kinds}
 
     # ---- phase 3: the main path (untextured variant)
     main_k = drive("main", box_scene(W, H, with_mesh=True),
@@ -424,6 +725,18 @@ def main():
     # ---- phase 4: the textured box at full width (textured variant)
     tex_k = drive("textured", textured_desc(box_scene, W, H),
                   textured_desc(box_scene, *SMALL), "launches_textured")
+    # ---- phase 5: bench.py's GI cell (untextured variant, rows)
+    gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
+                          shadow_min=1, shadow_max=1, gi_mode="hemisphere",
+                          hemisphere_samples=4, queue_factor=1.0)
+    gi_k = drive_gi("gi", box_scene(400, 300, with_mesh=True), gi_cfg,
+                    "launches")
+    # ---- phase 6: the hybrid frame on the textured box at full width
+    hyb_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=4,
+                           shadow_min=4, shadow_max=16, gi_mode="photon",
+                           hemisphere_samples=30)
+    hyb_k = drive_gi("hybrid", textured_desc(box_scene, W, H), hyb_cfg,
+                     "launches_textured", volumes=True)
 
     print(card, flush=True)
     kernels = [
@@ -434,7 +747,15 @@ def main():
         {"name": "wave_textured", "route": "cuda",
          "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
          "replaces": "rtf_tpu/render/fused_seg.py:482 and :516", **tex_k,
-         "build_s": build_s}]
+         "build_s": build_s},
+        {"name": "wave_gi", "route": "cuda",
+         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+         "replaces": "rtf_tpu/render/fused.py:1741 (surf_out/gi_from rows)",
+         **gi_k, "build_s": build_s},
+        {"name": "wave_textured_gi", "route": "cuda",
+         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+         "replaces": "rtf_tpu/render/fused_seg.py:516 (gi_out rows)",
+         **hyb_k, "build_s": build_s}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,7 +23,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of rtf_wave_launch
 LAUNCH_ARGTYPES = [
-    _P, _P, _P, _I,          # rays, out, stats, n
+    _P, _I, _P, _I, _I,      # rays, has_state, out, surf_out, gi_from
+    _P, _I,                  # stats, n
     _I, _I, _I,              # seed, blk0, nbounce
     _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
     _P, _P, _P, _P, _I,      # tiles, faces, mats, lights, nl

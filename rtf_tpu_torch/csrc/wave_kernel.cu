@@ -2,15 +2,24 @@
 //
 // Replaces three Pallas TPU kernels:
 //   * rtf_tpu/render/fused.py::_wave_kernel (pallas_call fused.py:1741, the
-//     kernel behind fused_wave), immediates mesh variant without the
-//     surf_out/gi_from rows: the untextured variant wave_kernel<false>;
+//     kernel behind fused_wave), immediates mesh variant, with its
+//     surf_out/gi_from rows: the untextured variants wave_kernel<false, *>;
 //   * rtf_tpu/render/fused_seg.py::_seg_hit_kernel (pallas_call
-//     fused_seg.py:482) and _seg_shade_kernel (fused_seg.py:516), with the
-//     XLA texture segment between them (_seg_texture, _seg_env): the
-//     textured variant wave_kernel<true>.  The TPU splits each bounce into
-//     a hit kernel, an XLA gather and a shade kernel only because Pallas
-//     TPU has no vector gather; here each thread reads the atlas itself,
-//     so a bounce stays in registers and a wave is one launch.
+//     fused_seg.py:482) and _seg_shade_kernel (fused_seg.py:516, with its
+//     15 gi_out rows), with the XLA texture segment between them
+//     (_seg_texture, _seg_env): the textured variants wave_kernel<true, *>.
+//     The TPU splits each bounce into a hit kernel, an XLA gather and a
+//     shade kernel only because Pallas TPU has no vector gather; here each
+//     thread reads the atlas itself, so a bounce stays in registers and a
+//     wave is one launch.
+// The second template flag is GI (render/gi.py): a child wave passes 14 ray
+// rows instead of 7, with its throughput, absorption and ray type
+// (has_state), and a launch may ask for the GI rows: with surf_out the
+// first-hit surface p, n, kd, k_eff (12 rows), with gi_from = k one photon
+// query p, n, kd * k_eff (9 rows) per bounce b >= k; zero rows where the
+// lane did not hit or never reached the bounce.  Launches that need
+// neither run wave_kernel<*, false>, the code and registers the kernel had
+// before GI.
 // It computes what render/wave.py::wave_plain computes, with the same
 // operations in the same order: closest hit with uv (spheres, planes, then
 // mesh faces in packed Morton order with a strict t < best), kd/ks as the
@@ -19,7 +28,7 @@
 // adaptive disk soft shadows, Beer absorption, the environment on a miss
 // (in the textured variant through its angular map), glossy perturbation,
 // Schlick Fresnel/TIR and one Russian-roulette child per bounce.  Output
-// is channel-major [5, N]: rad r, g, b, hit, z.
+// is channel-major [5 + rows, N]: rad r, g, b, hit, z, then the GI rows.
 //
 // What bounds it on an H100: operations, not bytes.  A wave reads 28 B and
 // writes 20 B per ray, but traces 1-5 closest-hit rays and as many shadow
@@ -95,8 +104,11 @@ enum Stat {
 };
 
 struct Args {
-  const float* rays;   // [7, n]: o xyz, d xyz, alive
-  float* out;          // [5, n]
+  const float* rays;   // [7, n]: o xyz, d xyz, alive; with has_state
+                       // [14, n]: + tput rgb, absorb rgb, ray type
+  int has_state;
+  float* out;          // [5 + 12 surf_out + 9 (nbounce - gi_from), n]
+  int surf_out, gi_from;   // gi_from < 0: no query rows
   unsigned long long* stats;  // [NSTAT] or null
   int n;
   uint32_t seed, blk0;
@@ -486,7 +498,35 @@ __device__ __forceinline__ void perturb(const float n[3], float gl,
   norm3(r[0], r[1], r[2]);
 }
 
-template <bool TEXTURED>
+// the GI rows of one lane at one bounce (GI variants only): with
+// surf_out the first-hit surface p, n, kd, k_eff at bounce 0; with
+// gi_from >= 0 the query p, n, kd * k_eff at each bounce b >= gi_from.
+// nrm == nullptr writes zeros (a lane that did not hit at bounce b).
+__device__ __forceinline__ void write_rows(const Args& A, int i, int b,
+                                           const float* p, const float* nrm,
+                                           const float* kd,
+                                           const float* k_eff) {
+  const int n = A.n;
+  float* out = A.out + i;
+  if (b == 0 && A.surf_out) {
+    for (int a = 0; a < 3; ++a) {
+      out[(5 + a) * n] = nrm ? p[a] : 0.0f;
+      out[(8 + a) * n] = nrm ? nrm[a] : 0.0f;
+      out[(11 + a) * n] = nrm ? kd[a] : 0.0f;
+      out[(14 + a) * n] = nrm ? k_eff[a] : 0.0f;
+    }
+  }
+  if (A.gi_from >= 0 && b >= A.gi_from) {
+    const int r = 5 + (A.surf_out ? 12 : 0) + 9 * (b - A.gi_from);
+    for (int a = 0; a < 3; ++a) {
+      out[(r + a) * n] = nrm ? p[a] : 0.0f;
+      out[(r + 3 + a) * n] = nrm ? nrm[a] : 0.0f;
+      out[(r + 6 + a) * n] = nrm ? kd[a] * k_eff[a] : 0.0f;
+    }
+  }
+}
+
+template <bool TEXTURED, bool GI>
 __global__ void __launch_bounds__(THREADS)
 wave_kernel(const Args A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -500,6 +540,14 @@ wave_kernel(const Args A) {
   bool alive = A.rays[6 * n + i] > 0.0f;
   float tput[3] = {1.0f, 1.0f, 1.0f}, absorb[3] = {0.0f, 0.0f, 0.0f};
   int rtype = 0;
+  if (GI && A.has_state) {  // a child wave (fused.py:1679-1688)
+    for (int c = 0; c < 3; ++c) {
+      tput[c] = A.rays[(7 + c) * n + i];
+      absorb[c] = A.rays[(10 + c) * n + i];
+    }
+    rtype = (int)A.rays[13 * n + i];
+  }
+  int rows_done = 0;  // bounces whose GI rows are written (GI only)
   float acc[3] = {0.0f, 0.0f, 0.0f}, hit0 = 0.0f, z0 = BIG;
   unsigned long long cnt_[NSTAT] = {};
   unsigned long long* cnt = A.stats ? cnt_ : nullptr;
@@ -545,6 +593,10 @@ wave_kernel(const Args A) {
     for (int c = 0; c < 3; ++c)
       k_eff[c] = tput[c] * (h.front ? 1.0f
                             : expf(-absorb[c] * fminf(h.t, 1e4f)));
+    if (GI) {
+      write_rows(A, i, b, p, nrm, kd, k_eff);
+      rows_done = b + 1;
+    }
     const float gloss = ld(M + 6);
     const float ior = fmaxf(ld(M + 13), 1e-6f);
     const float vx = -d[0], vy = -d[1], vz = -d[2];
@@ -725,6 +777,12 @@ wave_kernel(const Args A) {
   A.out[2 * n + i] = acc[2];
   A.out[3 * n + i] = hit0;
   A.out[4 * n + i] = z0;
+  if (GI) {
+    // bounce 0 missed or never ran, and the bounces the lane never
+    // reached: zero rows (fused.py:1224-1227 pre-zeroes them)
+    for (int b = rows_done; b < A.nbounce; ++b)
+      write_rows(A, i, b, nullptr, nullptr, nullptr, nullptr);
+  }
   if (cnt)
     for (int s = 0; s < NSTAT; ++s)
       if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);
@@ -734,7 +792,8 @@ wave_kernel(const Args A) {
 
 extern "C" {
 
-int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
+int rtf_wave_launch(const float* rays, int has_state, float* out,
+                    int surf_out, int gi_from, long long* stats, int n,
                     int seed, int blk0, int nbounce,
                     const float* spheres, int ns, const float* planes,
                     int np, const float* insts, int ni, const float* tiles,
@@ -749,7 +808,10 @@ int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
   if (n <= 0) return 0;
   Args A;
   A.rays = rays;
+  A.has_state = has_state;
   A.out = out;
+  A.surf_out = surf_out;
+  A.gi_from = gi_from;
   A.stats = reinterpret_cast<unsigned long long*>(stats);
   A.n = n;
   A.seed = (uint32_t)seed;
@@ -779,10 +841,16 @@ int rtf_wave_launch(const float* rays, float* out, long long* stats, int n,
   A.need_uv = need_uv;
   A.has_gloss = has_gloss;
   int blocks = (n + THREADS - 1) / THREADS;
-  if (textured)
-    wave_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(A);
+  const bool gi = has_state || surf_out || gi_from >= 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (textured && gi)
+    wave_kernel<true, true><<<blocks, THREADS, 0, st>>>(A);
+  else if (textured)
+    wave_kernel<true, false><<<blocks, THREADS, 0, st>>>(A);
+  else if (gi)
+    wave_kernel<false, true><<<blocks, THREADS, 0, st>>>(A);
   else
-    wave_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(A);
+    wave_kernel<false, false><<<blocks, THREADS, 0, st>>>(A);
   return (int)cudaGetLastError();
 }
 

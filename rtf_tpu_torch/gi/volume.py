@@ -1,0 +1,83 @@
+"""Irradiance volume: the photon-map estimate baked on a world grid.
+
+The port of the sampling side of rtf_tpu/gi/volume.py: the volume is data
+here (the photon pass and the bake, `build_irradiance_volume`, are still
+to port), handed in as arrays or as the npz that tools/flagship.py writes
+(keys table, origin, dims, cell).  A shading query is a trilinear gather
+of the 8 corners around the point, with points outside clamped to the
+border; the reference's deep-bounce term is then
+kd * E(p) * max(0, -N . meanDir) (main.cpp:700-705, render/gi.py).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from rtf_tpu_torch.scene.build import resolve_device
+
+
+@dataclass
+class IrradianceVolume:
+    table: torch.Tensor   # [6, n_corners] float32: E rgb, mean direction xyz
+    origin: torch.Tensor  # [3] float32, the position of corner (0, 0, 0)
+    dims: tuple           # cells per axis; corners are dims + 1 per axis
+    cell: float           # cell edge length
+
+    def to(self, device) -> "IrradianceVolume":
+        return IrradianceVolume(self.table.to(device), self.origin.to(device),
+                                self.dims, self.cell)
+
+
+def volume_from_arrays(table, origin, dims, cell,
+                       device="cuda") -> IrradianceVolume:
+    """A volume from its arrays: table [6, (dx+1)(dy+1)(dz+1)] with corner
+    id (i * (dy+1) + j) * (dz+1) + k, origin [3], dims (dx, dy, dz)."""
+    dev = resolve_device(device)
+    dims = tuple(int(x) for x in np.asarray(dims).reshape(-1))
+    table = torch.as_tensor(np.asarray(table, np.float32), device=dev)
+    n_corners = int(np.prod([d + 1 for d in dims]))
+    if len(dims) != 3 or tuple(table.shape) != (6, n_corners):
+        raise ValueError(f"table must be [6, {n_corners}] for dims {dims}, "
+                         f"got {tuple(table.shape)}")
+    origin = torch.as_tensor(np.asarray(origin, np.float32).reshape(3),
+                             device=dev)
+    return IrradianceVolume(table.contiguous(), origin, dims, float(cell))
+
+
+def load_volume(path, device="cuda") -> IrradianceVolume:
+    """A volume saved as npz with keys table, origin, dims and cell
+    (tools/flagship.py::_bake_sceneb_volume's layout)."""
+    with np.load(path) as d:
+        return volume_from_arrays(d["table"], d["origin"], d["dims"],
+                                  float(d["cell"]), device)
+
+
+def sample_volume_ch(vol: IrradianceVolume, p3):
+    """Trilinear sample at the points p3 ([3, M] or three [M] tensors):
+    (E [3, M], unit mean direction [3, M]).  Points outside the volume
+    clamp to its border (rtf_tpu/gi/volume.py::sample_volume_ch, in its
+    operation order)."""
+    ny, nz = vol.dims[1] + 1, vol.dims[2] + 1
+    f, i, w = [], [], []
+    for a, dim in enumerate(vol.dims):
+        fa = torch.clamp((p3[a] - vol.origin[a]) * (1.0 / vol.cell),
+                         0.0, dim - 1e-4)
+        fl = torch.floor(fa)
+        f.append(fa)
+        i.append(fl.to(torch.int64))
+        w.append(fa - fl)
+    acc = torch.zeros((6,) + tuple(f[0].shape), dtype=torch.float32,
+                      device=f[0].device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                cid = ((i[0] + dx) * ny + (i[1] + dy)) * nz + (i[2] + dz)
+                wt = ((w[0] if dx else 1.0 - w[0])
+                      * (w[1] if dy else 1.0 - w[1])
+                      * (w[2] if dz else 1.0 - w[2]))
+                acc = acc + vol.table[:, cid] * wt
+    dlen = torch.sqrt(torch.clamp(
+        acc[3] * acc[3] + acc[4] * acc[4] + acc[5] * acc[5], min=1e-30))
+    return acc[0:3], acc[3:6] / dlen

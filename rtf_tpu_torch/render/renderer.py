@@ -12,18 +12,27 @@ sample-count AOVs.
 
 Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed
 (JAX's threefry key stream is not reproduced).
+
+GI (gi_mode 'hemisphere', 'pathtrace', or 'photon' with an irradiance
+volume passed in, and a caustic volume in any mode): each sample wave is
+render/gi.py::gi_wave, the primary launch and cfg.hemisphere_samples child
+launches, with the hemisphere draws taken from a torch.Generator on the
+device (rtf_tpu/render/renderer.py's `gi_host` loop, without its
+per-dispatch chunking).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from rtf_tpu_torch.core.math import BIGFLOAT
+from rtf_tpu_torch.gi.volume import IrradianceVolume
 from rtf_tpu_torch.ops.texture import sample_background
 from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
 from rtf_tpu_torch.render.config import RenderConfig
+from rtf_tpu_torch.render.gi import gi_wave
 from rtf_tpu_torch.render.scene_tables import (
     WaveTables, scene_tables, unsupported_reason,
 )
@@ -38,9 +47,19 @@ class RenderResult(NamedTuple):
     sample_count: np.ndarray  # [H,W] int32
 
 
-def check_supported(scene: Scene, cfg: RenderConfig) -> None:
+class GiInputs(NamedTuple):
+    """What a GI sample wave needs besides the scene: the photon volume
+    (gi_mode 'photon'), the caustic volume and the generator of the
+    hemisphere draws."""
+    vol: Optional[IrradianceVolume]
+    caustic: Optional[IrradianceVolume]
+    generator: torch.Generator
+
+
+def check_supported(scene: Scene, cfg: RenderConfig, gi_vol=None,
+                    caustic_vol=None) -> None:
     """Raise NotImplementedError for anything outside the ported slice."""
-    why = unsupported_reason(scene, cfg)
+    why = unsupported_reason(scene, cfg, gi_vol, caustic_vol)
     if why is not None:
         raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
                                   f"{why}")
@@ -68,24 +87,39 @@ def _phase_bounds(cfg) -> list:
     return bounds
 
 
-def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed):
-    """One sample wave over the lanes (px, py): (contrib [3,n],
-    hit_count [n], z_min [n]) in lane space."""
+def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
+                 gi: Optional[GiInputs] = None):
+    """One sample wave over the lanes (px, py), with GI when `gi` is
+    given: (contrib [3,n], hit_count [n], z_min [n]) in lane space."""
     o3, d3 = primary_rays_ch(
         scene, px, py, torch.tensor(j, dtype=torch.int64),
         halton_bases=(cfg.halton_base_x, cfg.halton_base_y))
-    rad3, hitl, zl = wave(cfg, tables, o3, d3, mask, seed)
+    if gi is None:
+        rad3, hitl, zl = wave(cfg, tables, o3, d3, mask, seed)
+    else:
+        # (u_phi, ysq) of each hemisphere sample
+        uniforms = torch.rand((cfg.hemisphere_samples, 2, mask.shape[0]),
+                              generator=gi.generator, device=mask.device)
+        rad3, hitl, zl = gi_wave(cfg, tables, o3, d3, mask, seed, uniforms,
+                                 gi_vol=gi.vol, caustic_vol=gi.caustic)
     return rad3, hitl.to(torch.int32), torch.where(hitl, zl, BIGFLOAT)
 
 
 def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
-                 order: torch.Tensor, seed: int):
+                 order: torch.Tensor, seed: int, gi_vol=None,
+                 caustic_vol=None):
     """The adaptive ladder in lane space: (rad [3,P], hits [P], z [P],
-    nsamples [P]) with lane k = pixel order[k]."""
+    nsamples [P]) with lane k = pixel order[k].  Every sample wave is a
+    GI wave when cfg.gi_mode is not 'none' or a caustic volume is given
+    (rtf_tpu's wave_contrib on the fused path)."""
     dev = tables.device
     px, py = order % scene.width, order // scene.width
     n = order.shape[0]
     gen = torch.Generator().manual_seed(int(seed))
+    gi = None
+    if cfg.gi_mode != "none" or caustic_vol is not None:
+        gi = GiInputs(gi_vol, caustic_vol,
+                      torch.Generator(device=dev).manual_seed(int(seed)))
     rad = torch.zeros((3, n), dtype=torch.float32, device=dev)
     rad2 = torch.zeros_like(rad)
     hits = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -96,7 +130,7 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
         for j in range(lo, hi):
             s = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
             contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
-                                           mask, j, s)
+                                           mask, j, s, gi)
             rad = rad + contrib
             rad2 = rad2 + contrib * contrib
             hits = hits + hc
@@ -160,12 +194,25 @@ def finalize(scene, cfg, tables, rad, hits, z, nsamples) -> RenderResult:
 
 
 def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
-           device="cuda", tables: WaveTables = None) -> RenderResult:
+           device="cuda", tables: WaveTables = None,
+           gi_vol: IrradianceVolume = None,
+           caustic_vol: IrradianceVolume = None) -> RenderResult:
     """Render a built scene.  Runs on the card unless device='cpu'; the
     scene's tensors are moved to `device` as needed.  Pass `tables`
-    (render/scene_tables.py) to reuse them across frames."""
+    (render/scene_tables.py) to reuse them across frames.
+
+    gi_vol: the photon irradiance volume that gi_mode 'photon' reads
+    below the first hit (gi/volume.py: `load_volume`,
+    `volume_from_arrays`); the photon pass that builds one is not ported.
+    caustic_vol: a caustic volume, added at the first hit in any GI mode
+    (rtf_tpu.render's caustic_grid, as a volume)."""
     dev = resolve_device(device)
-    check_supported(scene, cfg)
+    check_supported(scene, cfg, gi_vol, caustic_vol)
+    if gi_vol is not None and cfg.gi_mode != "photon":
+        raise ValueError(f"gi_vol is read only by gi_mode='photon', not "
+                         f"{cfg.gi_mode!r}")
+    gi_vol, caustic_vol = (None if v is None else v.to(dev)
+                           for v in (gi_vol, caustic_vol))
     if tables is None:
         tables = scene_tables(scene, dev)
     elif tables.device != dev:
@@ -173,6 +220,7 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     order = torch.as_tensor(pixel_order(scene.width, scene.height),
                             device=dev).to(torch.int64)
     rad, hits, z, ns = render_lanes(scene, cfg, tables, order,
-                                    cfg.seed if seed is None else seed)
+                                    cfg.seed if seed is None else seed,
+                                    gi_vol, caustic_vol)
     rad, hits, z, ns = lanes_to_pixels(rad, hits, z, ns, order)
     return finalize(scene, cfg, tables, rad, hits, z, ns)

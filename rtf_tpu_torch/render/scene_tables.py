@@ -62,13 +62,27 @@ _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
          "point": LIGHT_POINT}
 
 
-def unsupported_reason(scene: Scene, cfg):
+GI_MODES = ("none", "hemisphere", "pathtrace", "photon")
+
+
+def unsupported_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     """None if the port renders the scene+config, else why not (the gates
     of rtf_tpu/render/fused.py::fuse_reason and fused_seg.py::seg_reason,
     without a fallback).  File or checker textures on kd/ks and
-    environment/background maps are in; other texture maps are not."""
-    if cfg.gi_mode != "none":
-        return f"gi_mode={cfg.gi_mode!r} (GI is not ported yet)"
+    environment/background maps are in; other texture maps are not.  GI
+    runs in the modes of the fused path, 'photon' and caustics only from
+    irradiance volumes handed in (the photon pass is not ported)."""
+    if cfg.gi_mode not in GI_MODES:
+        return (f"gi_mode={cfg.gi_mode!r} (only {', '.join(GI_MODES)} are "
+                "ported)")
+    if cfg.gi_mode == "photon" or caustic_vol is not None:
+        if not cfg.photon_volume:
+            return ("photon_volume=False (the exact photon gather needs the "
+                    "photon pipeline, which is not ported)")
+        if cfg.gi_mode == "photon" and gi_vol is None:
+            return ("gi_mode='photon' without an irradiance volume (pass "
+                    "gi_vol; the photon pass that builds one is not "
+                    "ported)")
     if cfg.resolved_split_mode() != "rr":
         return "split_mode='both' (only the 'rr' split is ported)"
     if cfg.tex_filter:

@@ -2,16 +2,20 @@
 kernel's wrapper.
 
 `wave` is the port of rtf_tpu/render/fused.py::fused_wave and its Pallas
-kernel `_wave_kernel` (immediates mesh variant, no surf_out/gi_from rows),
-and of rtf_tpu/render/fused_seg.py::fused_wave_seg, whose two Pallas
-kernels (`_seg_hit_kernel`, `_seg_shade_kernel`) and XLA texture segment
+kernel `_wave_kernel` (immediates mesh variant, with its surf_out/gi_from
+rows and child-wave inputs), and of rtf_tpu/render/fused_seg.py::
+fused_wave_seg, whose two Pallas kernels (`_seg_hit_kernel`,
+`_seg_shade_kernel` with its gi_out rows) and XLA texture segment
 (`_seg_texture`, `_seg_env`) it folds into the same per-bounce loop.
 For each ray it runs closest hit with uv (spheres, planes, then mesh faces
 in packed order with a strict `t < best`), kd/ks as the material colour
 times its texture map (checker or bilinear file texture), Blinn direct
 light with hard or adaptive disk soft shadows, Beer absorption, the
 environment (colour or angular map) on a miss, glossy perturbation,
-Schlick Fresnel/TIR and one Russian-roulette child per bounce.
+Schlick Fresnel/TIR and one Russian-roulette child per bounce.  For GI
+(render/gi.py) a wave also returns the first-hit surface rows (p, n, kd,
+k_eff) and per-bounce photon-query rows (p, n, kd * k_eff), and a child
+wave starts from a per-lane throughput, absorption and ray type.
 
 `wave_plain` computes the same function with one tensor lane per ray and
 is what the CPU runs; `wave` launches csrc/wave_kernel.cu for CUDA
@@ -38,6 +42,8 @@ BIG = 1.0e30
 SENTINEL = 1.0e7      # dead-lane origin, far from everything
 BLOCK = 1024          # lanes per RNG group (the TPU kernel's block)
 RT_PRIMARY, RT_REFLECT, RT_REFRACT = 0, 1, 2
+SURF_ROWS = 12        # first-hit p(3) n(3) kd(3) k_eff(3)
+GI_ROWS = 9           # per-bounce photon query: p(3) n(3) kd * k_eff(3)
 _M32 = 0xFFFFFFFF
 _CHUNK = 1 << 20      # ray x face elements per plain mesh step
 
@@ -52,19 +58,61 @@ NSTAT = 11            # work counters of the kernel (csrc/wave_kernel.cu)
 # shared helpers
 
 
-def pack_rays(o3, d3, alive) -> torch.Tensor:
-    """[7, N] float32 ray rows: origin (SENTINEL on dead lanes), direction,
-    alive flag (fused.py::fused_wave's packing, without lane padding).
-    o3, d3: [3, N] tensors; alive: [N]."""
+def pack_rays(o3, d3, alive, tput3=None, absorb3=None,
+              rtype=None) -> torch.Tensor:
+    """Float32 ray rows (fused.py::fused_wave's packing, without lane
+    padding): origin (SENTINEL on dead lanes), direction and alive flag,
+    [7, N]; when any of tput3, absorb3 or rtype is given, [14, N] with
+    rows 7-9 the throughput (default 1), 10-12 the absorption (default 0)
+    and 13 the ray type (default RT_PRIMARY), as a child wave starts.
+    o3, d3, tput3, absorb3: [3, N] tensors; alive: [N]; rtype: an int."""
     n = alive.shape[0]
-    if tuple(o3.shape) != (3, n) or tuple(d3.shape) != (3, n):
-        raise ValueError(f"rays must be [3, {n}] channel-major, got "
-                         f"{tuple(o3.shape)} and {tuple(d3.shape)}")
+    for name, x in (("o3", o3), ("d3", d3), ("tput3", tput3),
+                    ("absorb3", absorb3)):
+        if x is not None and tuple(x.shape) != (3, n):
+            raise ValueError(f"{name} must be [3, {n}] channel-major, got "
+                             f"{tuple(x.shape)}")
     alive = alive.to(torch.bool)
     o3 = o3.to(torch.float32)
-    d3 = d3.to(torch.float32)
-    return torch.cat([torch.where(alive, o3, torch.full_like(o3, SENTINEL)),
-                      d3, alive.to(torch.float32)[None]]).contiguous()
+    rows = [torch.where(alive, o3, torch.full_like(o3, SENTINEL)),
+            d3.to(torch.float32), alive.to(torch.float32)[None]]
+    if tput3 is not None or absorb3 is not None or rtype is not None:
+        # a fill, not a copy from the host (which would sync the stream)
+        rt = torch.full((1, n), float(RT_PRIMARY if rtype is None
+                                      else rtype), device=o3.device)
+        rows += [torch.ones_like(o3) if tput3 is None
+                 else tput3.to(torch.float32),
+                 torch.zeros_like(o3) if absorb3 is None
+                 else absorb3.to(torch.float32), rt]
+    return torch.cat(rows).contiguous()
+
+
+def out_rows(nbounce, surf_out, gi_from) -> int:
+    """Output rows of a wave (fused.py::_out_rows without the TPU's 11 pad
+    rows): rad rgb, hit, z; with surf_out the 12 first-hit surface rows;
+    with gi_from=k one 9-row query per bounce b >= k."""
+    rows = 5 + (SURF_ROWS if surf_out else 0)
+    if gi_from is not None:
+        rows += GI_ROWS * max(nbounce - gi_from, 0)
+    return rows
+
+
+def split_rows(out, nbounce, surf_out, gi_from):
+    """A wave's [rows, N] output -> (rad3 [3, N], hit [N] bool, z [N]) or,
+    with rows, (rad3, hit, z, surf [12, N] or None, queries): one
+    (p3, n3, w3) of [3, N] views per bounce b >= gi_from."""
+    rad3, hit, z = out[0:3], out[3] > 0.0, out[4]
+    if not surf_out and gi_from is None:
+        return rad3, hit, z
+    surf = out[5:5 + SURF_ROWS] if surf_out else None
+    base = 5 + (SURF_ROWS if surf_out else 0)
+    queries = []
+    if gi_from is not None:
+        for q in range(max(nbounce - gi_from, 0)):
+            r = base + q * GI_ROWS
+            queries.append((out[r:r + 3], out[r + 3:r + 6],
+                            out[r + 6:r + 9]))
+    return rad3, hit, z, surf, queries
 
 
 def shade_params(cfg, tables: WaveTables) -> dict:
@@ -376,7 +424,9 @@ def _surface_color(tables, M, mrow, base, tm_col, uv, need_uv):
 
 def _bounce(h, tables, prm, state, seed, lane):
     """fused.py::_bounce_core + _shade_from_hit for every lane: returns
-    (rad3, hit, t_z, next state)."""
+    (rad3, hit, t_z, surf, qw, next state).  surf is this bounce's surface
+    rows (p, n, kd, k_eff) and qw = kd * k_eff, both zero where the lane
+    did not hit (fused.py:1613-1616 leaves them undefined there)."""
     o3, d3, tput, absorb, alive_f, rtype = state
     alive = alive_f > 0.0
     t, (nx, ny, nz), mtl, front, uv = _closest_hit(h, o3, d3, tables.need_uv)
@@ -513,6 +563,9 @@ def _bounce(h, tables, prm, state, seed, lane):
         rad[c] = rad[c] + torch.where(env_mask, tput[c] * env3[c], zero)
     hitf = hit.to(torch.float32)
     tz = torch.where(hit, t, BIG)
+    surf = [torch.where(hit, v, zero)
+            for v in [px, py, pz, nx, ny, nz, *kd, *k_eff]]
+    qw = [torch.where(hit, kd[c] * k_eff[c], zero) for c in range(3)]
 
     # ---- Fresnel split (main.cpp:577-610), glossy children (Proj13
     # main.cpp:633-659): coefficients use the true normal, directions the
@@ -611,7 +664,7 @@ def _bounce(h, tables, prm, state, seed, lane):
         child.to(torch.float32),
         torch.where(take_r, float(RT_REFLECT), float(RT_REFRACT)),
     )
-    return rad, hitf, tz, next_state
+    return rad, hitf, tz, surf, qw, next_state
 
 
 def _lane_seeds(n, seed, blk0, device):
@@ -623,9 +676,10 @@ def _lane_seeds(n, seed, blk0, device):
 
 
 def wave_plain(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
-               blk0=0):
-    """Plain PyTorch wave: ((r, g, b) as [3, N], hit [N] bool, z [N])."""
-    rays = pack_rays(o3, d3, alive)
+               blk0=0, tput3=None, absorb3=None, rtype=None, surf_out=False,
+               gi_from=None):
+    """Plain PyTorch wave, with `wave`'s arguments and returns."""
+    rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     n = rays.shape[1]
     h = _Host(tables)
     prm = shade_params(cfg, tables)
@@ -633,19 +687,30 @@ def wave_plain(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     seed0, lane = _lane_seeds(n, int(seed), int(blk0), rays.device)
     one = torch.ones(n, dtype=torch.float32, device=rays.device)
     zero = torch.zeros_like(one)
-    state = ([rays[0], rays[1], rays[2]], [rays[3], rays[4], rays[5]],
-             [one, one, one], [zero, zero, zero], rays[6], zero)
-    acc = [zero, zero, zero]
-    hit0, z0 = zero, torch.full_like(one, BIG)
+    if rays.shape[0] > 7:
+        state = (list(rays[0:3]), list(rays[3:6]), list(rays[7:10]),
+                 list(rays[10:13]), rays[6], rays[13])
+    else:
+        state = (list(rays[0:3]), list(rays[3:6]), [one, one, one],
+                 [zero, zero, zero], rays[6], zero)
+    out = torch.zeros((out_rows(nbounce, surf_out, gi_from), n),
+                      dtype=torch.float32, device=rays.device)
+    out[4] = BIG
+    qbase = 5 + (SURF_ROWS if surf_out else 0)
     for b in range(nbounce):
         if not bool((state[4] > 0.0).any()):
             break
-        rad, hitf, tz, state = _bounce(h, tables, prm, state,
-                                       (seed0 + b * 101) & _M32, lane)
-        acc = [acc[c] + rad[c] for c in range(3)]
+        rad, hitf, tz, surf, qw, state = _bounce(
+            h, tables, prm, state, (seed0 + b * 101) & _M32, lane)
+        out[0:3] += torch.stack(rad)
         if b == 0:
-            hit0, z0 = hitf, tz
-    return torch.stack(acc), hit0 > 0.0, z0
+            out[3], out[4] = hitf, tz
+            if surf_out:
+                out[5:5 + SURF_ROWS] = torch.stack(surf)
+        if gi_from is not None and b >= gi_from:
+            r = qbase + (b - gi_from) * GI_ROWS
+            out[r:r + GI_ROWS] = torch.stack(surf[0:6] + qw)
+    return split_rows(out, nbounce, surf_out, gi_from)
 
 
 # ---------------------------------------------------------------------------
@@ -653,24 +718,31 @@ def wave_plain(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
 
 
 def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
-         blk0=0, stats=None):
+         blk0=0, tput3=None, absorb3=None, rtype=None, surf_out=False,
+         gi_from=None, stats=None):
     """One sample wave through csrc/wave_kernel.cu for CUDA tensors, or
-    `wave_plain` for CPU tensors.  Same signature and returns as
-    rtf_tpu/render/fused.py::fused_wave (lane order in = lane order out).
-    Scenes with file textures or an environment map launch the kernel's
-    textured variant (counted in `launches_textured`), others the
-    untextured one (counted in `launches`).
+    `wave_plain` for CPU tensors.  Same arguments and returns as
+    rtf_tpu/render/fused.py::fused_wave (lane order in = lane order out):
+    (rad3 [3, N], hit [N] bool, z [N]), and with surf_out or gi_from
+    (rad3, hit, z, surf [12, N] or None, queries), one (p3, n3, w3) of
+    [3, N] per bounce b >= gi_from (see `split_rows`).  On lanes that did
+    not hit at a bounce its rows are zero.  tput3, absorb3 and rtype seed
+    a child wave (`pack_rays`).  Scenes with file textures or an
+    environment map launch the kernel's textured variant (counted in
+    `launches_textured`), others the untextured one (counted in
+    `launches`).
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
     work counts to (see csrc/wave_kernel.cu, STAT_*)."""
     global launches, launches_textured
     if o3.device.type == "cpu":
-        return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0)
+        return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0,
+                          tput3, absorb3, rtype, surf_out, gi_from)
     if o3.device.type != "cuda":
         raise ValueError(f"wave: unsupported device {o3.device}")
     from rtf_tpu_torch import _build
     lib = _build.load()
-    rays = pack_rays(o3, d3, alive)
+    rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
     for name in ("spheres", "planes", "mesh_insts", "tiles", "faces",
                  "materials", "lights", "texmaps", "textures", "atlas"):
@@ -689,9 +761,10 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
         raise ValueError(f"wave: stats must be an int64 [{NSTAT}] tensor "
                          f"on {dev}")
     n = rays.shape[1]
-    out = torch.empty((5, n), dtype=torch.float32, device=dev)
     prm = shade_params(cfg, tables)
     nbounce = (cfg.bounces if bounces is None else bounces) + 1
+    out = torch.empty((out_rows(nbounce, surf_out, gi_from), n),
+                      dtype=torch.float32, device=dev)
 
     def ptr(x):
         return ctypes.c_void_p(x.data_ptr() if x.numel() else 0)
@@ -701,8 +774,9 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rtf_wave_launch(
-            ptr(rays), ptr(out), ptr(stats) if stats is not None
-            else ctypes.c_void_p(0), n,
+            ptr(rays), int(rays.shape[0] > 7), ptr(out), int(surf_out),
+            -1 if gi_from is None else int(gi_from),
+            ptr(stats) if stats is not None else ctypes.c_void_p(0), n,
             _i32(int(seed)), int(blk0), nbounce,
             ptr(tables.spheres), tables.spheres.shape[0],
             ptr(tables.planes), tables.planes.shape[0],
@@ -728,4 +802,4 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
         launches_textured += 1
     else:
         launches += 1
-    return out[0:3], out[3] > 0.0, out[4]
+    return split_rows(out, nbounce, surf_out, gi_from)

@@ -83,3 +83,9 @@ REFERENCE = "/root/reference"
 
 def reference_available() -> bool:
     return os.path.isdir(REFERENCE)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (the port's kernels); "
+        "skips elsewhere")

@@ -101,6 +101,17 @@ def textured_desc(w=32, h=24, port=True, seed=0, mesh_subdiv=1,
     return desc
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Run the test's PyTorch CPU ops on one thread: the port's tests use
+    small tensors, and with several pytest workers on one host the
+    intra-op thread pools of each worker contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_scene_arrays(scene):
     """A JAX GpuScene's leaves {path: np.ndarray} and static fields."""
     import jax
@@ -179,8 +190,8 @@ def test_unsupported_scenes_raise(case):
         m = desc.materials["wall"]
         tex = TextureDesc(kind="file", data=np.zeros((2, 2, 3), np.float32))
         m.emission = TexturedColorDesc(np.ones(3), TexMapDesc(tex))
-    elif case == "gi":
-        cfg = cfg.with_(gi_mode="hemisphere")
+    elif case == "gi":             # hemisphere GI is ported, pm_direct not
+        cfg = cfg.with_(gi_mode="pm_direct")
     elif case == "both_split":
         cfg = cfg.with_(split_mode="both")
     elif case == "tex_filter":

@@ -9,7 +9,10 @@ flip of a Russian-roulette choice) and the mean within 1%.  Dead lanes
 (the "-dead" cases, as the adaptive ladder's later rungs mask pixels) give
 exactly zero radiance and no hit.  The "textured" cases (file textures,
 an environment map and a checker; tests/test_torch_common.py) run the
-kernel's textured variant, counted in `launches_textured`."""
+kernel's textured variant, counted in `launches_textured`.  The GI rows
+(surface and photon-query rows, render/wave.py::split_rows) of bounce 0
+agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
+of lanes."""
 import pytest
 import torch
 
@@ -109,6 +112,61 @@ def test_kernel_work_counters(cuda_dev, name):
         # sample is one file-texture sample
         assert 0 < env <= rays - hits and 0 < tex_checker <= hits
         assert env < tex_file <= 2 * hits + env
+
+
+def _rows_close(plain, kern, alive, gi_from):
+    """GI rows, kernel against plain: rows of bounce 0 on every lane
+    within 2e-4 + 1e-4 |x|; past bounce 0 at most 1% of lanes outside;
+    finite; no query weight on dead lanes."""
+    (pr, ph, pz, ps, pq), (kr, kh, kz, ks, kq) = plain, kern
+    assert torch.equal(kh, ph) and len(kq) == len(pq)
+    rows = [] if ps is None else [(0, ps, ks)]
+    rows += [(gi_from + k, torch.cat(p), torch.cat(q))
+             for k, (p, q) in enumerate(zip(pq, kq))]
+    for b, p, k in rows:
+        assert bool(torch.isfinite(k).all())
+        off = ((k - p).abs() > 2e-4 + 1e-4 * p.abs()).any(0)
+        assert float(off.float().mean()) <= (0.0 if b == 0 else 0.01)
+    for q in kq:
+        assert not bool((q[2][:, ~alive] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "textured"])
+@pytest.mark.parametrize("case", ["surf", "gi_from=1", "gi_from=0", "child",
+                                  "child rows"])
+def test_kernel_rows_match_plain(cuda_dev, name, case):
+    """The GI rows (surf_out, gi_from) and a hemisphere child wave
+    (non-unit throughput, RT_REFRACT, every other lane dead; with and
+    without query rows) in both variants."""
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.render.gi import child_wave_args
+    cfg = _cfg(bounces=2, split_mode="rr", hemisphere_samples=4,
+               env_on_reflect_miss=name == "textured")
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    kw = {"surf": dict(surf_out=True),
+          "gi_from=1": dict(surf_out=True, gi_from=1)}.get(
+              case, dict(surf_out=True, gi_from=0))
+    args, gi_from = (o3, d3, alive, 13), kw.get("gi_from", 0)
+    if case.startswith("child"):
+        _, hit0, _, surf, _ = W.wave_plain(cfg, tables, *args, **kw)
+        half = alive.clone()
+        half[::2] = False
+        u = torch.rand((2, alive.shape[0]), device=cuda_dev,
+                       generator=torch.Generator(cuda_dev).manual_seed(1))
+        args, kw = child_wave_args(cfg, surf, hit0, half, 13, 1, u[0], u[1])
+        gi_from = 0
+        if case == "child rows":
+            kw["gi_from"] = 0
+    plain = W.wave_plain(cfg, tables, *args, **kw)
+    kern = W.wave(cfg, tables, *args, **kw)
+    torch.cuda.synchronize()
+    if case == "child":
+        assert torch.equal(kern[1], plain[1])
+        err = (kern[0] - plain[0]).abs()
+        assert float((err > 2e-4).any(0).float().mean()) <= 0.01
+        return
+    _rows_close(plain, kern, args[2], gi_from)
 
 
 def test_wave_refuses_other_devices():
