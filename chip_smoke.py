@@ -33,16 +33,20 @@ imports only the port, torch and numpy, and exits nonzero on any failure:
             8 spp, 2 bounces, gi_mode "hemisphere" with 4 hemisphere
             samples: one warm-up frame, best of 3, each frame counted
             (8 x (1 + 4) = 40 launches of the untextured variant); then
-            per launch kind (the primary launch with its rows, a child
-            launch) the kernel's time, work counts and bound, and the
-            plain GI wave's time;
+            at the path's own shape, per launch kind (the primary launch
+            with its rows, a child launch), the kernel against its plain
+            version, its time, work counts and bound, and the whole GI
+            sample wave (`gi_wave` on the kernel against `gi_wave` on the
+            plain version, the same uniforms and volumes) with its time;
 6. hybrid   the reference's Final structure at full width: the textured
-            box at 800x600, 8 spp, 4 bounces, adaptive 4-16 soft shadows,
-            gi_mode "photon" with 30 hemisphere samples, a photon volume
-            and a caustic volume (each 60x60x45 cells, 171,166 corners,
-            spanning the box, table from a numpy seed): 8 x 31 = 248
-            launches of the textured variant per frame, and the figures
-            of phase 5.
+            box at 800x600, 8 spp, 4 bounces, shadow samples 4/16 (the
+            box's light has no size, so the shadows stay hard and the
+            4-16 escalation does not run here; phase 2's "soft" cases
+            hold it against the plain version), gi_mode "photon" with 30
+            hemisphere samples, a photon volume and a caustic volume (each
+            60x60x45 cells, 171,166 corners, spanning the box, table from
+            a numpy seed): 8 x 31 = 248 launches of the textured variant
+            per frame, and the checks and figures of phase 5.
 
 Tolerances: at bounce 0 the hit masks are equal, radiance within atol
 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
@@ -601,10 +605,12 @@ def main():
 
     def drive_gi(tag, desc, gcfg, counter, volumes=False):
         """Render one GI path through `render`, every frame counted in
-        `counter` (spp x (1 + hemisphere samples) launches); then per
-        launch kind, the primary launch with its rows and one child
-        launch, the kernel's time, work counts and bound (the output rows'
-        bytes included), and the plain version's time."""
+        `counter` (spp x (1 + hemisphere samples) launches); then at this
+        shape, per launch kind (the primary launch with its rows, one
+        child launch), the kernel against the plain version, its time,
+        work counts and bound (the output rows' bytes included) and the
+        plain version's time; then the whole GI sample wave on the kernel
+        against the same on the plain version."""
         scene = build_scene(desc, device=dev)
         tables = scene_tables(scene)
         check(tables.textured == (counter == "launches_textured"),
@@ -675,20 +681,34 @@ def main():
 
         def child(fn=W_.wave, **kw):
             return fn(gcfg, tables, *args, **ckw, **kw)
-        kinds = {}
-        for kname, fn, rows_in, rows_out in (
-                ("primary", primary, 7,
+        kinds, errs = {}, []
+        for kname, fn, live, nb, gfk, rows_in, rows_out in (
+                ("primary", primary, alive, gcfg.bounces, gf, 7,
                  W_.out_rows(gcfg.bounces + 1, True, gf)),
-                ("child", child, 14,
+                ("child", child, args[2], ckw["bounces"], ckw["gi_from"], 14,
                  W_.out_rows(ckw["bounces"] + 1, False, ckw["gi_from"]))):
+            # the kernel against its plain version at this path's shape;
+            # the plain call is also the untimed first call of its timing
+            kern, plain = fn(), fn(W_.wave_plain)
+            torch.cuda.synchronize()
+            name = f"{tag} {kname} {w}x{h}"
+            if len(kern) == 3:           # a hemisphere child: no rows
+                errs.append(compare(name, plain, kern, live, nb)[0])
+            else:
+                errs.append(compare_rows(name, plain, kern, live, nb,
+                                         0 if gfk is None else gfk))
+            del kern, plain
+            t0 = time.perf_counter()
+            fn(W_.wave_plain)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
             ms = events_ms(fn)
             ms_prof = profiled_ms(fn)
             st = work(fn)
             bd = bound(tables, st, n, rows_in, rows_out)
-            pms = host_ms(lambda: fn(W_.wave_plain), 1)
             kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
-                                work=st, rows_in=rows_in, rows_out=rows_out,
-                                **bd)
+                                max_abs_err=errs[-1], work=st,
+                                rows_in=rows_in, rows_out=rows_out, **bd)
             print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
                   f"events), {ms_prof:.4f} ms (profiler, kernel only), "
                   f"plain {pms:.2f} ms; rows {rows_in} in, "
@@ -700,17 +720,27 @@ def main():
         def per_launch(k):
             return (kinds["primary"][k] + s_hemi * kinds["child"][k]) \
                 / (1 + s_hemi)
+        # the whole GI sample wave (child arguments, volume terms) on the
+        # kernel against the same on the plain version
         uni = torch.rand((s_hemi, 2, n), generator=gen, device=dev)
+        kern = gi_wave(gcfg, tables, o3, d3, alive, 11, uni, gi_vol,
+                       caustic_vol)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gi_wave(gcfg, tables, o3, d3, alive, 11, uni, gi_vol, caustic_vol,
-                wave_fn=W_.wave_plain)
+        plain = gi_wave(gcfg, tables, o3, d3, alive, 11, uni, gi_vol,
+                        caustic_vol, wave_fn=W_.wave_plain)
         torch.cuda.synchronize()
         plain_gi = (time.perf_counter() - t0) * 1e3
+        err_gi, share_gi = compare(f"{tag} gi_wave {w}x{h}", plain, kern,
+                                   alive, gcfg.bounces)
+        errs.append(err_gi)
         print(f"[{tag}] plain GI sample wave ({1 + s_hemi} plain waves and "
               f"their host work) {plain_gi:.2f} ms", flush=True)
         print(f"[{tag}] phase passed", flush=True)
         return {
-            "launches": launches, "max_abs_err": rows_err[
+            "launches": launches, "max_abs_err": max(errs),
+            "max_abs_err_gi_wave": err_gi, "share_outside_atol": share_gi,
+            "max_abs_err_phase2_800x600": rows_err[
                 "wave_textured_gi" if tables.textured else "wave_gi"],
             "ms": per_launch("ms"), "ms_profiler": prof_ms,
             "plain_ms": per_launch("plain_ms"), "plain_gi_wave_ms": plain_gi,

@@ -151,7 +151,9 @@ def gi_wave(cfg, tables, o3, d3, alive, seed, uniforms=None, gi_vol=None,
     cfg.hemisphere_samples child launches.  uniforms: the hemisphere
     draws, uniforms[i] = (u_phi [N], ysq [N]) in [0, 1); gi_vol: the
     photon volume of gi_mode 'photon', None for 'hemisphere' and
-    'pathtrace'.  Returns (rad3 [3, N], hit [N], z [N]) like `wave`."""
+    'pathtrace'.  wave_fn=wave_plain gives the plain version of the whole
+    sample wave on any device, which chip_smoke.py holds the kernel's
+    against.  Returns (rad3 [3, N], hit [N], z [N]) like `wave`."""
     rad3, hit0, z0, surf = gi_primary(cfg, tables, o3, d3, alive, seed,
                                       gi_vol, caustic_vol, wave_fn)
     if cfg.hemisphere_samples > 0:

@@ -12,7 +12,7 @@ an environment map and a checker; tests/test_torch_common.py) run the
 kernel's textured variant, counted in `launches_textured`.  The GI rows
 (surface and photon-query rows, render/wave.py::split_rows) of bounce 0
 agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
-of lanes."""
+of lanes with the mean within 1%."""
 import pytest
 import torch
 
@@ -116,10 +116,13 @@ def test_kernel_work_counters(cuda_dev, name):
 
 def _rows_close(plain, kern, alive, gi_from):
     """GI rows, kernel against plain: rows of bounce 0 on every lane
-    within 2e-4 + 1e-4 |x|; past bounce 0 at most 1% of lanes outside;
-    finite; no query weight on dead lanes."""
+    within 2e-4 + 1e-4 |x|; past bounce 0 at most 1% of lanes outside
+    and the mean within 1%; finite; no query weight on dead lanes."""
     (pr, ph, pz, ps, pq), (kr, kh, kz, ks, kq) = plain, kern
     assert torch.equal(kh, ph) and len(kq) == len(pq)
+    # the radiance of these waves runs past bounce 0
+    assert float(((kr - pr).abs() > 2e-4).any(0).float().mean()) <= 0.01
+    assert abs(float(kr.mean()) / float(pr.mean()) - 1.0) < 0.01
     rows = [] if ps is None else [(0, ps, ks)]
     rows += [(gi_from + k, torch.cat(p), torch.cat(q))
              for k, (p, q) in enumerate(zip(pq, kq))]
@@ -127,6 +130,9 @@ def _rows_close(plain, kern, alive, gi_from):
         assert bool(torch.isfinite(k).all())
         off = ((k - p).abs() > 2e-4 + 1e-4 * p.abs()).any(0)
         assert float(off.float().mean()) <= (0.0 if b == 0 else 0.01)
+        if b > 0:
+            assert abs(float(k.mean()) - float(p.mean())) \
+                <= 0.01 * abs(float(p.mean())) + 1e-6
     for q in kq:
         assert not bool((q[2][:, ~alive] != 0).any())
 
@@ -165,6 +171,8 @@ def test_kernel_rows_match_plain(cuda_dev, name, case):
         assert torch.equal(kern[1], plain[1])
         err = (kern[0] - plain[0]).abs()
         assert float((err > 2e-4).any(0).float().mean()) <= 0.01
+        assert abs(float(kern[0].mean()) / float(plain[0].mean()) - 1.0) \
+            < 0.01
         return
     _rows_close(plain, kern, args[2], gi_from)
 
