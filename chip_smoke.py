@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (rtf_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
 Run from the root of a checkout, on a host with a CUDA card and nvcc.  It
-imports only the port, torch and numpy, and exits nonzero on any failure:
+imports only the port, torch and numpy, and exits nonzero on any failure.
+With no arguments it runs every phase; given phase numbers, the build and
+those phases only (for iterating on one path):
 
-1. build    builds the wave kernel (its four variants: untextured or
-            textured, with or without GI rows) from the sources in the
-            checkout and prints the build time and register counts;
+1. build    builds the two kernel libraries (one nvcc per source, started
+            together): the wave kernel (its four variants: untextured or
+            textured, with or without GI rows) and mesh_closest_hit, from
+            the sources in the checkout, and prints the build time and
+            register counts;
 2. kernel   holds the kernel against its plain PyTorch version on the card
             at 160x120 (box scene at bounces 0 and 4, soft shadows, a
             checker scene, glossy materials, waves with every other lane
@@ -46,7 +50,22 @@ imports only the port, torch and numpy, and exits nonzero on any failure:
             hemisphere samples, a photon volume and a caustic volume (each
             60x60x45 cells, 171,166 corners, spanning the box, table from
             a numpy seed): 8 x 31 = 248 launches of the textured variant
-            per frame, and the checks and figures of phase 5.
+            per frame, and the checks and figures of phase 5;
+7. wavefront the XLA wavefront's port with the mesh_closest_hit kernel:
+            the kernel against its plain version on one wave's own inputs
+            (the 480,000 primary rays of the 800x600 box, a batch of its
+            shadow rays, the first bounce's compacted queue with dead
+            lanes; faces equal, t, front, ba, bb within rtol 1e-6), then
+            RenderConfig() (4 -> 8 spp, 4 bounces, the 'both' split, soft
+            shadows 4 -> 16) on box_scene(800, 600, light_size=1.0) through
+            `render`: one warm-up frame, best of 3, each frame's launches
+            counted (per shade_lanes 1 + 4 + 16 traces, 5 shade_lanes a
+            wave, 8 waves: 840); one wave profiled; the kernel's time per
+            launch (CUDA events, profiler), work counts and bound, and the
+            plain version's; a 160x120 frame with the kernel against the
+            same frame with the plain version put in the kernel's place, and a
+            wavefront GI frame (400x300, 4 spp, 2 bounces, 4 hemisphere
+            samples) that must add light.
 
 Tolerances: at bounce 0 the hit masks are equal, radiance within atol
 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
@@ -61,7 +80,7 @@ every row is finite and the query weight is zero on dead lanes.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
-build/chip_smoke_{main,textured,gi,hybrid}.png.
+build/chip_smoke_{main,textured,gi,hybrid,wavefront}.png.
 """
 import json
 import os
@@ -283,7 +302,9 @@ def box_volume(scene, seed, dev):
     return volume_from_arrays(table, lo, dims, cell, device=dev)
 
 
-def main():
+def main(argv):
+    # no arguments: every phase; phase numbers: the build and those only
+    phases = {int(a) for a in argv} or set(range(1, 8))
     try:
         import torch
     except ImportError:
@@ -300,10 +321,13 @@ def main():
     from rtf_tpu_torch.render import wave as W_
     from rtf_tpu_torch.render.gi import (
         child_wave_args, gi_wave, primary_gi_from)
-    from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
+    from rtf_tpu_torch.ops import mesh_hit as M_
+    from rtf_tpu_torch.render.camera import (
+        pixel_order, primary_rays, primary_rays_ch)
+    from rtf_tpu_torch.render.integrator import render_wave
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
-    from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.render.scene_tables import render_path, scene_tables
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
     from rtf_tpu_torch.utils.png import write_png
@@ -314,17 +338,20 @@ def main():
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda}"
           f" on {kind} ({card})", flush=True)
 
-    # ---- phase 1: build
+    # ---- phase 1: build (one nvcc per source, started together)
     t0 = time.perf_counter()
-    log = _build.build()
+    logs = _build.build()
     build_s = time.perf_counter() - t0
-    for line in log.splitlines():
-        # per variant: wave_kernel<TEXTURED, ROWS>, mangled Lb0/Lb1 pairs
-        if any(k in line for k in ("registers", "spill", "entry function")):
-            print(f"[build] wave: {line.strip()}", flush=True)
-    print(f"[build] built {_build.library_path().name} in {build_s:.2f} s",
-          flush=True)
-    _build.load()
+    for name, log in logs.items():
+        for line in log.splitlines():
+            # wave: per variant wave_kernel<TEXTURED, ROWS>, mangled Lb0/Lb1
+            if any(k in line for k in ("registers", "spill",
+                                       "entry function")):
+                print(f"[build] {name}: {line.strip()}", flush=True)
+        _build.load(name)
+    print(f"[build] built "
+          f"{', '.join(_build.library_path(k).name for k in logs)} in "
+          f"{build_s:.2f} s", flush=True)
 
     def rays(scene, j=0):
         order = torch.as_tensor(pixel_order(scene.width, scene.height),
@@ -342,101 +369,109 @@ def main():
         return plain, kern, alive
 
     # ---- phase 2: kernel against its plain version
-    base = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=0,
-                        shadow_min=1, shadow_max=1, gi_mode="none")
-    glossy = box_scene(*SMALL, with_mesh=False)
-    glossy.materials["mirror"].reflection_glossiness = 0.15
-    glossy.materials["glass"].refraction_glossiness = 0.15
-    soft = base.with_(shadow_min=4, shadow_max=16)
-    env = base.with_(bounces=4, env_on_reflect_miss=True)
-    textured = textured_desc(box_scene, *SMALL)
-    cases = [
-        ("box b0", box_scene(*SMALL), base, 123, False),
-        ("box b4", box_scene(*SMALL), base.with_(bounces=4), 2 ** 31 - 5,
-         False),
-        ("soft b0", box_scene(*SMALL, light_size=1.0), soft, 2 ** 31 - 5,
-         False),
-        ("soft b4", box_scene(*SMALL, light_size=1.0),
-         soft.with_(bounces=4), 77, False),
-        ("checker b0", checker_desc(box_scene, *SMALL), base, 1, False),
-        ("glossy b4", glossy, base.with_(bounces=4), 5, False),
-        # the adaptive ladder's later rungs run waves with masked lanes
-        ("box b4 half dead", box_scene(*SMALL), base.with_(bounces=4), 31,
-         True),
-        ("soft b0 half dead", box_scene(*SMALL, light_size=1.0), soft, 8,
-         True),
-        # the textured variant: file textures, checker, environment map
-        ("textured b0", textured, base, 3, False),
-        ("textured b4", textured, base.with_(bounces=4), 2 ** 31 - 5, False),
-        ("textured env b4", textured, env, 41, False),
-        ("textured env l2 b4", textured, env.with_(env_l2=True), 43, False),
-        ("textured b4 half dead", textured, env, 47, True),
-    ]
-    for name, desc, cfg, seed, dead in cases:
-        scene = build_scene(desc, device=dev)
-        tables = scene_tables(scene)
-        check(tables.textured == name.startswith("textured"),
-              f"{name}: wrong kernel variant")
-        o3, d3 = rays(scene, 3)
-        plain, kern, al = both(cfg, tables, o3, d3, seed, dead)
-        compare(f"{name} {SMALL[0]}x{SMALL[1]}", plain, kern, al,
-                cfg.bounces)
-
-    # the GI rows and child waves, both variants, 160x120 and 800x600
     rows_err = {"wave_gi": 0.0, "wave_textured_gi": 0.0}
     gen = torch.Generator(device=dev).manual_seed(5)
-    for key, mk, rcfg in (
-            ("wave_gi", lambda w, h: box_scene(w, h, with_mesh=True),
-             base.with_(bounces=2)),
-            ("wave_textured_gi", lambda w, h: textured_desc(box_scene, w, h),
-             base.with_(bounces=4, shadow_min=4, shadow_max=16))):
-        for w, h in (SMALL, (W, H)):
-            scene = build_scene(mk(w, h), device=dev)
+    if 2 in phases:
+        base = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=0,
+                            shadow_min=1, shadow_max=1, gi_mode="none")
+        glossy = box_scene(*SMALL, with_mesh=False)
+        glossy.materials["mirror"].reflection_glossiness = 0.15
+        glossy.materials["glass"].refraction_glossiness = 0.15
+        soft = base.with_(shadow_min=4, shadow_max=16)
+        env = base.with_(bounces=4, env_on_reflect_miss=True)
+        textured = textured_desc(box_scene, *SMALL)
+        cases = [
+            ("box b0", box_scene(*SMALL), base, 123, False),
+            ("box b4", box_scene(*SMALL), base.with_(bounces=4), 2 ** 31 - 5,
+             False),
+            ("soft b0", box_scene(*SMALL, light_size=1.0), soft, 2 ** 31 - 5,
+             False),
+            ("soft b4", box_scene(*SMALL, light_size=1.0),
+             soft.with_(bounces=4), 77, False),
+            ("checker b0", checker_desc(box_scene, *SMALL), base, 1, False),
+            ("glossy b4", glossy, base.with_(bounces=4), 5, False),
+            # the adaptive ladder's later rungs run waves with masked lanes
+            ("box b4 half dead", box_scene(*SMALL), base.with_(bounces=4), 31,
+             True),
+            ("soft b0 half dead", box_scene(*SMALL, light_size=1.0), soft, 8,
+             True),
+            # the textured variant: file textures, checker, environment map
+            ("textured b0", textured, base, 3, False),
+            ("textured b4", textured, base.with_(bounces=4), 2 ** 31 - 5,
+             False),
+            ("textured env b4", textured, env, 41, False),
+            ("textured env l2 b4", textured, env.with_(env_l2=True), 43,
+             False),
+            ("textured b4 half dead", textured, env, 47, True),
+        ]
+        for name, desc, cfg, seed, dead in cases:
+            scene = build_scene(desc, device=dev)
             tables = scene_tables(scene)
+            check(tables.textured == name.startswith("textured"),
+                  f"{name}: wrong kernel variant")
             o3, d3 = rays(scene, 3)
-            alive = torch.ones(w * h, dtype=torch.bool, device=dev)
-            for tag, kw in (("surf", dict(surf_out=True)),
-                            ("gi_from=1", dict(surf_out=True, gi_from=1)),
-                            ("gi_from=0", dict(surf_out=True, gi_from=0))):
-                plain = W_.wave_plain(rcfg, tables, o3, d3, alive, 17, **kw)
-                kern = W_.wave(rcfg, tables, o3, d3, alive, 17, **kw)
-                torch.cuda.synchronize()
-                e = compare_rows(f"{key} {tag} {w}x{h}", plain, kern, alive,
-                                 rcfg.bounces, kw.get("gi_from", 0))
-                if (w, h) == (W, H):
-                    rows_err[key] = max(rows_err[key], e)
-            # a hemisphere child wave from the primary's surface rows
-            _, hit0, _, surf, _ = plain
-            half = alive.clone()
-            half[::2] = False
-            u = torch.rand((2, w * h), generator=gen, device=dev)
-            args, ckw = child_wave_args(rcfg.with_(hemisphere_samples=4),
-                                        surf, hit0, half, 17, 1, u[0], u[1])
-            check(float(ckw["tput3"].max()) < 1.0 and bool(args[2].any()),
-                  f"{key}: child wave without live lanes")
-            for tag, gkw in (("child", {}), ("child rows", dict(gi_from=0))):
-                plain = W_.wave_plain(rcfg, tables, *args, **ckw, **gkw)
-                kern = W_.wave(rcfg, tables, *args, **ckw, **gkw)
-                torch.cuda.synchronize()
-                name = f"{key} {tag} {w}x{h}"
-                if gkw:
-                    e = compare_rows(name, plain, kern, args[2],
-                                     ckw["bounces"], 0)
-                else:
-                    e, _ = compare(name, plain, kern, args[2],
-                                   ckw["bounces"])
-                if (w, h) == (W, H):
-                    rows_err[key] = max(rows_err[key], e)
-    print("[kernel] phase passed", flush=True)
+            plain, kern, al = both(cfg, tables, o3, d3, seed, dead)
+            compare(f"{name} {SMALL[0]}x{SMALL[1]}", plain, kern, al,
+                    cfg.bounces)
+
+        # the GI rows and child waves, both variants, 160x120 and 800x600
+        for key, mk, rcfg in (
+                ("wave_gi", lambda w, h: box_scene(w, h, with_mesh=True),
+                 base.with_(bounces=2)),
+                ("wave_textured_gi",
+                 lambda w, h: textured_desc(box_scene, w, h),
+                 base.with_(bounces=4, shadow_min=4, shadow_max=16))):
+            for w, h in (SMALL, (W, H)):
+                scene = build_scene(mk(w, h), device=dev)
+                tables = scene_tables(scene)
+                o3, d3 = rays(scene, 3)
+                alive = torch.ones(w * h, dtype=torch.bool, device=dev)
+                for tag, kw in (("surf", dict(surf_out=True)),
+                                ("gi_from=1", dict(surf_out=True, gi_from=1)),
+                                ("gi_from=0", dict(surf_out=True, gi_from=0))):
+                    plain = W_.wave_plain(rcfg, tables, o3, d3, alive, 17,
+                                          **kw)
+                    kern = W_.wave(rcfg, tables, o3, d3, alive, 17, **kw)
+                    torch.cuda.synchronize()
+                    e = compare_rows(f"{key} {tag} {w}x{h}", plain, kern,
+                                     alive, rcfg.bounces,
+                                     kw.get("gi_from", 0))
+                    if (w, h) == (W, H):
+                        rows_err[key] = max(rows_err[key], e)
+                # a hemisphere child wave from the primary's surface rows
+                _, hit0, _, surf, _ = plain
+                half = alive.clone()
+                half[::2] = False
+                u = torch.rand((2, w * h), generator=gen, device=dev)
+                args, ckw = child_wave_args(rcfg.with_(hemisphere_samples=4),
+                                            surf, hit0, half, 17, 1, u[0],
+                                            u[1])
+                check(float(ckw["tput3"].max()) < 1.0 and bool(args[2].any()),
+                      f"{key}: child wave without live lanes")
+                for tag, gkw in (("child", {}),
+                                 ("child rows", dict(gi_from=0))):
+                    plain = W_.wave_plain(rcfg, tables, *args, **ckw, **gkw)
+                    kern = W_.wave(rcfg, tables, *args, **ckw, **gkw)
+                    torch.cuda.synchronize()
+                    name = f"{key} {tag} {w}x{h}"
+                    if gkw:
+                        e = compare_rows(name, plain, kern, args[2],
+                                         ckw["bounces"], 0)
+                    else:
+                        e, _ = compare(name, plain, kern, args[2],
+                                       ckw["bounces"])
+                    if (w, h) == (W, H):
+                        rows_err[key] = max(rows_err[key], e)
+        print("[kernel] phase passed", flush=True)
 
     cfg = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=BOUNCES,
                        shadow_min=1, shadow_max=1, gi_mode="none")
     check(cfg.resolved_split_mode() == "rr", "main path must run split rr")
     counters = ("launches", "launches_textured")
 
-    def profile_frame(tag, frame_s, fn):
+    def profile_frame(tag, frame_s, fn, kernel="wave_kernel"):
         """Where one frame's device time goes (torch.profiler over fn):
-        (device busy us, wave-kernel ms per launch, launches).  Only the
+        (device busy us, `kernel`'s ms per launch, launches).  Only the
         device's own events count (kernels, copies): an aten op's device
         time is that of the kernels it launched, which are listed too."""
         from torch.autograd import DeviceType
@@ -449,17 +484,17 @@ def main():
             us = getattr(ev, "self_device_time_total", 0.0)
             if us > 0 and ev.device_type == DeviceType.CUDA:
                 dev_us[ev.key] = us
-                if "wave_kernel" in ev.key:
-                    name = ev.key[ev.key.index("wave_kernel"):]
-                    kern[name.split(">")[0] + ">"] = (us, ev.count)
+                if kernel in ev.key:
+                    name = ev.key[ev.key.index(kernel):]
+                    kern[name.split(">")[0].split("(")[0]] = (us, ev.count)
         total_us = sum(dev_us.values())
         kern_us = sum(v[0] for v in kern.values())
         kern_n = sum(v[1] for v in kern.values())
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
         prof_ms = kern_us / max(kern_n, 1) / 1e3
         print(f"[{tag}] profiled frame: device busy {total_us / 1e3:.3f} ms "
-              f"= {total_us / 1e4 / frame_s:.2f}% of the best frame; wave "
-              f"kernel {kern_n} launches, {prof_ms:.4f} ms each ("
+              f"= {total_us / 1e4 / frame_s:.2f}% of the best frame; "
+              f"{kernel} {kern_n} launches, {prof_ms:.4f} ms each ("
               + "; ".join(f"{k} x{c} {u / 1e3 / c:.4f} ms"
                           for k, (u, c) in kern.items())
               + "); top: "
@@ -496,8 +531,8 @@ def main():
         return (time.perf_counter() - t0_) / reps * 1e3
 
     def profiled_ms(fn, reps=5):
-        """The wave kernel's own device time per call of fn
-        (torch.profiler over reps calls)."""
+        """The wave kernel's own device time per call of fn (torch.profiler
+        over reps calls)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -749,43 +784,302 @@ def main():
             "frame_s": frame_s, "device_busy_share": busy_us / 1e6 / frame_s,
             "per_launch_kind": kinds}
 
-    # ---- phase 3: the main path (untextured variant)
-    main_k = drive("main", box_scene(W, H, with_mesh=True),
-                   box_scene(*SMALL, with_mesh=True), "launches")
-    # ---- phase 4: the textured box at full width (textured variant)
-    tex_k = drive("textured", textured_desc(box_scene, W, H),
-                  textured_desc(box_scene, *SMALL), "launches_textured")
-    # ---- phase 5: bench.py's GI cell (untextured variant, rows)
+    def mesh_counts():
+        return {"mesh_closest_hit": M_.launches,
+                **{c: getattr(W_, c) for c in counters}}
+
+    def drive_wavefront():
+        """Phase 7: render the default config on the XLA wavefront's port
+        at 800x600 with a sized light (soft shadows 4 -> 16), each frame's
+        mesh_closest_hit launches counted against the code; the kernel
+        against its plain version on the frame's own inputs (primary rays,
+        a batch of shadow rays, a compacted bounce queue with dead lanes);
+        its time, work counts and bound; a 160x120 frame with the kernel
+        against the same frame with the plain version; a hemisphere-GI
+        frame on the wavefront."""
+        t_phase = time.perf_counter()
+
+        def stamp(what):
+            print(f"[wavefront] {time.perf_counter() - t_phase:.1f} s: "
+                  f"{what}", flush=True)
+        wcfg = RenderConfig()
+        check(wcfg.resolved_split_mode() == "both",
+              "the default config must take the 'both' split")
+        scene = build_scene(box_scene(W, H, with_mesh=True, light_size=1.0),
+                            device=dev)
+        tables = scene_tables(scene)
+        check(render_path(scene, wcfg)[0] == "wavefront",
+              "the default config must take the wavefront")
+        check(scene.num_mesh_inst == 1 and scene.any_soft_light,
+              "one mesh instance and a sized light")
+        # the count the code gives: per shade_lanes 1 closest-hit trace and
+        # shadow_min + shadow_max shadow traces (the escalation traces
+        # every lane), one mesh_closest_hit per trace and mesh instance;
+        # per wave 1 + bounces shade_lanes; every wave of both rungs runs
+        per_shade = (1 + wcfg.shadow_min + wcfg.shadow_max) \
+            * scene.num_mesh_inst
+        per_wave = per_shade * (1 + wcfg.bounces)
+        expected = per_wave * wcfg.max_samples
+
+        # the kernel's inputs from one wave of the frame: the primary
+        # closest-hit trace (480,000 rays), its first shadow trace, and the
+        # first bounce's closest-hit trace (the compacted queue)
+        captured, calls = {}, [0]
+        kernel_fn = M_.mesh_closest_hit
+        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+        o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
+        ids = torch.arange(W * H, device=dev)
+
+        def one_wave():
+            """One sample wave of the frame (render_wave, all lanes)."""
+            return render_wave(
+                scene, wcfg, tables, o, d, ids,
+                torch.ones(W * H, dtype=torch.bool, device=dev),
+                torch.Generator(device=dev).manual_seed(3), W * H,
+                inv_pixel=ids)
+
+        def capture(rays8, tris, aabb, face0=0, stats=None):
+            if calls[0] in (0, 1, per_shade):
+                captured[calls[0]] = (rays8, tris, aabb, face0)
+            calls[0] += 1
+            return kernel_fn(rays8, tris, aabb, face0, stats)
+        M_.mesh_closest_hit = capture
+        try:
+            one_wave()
+        finally:
+            M_.mesh_closest_hit = kernel_fn
+        stamp("captured one wave's kernel inputs")
+        kinds, err = {}, 0.0
+        for key, label in ((0, "primary"), (1, "shadow"),
+                           (per_shade, "bounce 1")):
+            rays8, tris, aabb, face0 = captured[key]
+            kern = M_.mesh_closest_hit(rays8, tris, aabb, face0)
+            plain = M_.mesh_closest_hit_plain(rays8, tris, aabb, face0)
+            torch.cuda.synchronize()
+            live = rays8[:, 0] < 1e6           # not a dead-lane sentinel
+            hit = kern[1] >= 0
+            check(torch.equal(kern[1], plain[1]),
+                  f"mesh {label}: faces differ on "
+                  f"{int((kern[1] != plain[1]).sum())} rays")
+            e = 0.0
+            for name, k, p in zip(("t", "front", "ba", "bb"),
+                                  (kern[0], kern[2], kern[3], kern[4]),
+                                  (plain[0], plain[2], plain[3], plain[4])):
+                diff = (k - p).abs()
+                check(bool((diff <= 1e-6 * p.abs()).all()),
+                      f"mesh {label}: {name} beyond rtol 1e-6 "
+                      f"(max abs {float(diff.max()):.3e})")
+                e = max(e, float(diff.max()))
+            err = max(err, e)
+            print(f"[wavefront] mesh_closest_hit vs plain, {label}: "
+                  f"{rays8.shape[0]} rays ({int(live.sum())} live, "
+                  f"{int(hit.sum())} hit the ball), faces and hit masks "
+                  f"equal, max_abs_err={e:.3e}", flush=True)
+            kinds[label] = dict(rays=rays8.shape[0], live=int(live.sum()),
+                                hits=int(hit.sum()), max_abs_err=e)
+            del kern, plain
+        stamp("kernel against plain")
+
+        # the frame, through `render`
+        render(scene, wcfg, device=dev, tables=tables)    # warm-up frame
+        frame_s, res = float("inf"), None
+        for rep in range(3):
+            M_.launches = 0
+            for c in counters:
+                setattr(W_, c, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
+            dt = time.perf_counter() - t0
+            counts = mesh_counts()
+            check(counts["mesh_closest_hit"] == expected
+                  and sum(counts.values()) == expected,
+                  f"wavefront frame {rep}: launches {counts}, expected "
+                  f"{expected} of mesh_closest_hit")
+            check(np.isfinite(out.radiance).all(), "non-finite radiance")
+            check(out.image.shape == (H, W, 3),
+                  f"image shape {out.image.shape}")
+            check(set(np.unique(out.sample_count)) <= {wcfg.min_samples,
+                                                       wcfg.max_samples},
+                  "sample counts outside the ladder")
+            check(out.image.mean() > 5.0, "frame is black")
+            if dt < frame_s:
+                frame_s, res = dt, out
+        refined = float((res.sample_count == wcfg.max_samples).mean())
+        mrays = 2.0 * W * H * wcfg.max_samples / frame_s / 1e6
+        (ROOT / "build").mkdir(exist_ok=True)
+        png = ROOT / "build" / "chip_smoke_wavefront.png"
+        write_png(str(png), res.image)
+        print(f"[wavefront] frame {W}x{H} RenderConfig() (split both, "
+              f"{wcfg.min_samples}->{wcfg.max_samples} spp, {wcfg.bounces} "
+              f"bounces, shadows {wcfg.shadow_min}->{wcfg.shadow_max}): best "
+              f"of 3 {frame_s:.4f} s, {mrays:.2f} Mrays/s (2*W*H*max_spp/t),"
+              f" {expected} mesh_closest_hit launches/frame ({per_wave} per "
+              f"wave), {refined:.4f} of pixels refined, mean byte "
+              f"{res.image.mean():.2f}, png {png.relative_to(ROOT)}",
+              flush=True)
+        stamp("frames")
+        # where one wave's device time goes (a frame is max_samples such
+        # waves; the profiler over a whole frame's ~10^5 small ops costs
+        # more than the frame)
+        wave_s = min(host_ms(one_wave, 1), host_ms(one_wave, 1)) / 1e3
+        busy_us, prof_ms, prof_n = profile_frame(
+            "wavefront wave", wave_s, one_wave, kernel="mesh_hit_kernel")
+        stamp("profiled one wave")
+
+        # time per launch of each input kind: CUDA events with the queue
+        # filled first, the plain version; work counts and the bound (the
+        # profiler's kernel time is the wave's average above)
+        for key, label in ((0, "primary"), (1, "shadow"),
+                           (per_shade, "bounce 1")):
+            rays8, tris, aabb, face0 = captured[key]
+
+            def launch(stats=None):
+                return M_.mesh_closest_hit(rays8, tris, aabb, face0, stats)
+            ms = events_ms(launch)
+            pms = host_ms(lambda: M_.mesh_closest_hit_plain(
+                rays8, tris, aabb, face0), 2)
+            stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
+            launch(stats)
+            slabs, pairs = stats.tolist()
+            n = rays8.shape[0]
+            flops = slabs * OPS["slab"] + pairs * OPS["tri"]
+            # each input once: 32 B per ray, table rows 0-11 and the boxes;
+            # each output once: 20 B per ray
+            nbytes = n * 32 + 12 * tris.shape[1] * 4 + aabb.numel() * 4 \
+                + n * 20
+            bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+            kinds[label].update(
+                ms=ms, plain_ms=pms, slab_tests=slabs,
+                pairs=pairs, flops=flops, bytes=nbytes,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+            print(f"[wavefront] mesh_closest_hit {label}: {ms:.4f} ms (mean "
+                  f"of 20, CUDA events), plain {pms:.2f} ms; {slabs} slab "
+                  f"tests, {pairs} ray-face pairs "
+                  f"({pairs / n:.1f} per ray); {flops:.4e} FP32 ops, "
+                  f"{nbytes} bytes; bound {max(bytes_ms, ops_ms):.5f} ms "
+                  f"(ops {ops_ms:.5f}, bytes {bytes_ms:.5f})", flush=True)
+        stamp("timed the kernel and the plain version")
+
+        # a 160x120 frame (2 spp) with the kernel and with the plain
+        # version, one seed: the same draws, so the phase-2 tolerances apply
+        small = build_scene(box_scene(*SMALL, with_mesh=True,
+                                      light_size=1.0), device=dev)
+        stab = scene_tables(small)
+        scfg = wcfg.with_(min_samples=2, max_samples=2)
+        M_.launches = 0
+        fk = render(small, scfg, seed=5, device=dev, tables=stab)
+        check(M_.launches == 2 * per_wave, "the small frame ran the kernel")
+        M_.launches = 0
+        M_.mesh_closest_hit = (
+            lambda rays8, tris, aabb, face0=0, stats=None:
+            M_.mesh_closest_hit_plain(rays8, tris, aabb, face0))
+        try:
+            fp = render(small, scfg, seed=5, device=dev, tables=stab)
+        finally:
+            M_.mesh_closest_hit = kernel_fn
+        check(M_.launches == 0, "the plain frame launched the kernel")
+        check(np.array_equal(fk.sample_count, fp.sample_count)
+              and np.array_equal(fk.z >= 1e29, fp.z >= 1e29),
+              "small frame: hit masks or sample counts differ")
+        hitpx = fk.z < 1e29
+        zrel = np.abs(fk.z - fp.z)[hitpx] / np.abs(fp.z[hitpx])
+        ferr = np.abs(fk.radiance - fp.radiance).max(-1)
+        share = float((ferr > ATOL).mean())
+        check(float(zrel.max()) <= ZTOL, "small frame: z beyond rtol")
+        check(share <= FLIP_SHARE and abs(fk.radiance.mean()
+                                          / fp.radiance.mean() - 1.0)
+              <= MEAN_TOL, f"small frame: {share:.4f} of pixels off, "
+              f"means {fk.radiance.mean()} vs {fp.radiance.mean()}")
+        print(f"[wavefront] {SMALL[0]}x{SMALL[1]} frame, kernel vs plain: "
+              f"max_abs_err={float(ferr.max()):.3e}, share outside {ATOL:g} "
+              f"{share:.5f}, means {fk.radiance.mean():.6f} vs "
+              f"{fp.radiance.mean():.6f}", flush=True)
+        stamp("small frames")
+
+        # hemisphere GI on the wavefront adds light
+        gscene = build_scene(box_scene(400, 300, with_mesh=True), device=dev)
+        gtab = scene_tables(gscene)
+        gcfg = RenderConfig(min_samples=4, max_samples=4, bounces=2,
+                            gi_mode="hemisphere", hemisphere_samples=4)
+        check(render_path(gscene, gcfg)[0] == "wavefront",
+              "the GI frame must take the wavefront")
+        g_expected = gcfg.max_samples * 2 * (
+            1 + gcfg.hemisphere_samples * max(gcfg.bounces - 1, 0)
+            + gcfg.bounces)
+        M_.launches = 0
+        t0 = time.perf_counter()
+        gi_res = render(gscene, gcfg, device=dev, tables=gtab)
+        gi_s = time.perf_counter() - t0
+        check(M_.launches == g_expected,
+              f"GI frame: {M_.launches} launches, expected {g_expected}")
+        direct = render(gscene, gcfg.with_(gi_mode="none"), device=dev,
+                        tables=gtab)
+        gain = gi_res.radiance.mean() / direct.radiance.mean()
+        check(np.isfinite(gi_res.radiance).all() and gain > 1.0,
+              f"wavefront GI adds no light ({gain:.4f})")
+        print(f"[wavefront] GI frame 400x300 4 spp 2 bounces hemisphere 4: "
+              f"{gi_s:.3f} s (first frame), {g_expected} launches, mean "
+              f"radiance {gain:.4f}x the frame without GI", flush=True)
+        stamp("phase passed")
+        prim = kinds["primary"]
+        return {
+            "launches": expected, "max_abs_err": err,
+            "ms": prim["ms"], "ms_profiler": prof_ms,
+            "plain_ms": prim["plain_ms"],
+            "wave_s": wave_s,
+            "bound_ms": prim["bound_ms"], "bound_by": prim["bound_by"],
+            "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
+            "device_busy_share": busy_us / 1e6 / wave_s,
+            "profiled_launches": prof_n, "refined_share": refined,
+            "small_frame_max_abs_err": float(ferr.max()),
+            "gi_gain": float(gain), "per_input": kinds}
+
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
                           hemisphere_samples=4, queue_factor=1.0)
-    gi_k = drive_gi("gi", box_scene(400, 300, with_mesh=True), gi_cfg,
-                    "launches")
-    # ---- phase 6: the hybrid frame on the textured box at full width
     hyb_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=4,
                            shadow_min=4, shadow_max=16, gi_mode="photon",
                            hemisphere_samples=30)
-    hyb_k = drive_gi("hybrid", textured_desc(box_scene, W, H), hyb_cfg,
-                     "launches_textured", volumes=True)
+    # (phase, kernels-line entry, the function that runs the phase)
+    runs = [
+        # ---- phase 3: the main path (untextured variant)
+        (3, {"name": "wave",
+             "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+             "replaces": "rtf_tpu/render/fused.py:1741"},
+         lambda: drive("main", box_scene(W, H, with_mesh=True),
+                       box_scene(*SMALL, with_mesh=True), "launches")),
+        # ---- phase 4: the textured box at full width (textured variant)
+        (4, {"name": "wave_textured",
+             "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+             "replaces": "rtf_tpu/render/fused_seg.py:482 and :516"},
+         lambda: drive("textured", textured_desc(box_scene, W, H),
+                       textured_desc(box_scene, *SMALL),
+                       "launches_textured")),
+        # ---- phase 5: bench.py's GI cell (untextured variant, rows)
+        (5, {"name": "wave_gi",
+             "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+             "replaces":
+                 "rtf_tpu/render/fused.py:1741 (surf_out/gi_from rows)"},
+         lambda: drive_gi("gi", box_scene(400, 300, with_mesh=True), gi_cfg,
+                          "launches")),
+        # ---- phase 6: the hybrid frame on the textured box at full width
+        (6, {"name": "wave_textured_gi",
+             "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+             "replaces": "rtf_tpu/render/fused_seg.py:516 (gi_out rows)"},
+         lambda: drive_gi("hybrid", textured_desc(box_scene, W, H), hyb_cfg,
+                          "launches_textured", volumes=True)),
+        # ---- phase 7: the XLA wavefront's port, mesh_closest_hit
+        (7, {"name": "mesh_closest_hit",
+             "source": "rtf_tpu_torch/csrc/mesh_hit.cu",
+             "replaces": "rtf_tpu/ops/pallas_mesh.py:330"},
+         drive_wavefront),
+    ]
+    kernels = [{**entry, "route": "cuda", **fn(), "build_s": build_s}
+               for ph, entry, fn in runs if ph in phases]
 
     print(card, flush=True)
-    kernels = [
-        {"name": "wave", "route": "cuda",
-         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
-         "replaces": "rtf_tpu/render/fused.py:1741", **main_k,
-         "build_s": build_s},
-        {"name": "wave_textured", "route": "cuda",
-         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
-         "replaces": "rtf_tpu/render/fused_seg.py:482 and :516", **tex_k,
-         "build_s": build_s},
-        {"name": "wave_gi", "route": "cuda",
-         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
-         "replaces": "rtf_tpu/render/fused.py:1741 (surf_out/gi_from rows)",
-         **gi_k, "build_s": build_s},
-        {"name": "wave_textured_gi", "route": "cuda",
-         "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
-         "replaces": "rtf_tpu/render/fused_seg.py:516 (gi_out rows)",
-         **hyb_k, "build_s": build_s}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -793,4 +1087,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,9 +1,13 @@
-"""Build the wave kernel with nvcc and load it with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-csrc/wave_kernel.cu becomes one shared library with a plain C interface,
-compiled for sm_90a (Hopper) at first use into build/ at the root of the
-checkout; the library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+Each source in csrc/ becomes its own shared library with a plain C
+interface, compiled for sm_90a (Hopper) at first use into build/ at the
+root of the checkout; a library's file name carries a hash of its source
+and flags, so an edited source is rebuilt and a stale library is never
+loaded.  `build()` starts one nvcc per source, all at once.
+
+  wave      csrc/wave_kernel.cu  rtf_wave_launch      (render/wave.py)
+  mesh_hit  csrc/mesh_hit.cu     rtf_mesh_hit_launch  (ops/mesh_hit.py)
 """
 from __future__ import annotations
 
@@ -16,26 +20,33 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BUILD_DIR = ROOT.parent / "build"
-SOURCE = ROOT / "csrc" / "wave_kernel.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of rtf_wave_launch
-LAUNCH_ARGTYPES = [
-    _P, _I, _P, _I, _I,      # rays, has_state, out, surf_out, gi_from
-    _P, _I,                  # stats, n
-    _I, _I, _I,              # seed, blk0, nbounce
-    _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
-    _P, _P, _P, _P, _I,      # tiles, faces, mats, lights, nl
-    _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
-    _I, _I, _I,              # env_tm, env_l2, textured
-    _F, _F, _F,              # env rgb
-    _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
-    _I, _I, _I, _I,          # shadow max/min, need_uv, has_gloss
-    _P]                      # stream
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+# per library: its source, its launch function and that function's argtypes
+KERNELS = {
+    "wave": ("wave_kernel.cu", "rtf_wave_launch", [
+        _P, _I, _P, _I, _I,      # rays, has_state, out, surf_out, gi_from
+        _P, _I,                  # stats, n
+        _I, _I, _I,              # seed, blk0, nbounce
+        _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
+        _P, _P, _P, _P, _I,      # tiles, faces, mats, lights, nl
+        _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
+        _I, _I, _I,              # env_tm, env_l2, textured
+        _F, _F, _F,              # env rgb
+        _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
+        _I, _I, _I, _I,          # shadow max/min, need_uv, has_gloss
+        _P]),                    # stream
+    "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
+        _P, _I,                  # rays8, n
+        _P, _L, _I, _P, _I,      # tris, row stride, tiles, aabb, face0
+        _P, _P, _P, _P, _P,      # t, face, front, ba, bb
+        _P, _P]),                # stats, stream
+}
 
-_LIB = None
+_LIBS = {}
 
 
 def nvcc() -> str:
@@ -48,42 +59,58 @@ def nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes()
+def source(name: str) -> Path:
+    return ROOT / "csrc" / KERNELS[name][0]
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(source(name).read_bytes()
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libwave_{h}.so"
+    return BUILD_DIR / f"lib{name}_{h}.so"
 
 
-def build() -> str:
-    """Build the library unless it is cached; returns nvcc's output (with
-    ptxas's register and spill report), or '' when it was cached."""
-    out = library_path()
-    if out.exists():
-        return ""
+def build() -> dict:
+    """Build every library that is not cached, one nvcc each, all started
+    together; returns {name: nvcc's output (with ptxas's register and
+    spill report), or '' when it was cached}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    res = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE}:\n{res.stdout}")
-    os.replace(tmp, out)
-    return res.stdout
+    procs, logs = {}, {}
+    for name in KERNELS:
+        out = library_path(name)
+        if out.exists():
+            logs[name] = ""
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (tmp, out, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+             str(source(name))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, out, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source(name)}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
-def load():
-    """The kernel's ctypes library, built on first use."""
-    global _LIB
-    if _LIB is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.rtf_wave_launch.argtypes = LAUNCH_ARGTYPES
-        lib.rtf_wave_launch.restype = ctypes.c_int
+def load(name: str = "wave"):
+    """The kernel library `name`, built on first use."""
+    if name not in _LIBS:
+        if not library_path(name).exists():
+            build()
+        lib = ctypes.CDLL(str(library_path(name)))
+        _, fn, argtypes = KERNELS[name]
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
         lib.rtf_error_string.argtypes = [ctypes.c_int]
         lib.rtf_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def error_string(code: int) -> str:
-    return load().rtf_error_string(code).decode()
+def error_string(code: int, name: str = "wave") -> str:
+    return load(name).rtf_error_string(code).decode()

@@ -81,3 +81,10 @@ def sample_volume_ch(vol: IrradianceVolume, p3):
     dlen = torch.sqrt(torch.clamp(
         acc[3] * acc[3] + acc[4] * acc[4] + acc[5] * acc[5], min=1e-30))
     return acc[0:3], acc[3:6] / dlen
+
+
+def sample_volume(vol: IrradianceVolume, p: torch.Tensor):
+    """[M,3] form of sample_volume_ch (rtf_tpu/gi/volume.py::sample_volume):
+    (irradiance [M,3], unit mean direction [M,3])."""
+    e3, d3 = sample_volume_ch(vol, (p[:, 0], p[:, 1], p[:, 2]))
+    return e3.T, d3.T

@@ -1,0 +1,174 @@
+"""Closest ray-triangle hit over one mesh slot's packed triangle table: the
+plain PyTorch version and the CUDA kernel's wrapper.
+
+The port of rtf_tpu/ops/pallas_mesh.py (`pack_rays`, `mesh_closest_hit`
+and its Pallas kernel `_mesh_kernel`).  Rays are already in the instance's
+local space; the table is a slot's columns of the scene's packed table
+(ops/pack.py: rows 0-2 unit normal, 3 n.a, 4-6 K, 7-9 L, 10 axis==0 mask,
+11 axis==2 mask; padding columns are zero and never hit) with its tile
+boxes.  Both versions return (t, face, front, ba, bb), each [N]: face is
+the packed (Morton) id plus `face0`, -1 where no face beats t_init (t is
+then t_init and the rest zero).  Among exact t ties the lowest face id
+wins, the Pallas kernel's lane-reduction rule.
+
+`mesh_closest_hit_plain` tests every face, [rays, 128] per tile, with no
+culling; `mesh_closest_hit` launches csrc/mesh_hit.cu for CUDA tensors,
+which culls tiles per ray, and runs the plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rtf_tpu_torch.ops.pack import DZ_EPS, TRI_LANES, ZERO
+
+RAY_BLOCK = 512        # rays per Pallas program: pack_rays pads to it
+_CHUNK = 1 << 20       # ray x face elements per plain step
+
+# kernel launches made by `mesh_closest_hit` (the plain version never
+# counts)
+launches = 0
+NSTAT = 2              # kernel work counters: slab tests, ray-face pairs
+
+
+def pack_rays(o: torch.Tensor, d: torch.Tensor, t_init: torch.Tensor):
+    """[N,3] x 2 + [N] -> ([N_pad, 8] rows ox oy oz dx dy dz t_init 0,
+    N_pad), N_pad a multiple of RAY_BLOCK.  Padding rays get t_init = 0 so
+    nothing validates (face stays -1)."""
+    n = o.shape[0]
+    npad = ((max(n, RAY_BLOCK) + RAY_BLOCK - 1) // RAY_BLOCK) * RAY_BLOCK
+    rays = torch.zeros((npad, 8), dtype=torch.float32, device=o.device)
+    rays[:n, 0:3] = o
+    rays[:n, 3:6] = d
+    rays[:n, 6] = t_init
+    return rays, npad
+
+
+def _tri_test(col, lo3, ld3):
+    """Projected-barycentric ray/triangle test (pallas_mesh.py layout rows
+    0-11, in the Pallas kernel's operation order): `col` holds the 12 face
+    rows, broadcastable against the ray channels lo3/ld3.  Returns (t, dn,
+    ba, bb, bc, valid without the t cap)."""
+    lx, ly, lz = lo3
+    dx, dy, dz = ld3
+    dn = dx * col[0] + dy * col[1] + dz * col[2]
+    pn = lx * col[0] + ly * col[1] + lz * col[2] - col[3]
+    bad = torch.abs(dn) < DZ_EPS
+    t = -pn / torch.where(bad, torch.full_like(dn, DZ_EPS), dn)
+    hx = lx + t * dx
+    hy = ly + t * dy
+    hz = lz + t * dz
+    pu = torch.where(col[10] > 0.5, hy, hx)
+    pv = torch.where(col[11] > 0.5, hy, hz)
+    ba = col[4] + col[5] * pu + col[6] * pv
+    bb = col[7] + col[8] * pu + col[9] * pv
+    bc = 1.0 - ba - bb
+    valid = (~bad) & (t > ZERO) & (ba >= 0.0) & (bb >= 0.0) & (bc >= 0.0)
+    return t, dn, ba, bb, bc, valid
+
+
+def mesh_closest_hit_plain(rays8: torch.Tensor, tris: torch.Tensor,
+                           aabb: torch.Tensor = None, face0: int = 0):
+    """The plain version: the Pallas kernel's table test as dense
+    [rays, 128] tensor ops per tile, without culling (`aabb` is not
+    read).  The strict `<` against the running best over tiles in packed
+    order, and the lowest id among a tile's exact ties, give the kernel's
+    tie rule."""
+    n = rays8.shape[0]
+    nt = tris.shape[1] // TRI_LANES
+    dev = rays8.device
+    t_best = rays8[:, 6].clone()
+    face = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    front = torch.zeros(n, dtype=torch.float32, device=dev)
+    ba = torch.zeros_like(front)
+    bb = torch.zeros_like(front)
+    col = torch.arange(TRI_LANES, dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK // TRI_LANES)
+    for s in range(0, n, step):
+        sl = slice(s, min(n, s + step))
+        lo3 = tuple(rays8[sl, k:k + 1] for k in range(3))
+        ld3 = tuple(rays8[sl, k:k + 1] for k in range(3, 6))
+        for j in range(nt):
+            tri = tris[0:12, j * TRI_LANES:(j + 1) * TRI_LANES]
+            t, dn, ba_t, bb_t, _, valid = _tri_test(
+                [tri[r][None, :] for r in range(12)], lo3, ld3)
+            tv = torch.where(valid, t, torch.inf)
+            t_min = torch.amin(tv, dim=1)
+            # the lowest column among the tile's exact ties
+            c = torch.amin(torch.where(tv == t_min[:, None], col, TRI_LANES),
+                           dim=1).to(torch.int64)
+            upd = t_min < t_best[sl]
+            pick = c[:, None].clamp(max=TRI_LANES - 1)
+            t_best[sl] = torch.where(upd, t_min, t_best[sl])
+            face[sl] = torch.where(upd, (face0 + j * TRI_LANES + c)
+                                   .to(torch.int32), face[sl])
+            front[sl] = torch.where(
+                upd, (dn.gather(1, pick)[:, 0] <= 0.0).to(torch.float32),
+                front[sl])
+            ba[sl] = torch.where(upd, ba_t.gather(1, pick)[:, 0], ba[sl])
+            bb[sl] = torch.where(upd, bb_t.gather(1, pick)[:, 0], bb[sl])
+    return t_best, face, front, ba, bb
+
+
+def mesh_closest_hit(rays8: torch.Tensor, tris: torch.Tensor,
+                     aabb: torch.Tensor, face0: int = 0, stats=None):
+    """rays8 [N, 8] float32 (`pack_rays`), tris [>= 12, F_pad] float32 with
+    unit column stride (a column slice of the scene table is fine), aabb
+    [F_pad / 128, 8].  Returns (t, face int32, front 0/1, ba, bb), each
+    [N].  Launches csrc/mesh_hit.cu for CUDA tensors (counted in
+    `launches`; a build or launch failure raises), or runs
+    `mesh_closest_hit_plain` for CPU tensors.
+
+    stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
+    slab tests and ray-face pairs to."""
+    global launches
+    if rays8.device.type == "cpu":
+        return mesh_closest_hit_plain(rays8, tris, aabb, face0)
+    if rays8.device.type != "cuda":
+        raise ValueError(f"mesh_closest_hit: unsupported device "
+                         f"{rays8.device}")
+    n = rays8.shape[0]
+    nt = tris.shape[1] // TRI_LANES
+    dev = rays8.device
+    for name, x in (("rays8", rays8), ("tris", tris), ("aabb", aabb)):
+        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2:
+            raise ValueError(f"mesh_closest_hit: {name} must be a 2-D "
+                             f"float32 tensor on {dev}")
+    if rays8.shape[1] != 8 or not rays8.is_contiguous() \
+            or rays8.data_ptr() % 16:
+        raise ValueError("mesh_closest_hit: rays8 must be contiguous "
+                         "16-byte aligned [N, 8] rows")
+    if tris.shape[0] < 12 or tris.stride(1) != 1 \
+            or tris.shape[1] % TRI_LANES:
+        raise ValueError("mesh_closest_hit: tris must be [>= 12, F_pad] "
+                         "with unit column stride, F_pad a multiple of "
+                         f"{TRI_LANES}")
+    if tuple(aabb.shape) != (nt, 8) or not aabb.is_contiguous():
+        raise ValueError(f"mesh_closest_hit: aabb must be contiguous "
+                         f"[{nt}, 8]")
+    if stats is not None and (stats.device != dev
+                              or stats.dtype != torch.int64
+                              or stats.numel() < NSTAT):
+        raise ValueError(f"mesh_closest_hit: stats must be an int64 "
+                         f"[{NSTAT}] tensor on {dev}")
+    from rtf_tpu_torch import _build
+    lib = _build.load("mesh_hit")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    face = torch.empty(n, dtype=torch.int32, device=dev)
+    front, ba, bb = (torch.empty_like(t) for _ in range(3))
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rtf_mesh_hit_launch(
+            ptr(rays8), n, ptr(tris), tris.stride(0), nt, ptr(aabb),
+            int(face0), ptr(t), ptr(face), ptr(front), ptr(ba), ptr(bb),
+            ctypes.c_void_p(0) if stats is None else ptr(stats),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"mesh_closest_hit kernel launch failed: "
+                           f"{_build.error_string(rc, 'mesh_hit')} ({rc})")
+    launches += 1
+    return t, face, front, ba, bb

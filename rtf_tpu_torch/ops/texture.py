@@ -68,17 +68,57 @@ def sample_texture_ch(tables, tex_id, u, v):
         for c in range(3))
 
 
-def sample_texmap_ch(tables, tm_id, u, v):
-    """Texture map(s) `tm_id` [N] (int, -1 = none) at uvw = (u, v, 0):
-    the map's transform, then the texture; lanes without a map give 1."""
+def sample_texmap_ch(tables, tm_id, u, v, w=None):
+    """Texture map(s) `tm_id` [N] (int, -1 = none) at uvw = (u, v, 0), or
+    at (u, v, w) when `w` is given (the wavefront's [N,3] uvw): the map's
+    transform, then the texture; lanes without a map give 1."""
     T = tables.texmaps[torch.clamp(tm_id, min=0)]
     du = u - T[:, 6]
     dv = v - T[:, 7]
-    lu = T[:, 0] * du + T[:, 1] * dv - T[:, 2] * T[:, 8]
-    lv = T[:, 3] * du + T[:, 4] * dv - T[:, 5] * T[:, 8]
+    # w = 0: x + T2 * (-pos_w) rounds exactly as the kernel's x - T2 * pos_w
+    dw = -T[:, 8] if w is None else w - T[:, 8]
+    lu = T[:, 0] * du + T[:, 1] * dv + T[:, 2] * dw
+    lv = T[:, 3] * du + T[:, 4] * dv + T[:, 5] * dw
     cols = sample_texture_ch(tables, T[:, 9].to(torch.int64), lu, lv)
     no_map = tm_id < 0
     return tuple(torch.where(no_map, 1.0, c) for c in cols)
+
+
+def _sel_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] with the ids clamped into the table (rtf_tpu's
+    where-chain over rows, which exists because a gather is slow on a
+    TPU, selects the same rows for ids in range)."""
+    return table[torch.clamp(idx.to(torch.int64), 0, table.shape[0] - 1)]
+
+
+def sample_textured_color(tables, color, tm_id, uvw):
+    """TexturedColor::Sample without the footprint filter: `color` [3] or
+    [N,3] times texture map(s) `tm_id` [N] at uvw [N,3] (1 where
+    tm_id = -1)."""
+    tex = sample_texmap_ch(tables, tm_id.to(torch.int64), uvw[:, 0],
+                           uvw[:, 1], uvw[:, 2])
+    return color * torch.stack(tex, dim=-1)
+
+
+def env_uvw(direction: torch.Tensor, l2: bool = False) -> torch.Tensor:
+    """[N,3] directions -> [N,3] angular-map uvw (w = 0)."""
+    u, v = env_uv_ch(direction[:, 0], direction[:, 1], direction[:, 2],
+                     l2=l2)
+    return torch.stack([u, v, torch.zeros_like(u)], dim=-1)
+
+
+def sample_environment(tables, env_color, direction: torch.Tensor,
+                       l2: bool = False) -> torch.Tensor:
+    """environment.SampleEnvironment(dir) [N,3]: the environment colour
+    [3], times its map (tables.env_tm) when it has one."""
+    n = direction.shape[0]
+    env_color = env_color.to(device=direction.device, dtype=torch.float32)
+    if tables.env_tm < 0:
+        return env_color[None, :].expand(n, 3)
+    tm = torch.full((n,), tables.env_tm, dtype=torch.int64,
+                    device=direction.device)
+    return sample_textured_color(tables, env_color, tm,
+                                 env_uvw(direction, l2=l2))
 
 
 def env_uv_ch(dx, dy, dz, l2=False):

@@ -1,27 +1,36 @@
 """Top-level renderer: sample waves, adaptive AA, finalize.
 
-The port of the fused branch of rtf_tpu/render/renderer.py: a wave is
-(all pixels, in `pixel_order`) x (one Halton sample index), traced by one
-launch of the wave kernel.  Adaptive antialiasing is the reference's
-two-phase scheme (main.cpp:266-307): MIN_SAMPLE samples everywhere, then
-pixels whose per-channel sample variance exceeds THRESHOLD get the
-remaining samples as masked waves.  Output conventions match RenderImage
-(scene.h:540-656): gamma before `Clamp(int(c*255))`, misses show the
-background (its colour times its map at uvw = (x/W, y/H, 0)), z-buffer and
-sample-count AOVs.
+The port of rtf_tpu/render/renderer.py: a wave is (all pixels, in
+`pixel_order`) x (one Halton sample index).  `render` takes the path
+rtf_tpu takes on a TPU (render/scene_tables.py::render_path): one launch
+of the wave kernel per wave where rtf_tpu's fused or segmented kernel path
+runs the scene+config, else the XLA wavefront's port
+(render/integrator.py::render_wave, lane ids as pixels), whose mesh test
+is the mesh_closest_hit kernel.  The chosen path is printed once per scene
+and path ("[rtf] render path: ...", silenced by RTF_QUIET=1).  Adaptive
+antialiasing is the reference's two-phase scheme (main.cpp:266-307):
+MIN_SAMPLE samples everywhere, then pixels whose per-channel sample
+variance exceeds THRESHOLD get the remaining samples as masked waves.
+Output conventions match RenderImage (scene.h:540-656): gamma before
+`Clamp(int(c*255))`, misses show the background (its colour times its map
+at uvw = (x/W, y/H, 0)), z-buffer and sample-count AOVs.
 
-Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed
-(JAX's threefry key stream is not reproduced).
+Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed,
+and the wavefront's draws (soft shadows, glossy normals, Russian
+roulette, hemisphere directions) and the lens from a second one on the
+device (JAX's threefry key stream is not reproduced).
 
-GI (gi_mode 'hemisphere', 'pathtrace', or 'photon' with an irradiance
-volume passed in, and a caustic volume in any mode): each sample wave is
-render/gi.py::gi_wave, the primary launch and cfg.hemisphere_samples child
-launches, with the hemisphere draws taken from a torch.Generator on the
-device (rtf_tpu/render/renderer.py's `gi_host` loop, without its
-per-dispatch chunking).
+GI on the fused path (gi_mode 'hemisphere', 'pathtrace', or 'photon' with
+an irradiance volume passed in, and a caustic volume in any mode): each
+sample wave is render/gi.py::gi_wave, the primary launch and
+cfg.hemisphere_samples child launches (rtf_tpu/render/renderer.py's
+`gi_host` loop, without its per-dispatch chunking).  On the wavefront GI
+is render_wave's own hemisphere fan-out and volume term.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -30,14 +39,19 @@ import torch
 from rtf_tpu_torch.core.math import BIGFLOAT
 from rtf_tpu_torch.gi.volume import IrradianceVolume
 from rtf_tpu_torch.ops.texture import sample_background
-from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
+from rtf_tpu_torch.render.camera import (
+    pixel_order, primary_rays, primary_rays_ch,
+)
 from rtf_tpu_torch.render.config import RenderConfig
 from rtf_tpu_torch.render.gi import gi_wave
+from rtf_tpu_torch.render.integrator import render_wave
 from rtf_tpu_torch.render.scene_tables import (
-    WaveTables, scene_tables, unsupported_reason,
+    WaveTables, render_path, scene_tables,
 )
 from rtf_tpu_torch.render.wave import wave
 from rtf_tpu_torch.scene.build import Scene, resolve_device
+
+_LOGGED_PATHS = set()
 
 
 class RenderResult(NamedTuple):
@@ -47,22 +61,25 @@ class RenderResult(NamedTuple):
     sample_count: np.ndarray  # [H,W] int32
 
 
-class GiInputs(NamedTuple):
-    """What a GI sample wave needs besides the scene: the photon volume
-    (gi_mode 'photon'), the caustic volume and the generator of the
-    hemisphere draws."""
+class WaveInputs(NamedTuple):
+    """What a sample wave needs besides the scene and its kernel seed: the
+    photon volume (gi_mode 'photon' or 'pm_direct'), the caustic volume
+    and the device generator of the wave's draws (the lens, the fused
+    path's hemisphere directions, the wavefront's draws)."""
     vol: Optional[IrradianceVolume]
     caustic: Optional[IrradianceVolume]
     generator: torch.Generator
 
 
-def check_supported(scene: Scene, cfg: RenderConfig, gi_vol=None,
-                    caustic_vol=None) -> None:
-    """Raise NotImplementedError for anything outside the ported slice."""
-    why = unsupported_reason(scene, cfg, gi_vol, caustic_vol)
-    if why is not None:
-        raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
-                                  f"{why}")
+def _log_path(scene, path: str, why):
+    """Print the path decision once per (scene, path), like
+    rtf_tpu/render/renderer.py::_log_path; RTF_QUIET=1 silences it."""
+    key = (id(scene), path)
+    if key in _LOGGED_PATHS or os.environ.get("RTF_QUIET"):
+        return
+    _LOGGED_PATHS.add(key)
+    print(f"[rtf] render path: {path}" + (f" ({why})" if why else ""),
+          flush=True)
 
 
 def _need_mask(cfg, rad, rad2, hits):
@@ -88,17 +105,33 @@ def _phase_bounds(cfg) -> list:
 
 
 def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
-                 gi: Optional[GiInputs] = None):
-    """One sample wave over the lanes (px, py), with GI when `gi` is
-    given: (contrib [3,n], hit_count [n], z_min [n]) in lane space."""
-    o3, d3 = primary_rays_ch(
-        scene, px, py, torch.tensor(j, dtype=torch.int64),
-        halton_bases=(cfg.halton_base_x, cfg.halton_base_y))
-    if gi is None:
+                 gi: WaveInputs, wavefront: bool = False):
+    """One sample wave over the lanes (px, py): (contrib [3,n], hit_count
+    [n], z_min [n]) in lane space.  On the fused path one wave-kernel
+    launch, or a GI sample wave when cfg.gi_mode is not 'none' or a
+    caustic volume is given; on the wavefront render_wave with local lane
+    ids as pixels, so its output is lane space."""
+    n = px.shape[0]
+    j = torch.tensor(j, dtype=torch.int64)
+    bases = (cfg.halton_base_x, cfg.halton_base_y)
+    lens_u = None
+    if scene.dof > 0:
+        lens_u = torch.rand((2, n), generator=gi.generator,
+                            device=mask.device)
+    if wavefront:
+        ids = torch.arange(n, dtype=torch.int64, device=mask.device)
+        o, d = primary_rays(scene, px, py, j, halton_bases=bases,
+                            lens_u=lens_u)
+        out = render_wave(scene, cfg, tables, o, d, ids, mask, gi.generator,
+                          n, gi_vol=gi.vol, inv_pixel=ids)
+        return out.radiance.T, out.hit_count, out.z_min
+    o3, d3 = primary_rays_ch(scene, px, py, j, halton_bases=bases,
+                             lens_u=lens_u)
+    if cfg.gi_mode == "none" and gi.caustic is None:
         rad3, hitl, zl = wave(cfg, tables, o3, d3, mask, seed)
     else:
         # (u_phi, ysq) of each hemisphere sample
-        uniforms = torch.rand((cfg.hemisphere_samples, 2, mask.shape[0]),
+        uniforms = torch.rand((cfg.hemisphere_samples, 2, n),
                               generator=gi.generator, device=mask.device)
         rad3, hitl, zl = gi_wave(cfg, tables, o3, d3, mask, seed, uniforms,
                                  gi_vol=gi.vol, caustic_vol=gi.caustic)
@@ -107,19 +140,16 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
 
 def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
                  order: torch.Tensor, seed: int, gi_vol=None,
-                 caustic_vol=None):
+                 caustic_vol=None, wavefront: bool = False):
     """The adaptive ladder in lane space: (rad [3,P], hits [P], z [P],
-    nsamples [P]) with lane k = pixel order[k].  Every sample wave is a
-    GI wave when cfg.gi_mode is not 'none' or a caustic volume is given
-    (rtf_tpu's wave_contrib on the fused path)."""
+    nsamples [P]) with lane k = pixel order[k], every sample wave a
+    `wave_contrib` on the fused path or on the wavefront."""
     dev = tables.device
     px, py = order % scene.width, order // scene.width
     n = order.shape[0]
     gen = torch.Generator().manual_seed(int(seed))
-    gi = None
-    if cfg.gi_mode != "none" or caustic_vol is not None:
-        gi = GiInputs(gi_vol, caustic_vol,
-                      torch.Generator(device=dev).manual_seed(int(seed)))
+    gi = WaveInputs(gi_vol, caustic_vol,
+                  torch.Generator(device=dev).manual_seed(int(seed)))
     rad = torch.zeros((3, n), dtype=torch.float32, device=dev)
     rad2 = torch.zeros_like(rad)
     hits = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -130,7 +160,7 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
         for j in range(lo, hi):
             s = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
             contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
-                                           mask, j, s, gi)
+                                           mask, j, s, gi, wavefront)
             rad = rad + contrib
             rad2 = rad2 + contrib * contrib
             hits = hits + hc
@@ -193,6 +223,20 @@ def finalize(scene, cfg, tables, rad, hits, z, nsamples) -> RenderResult:
     )
 
 
+def _scene_on(x, dev):
+    """A copy of the scene (or one of its tables) with every tensor on
+    `dev`; the wavefront reads the scene's own tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if not dataclasses.is_dataclass(x):
+        return x
+    kw = {f.name: _scene_on(getattr(x, f.name), dev)
+          for f in dataclasses.fields(x) if f.name != "device"}
+    if isinstance(x, Scene):
+        kw["device"] = dev
+    return dataclasses.replace(x, **kw)
+
+
 def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
            device="cuda", tables: WaveTables = None,
            gi_vol: IrradianceVolume = None,
@@ -202,17 +246,34 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     (render/scene_tables.py) to reuse them across frames.
 
     gi_vol: the photon irradiance volume that gi_mode 'photon' reads
-    below the first hit (gi/volume.py: `load_volume`,
-    `volume_from_arrays`); the photon pass that builds one is not ported.
-    caustic_vol: a caustic volume, added at the first hit in any GI mode
-    (rtf_tpu.render's caustic_grid, as a volume)."""
+    below the first hit and 'pm_direct' (wavefront only) at every hit
+    (gi/volume.py: `load_volume`, `volume_from_arrays`); the photon pass
+    that builds one is not ported.  caustic_vol: a caustic volume, added
+    at the first hit in any GI mode on the fused path (rtf_tpu.render's
+    caustic_grid, as a volume)."""
     dev = resolve_device(device)
-    check_supported(scene, cfg, gi_vol, caustic_vol)
-    if gi_vol is not None and cfg.gi_mode != "photon":
-        raise ValueError(f"gi_vol is read only by gi_mode='photon', not "
-                         f"{cfg.gi_mode!r}")
+    path, why = render_path(scene, cfg, gi_vol, caustic_vol)
+    if path is None:
+        raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
+                                  f"{why}")
+    if gi_vol is not None and cfg.gi_mode not in ("photon", "pm_direct"):
+        raise ValueError(f"gi_vol is read only by gi_mode 'photon' and "
+                         f"'pm_direct', not {cfg.gi_mode!r}")
+    _log_path(scene, "fused" if path == "fused" else "XLA wavefront", why)
     gi_vol, caustic_vol = (None if v is None else v.to(dev)
                            for v in (gi_vol, caustic_vol))
+    if (float(cfg.isect_zero), bool(cfg.ref_exact),
+            bool(cfg.sphere_minroot)) != (float(scene.isect_zero),
+                                          bool(scene.ref_exact),
+                                          bool(scene.sphere_minroot)):
+        # the era's intersection statics travel on the scene, so trace()
+        # sees them without a cfg plumb-through (renderer.py:421-428)
+        scene = dataclasses.replace(
+            scene, isect_zero=float(cfg.isect_zero),
+            ref_exact=bool(cfg.ref_exact),
+            sphere_minroot=bool(cfg.sphere_minroot))
+    if path == "wavefront" and scene.device != dev:
+        scene = _scene_on(scene, dev)
     if tables is None:
         tables = scene_tables(scene, dev)
     elif tables.device != dev:
@@ -221,6 +282,7 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
                             device=dev).to(torch.int64)
     rad, hits, z, ns = render_lanes(scene, cfg, tables, order,
                                     cfg.seed if seed is None else seed,
-                                    gi_vol, caustic_vol)
+                                    gi_vol, caustic_vol,
+                                    wavefront=path == "wavefront")
     rad, hits, z, ns = lanes_to_pixels(rad, hits, z, ns, order)
     return finalize(scene, cfg, tables, rad, hits, z, ns)

@@ -47,11 +47,13 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.ops.pack import TRI_LANES
+from rtf_tpu_torch.ops.trace import MESH_ALGOS
 from rtf_tpu_torch.scene.build import (
     LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, Scene,
 )
 
 MAX_FACES = 512        # mesh faces the slice's kernel walks (fused.py:55)
+MXU_STREAM_MAX_FACES = 1 << 20  # rtf_tpu's fused gate (fused.py:61)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
 INST_W, TILE_W, FACE_W, MAT_W, LIGHT_W = 24, 8, 40, 24, 16
@@ -63,45 +65,95 @@ _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
 
 
 GI_MODES = ("none", "hemisphere", "pathtrace", "photon")
+WAVEFRONT_GI_MODES = GI_MODES + ("pm_direct",)
 
 
-def unsupported_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
-    """None if the port renders the scene+config, else why not (the gates
-    of rtf_tpu/render/fused.py::fuse_reason and fused_seg.py::seg_reason,
-    without a fallback).  File or checker textures on kd/ks and
-    environment/background maps are in; other texture maps are not.  GI
-    runs in the modes of the fused path, 'photon' and caustics only from
-    irradiance volumes handed in (the photon pass is not ported)."""
-    if cfg.gi_mode not in GI_MODES:
-        return (f"gi_mode={cfg.gi_mode!r} (only {', '.join(GI_MODES)} are "
-                "ported)")
-    if cfg.gi_mode == "photon" or caustic_vol is not None:
+def _photon_reason(cfg, gi_vol):
+    if cfg.gi_mode in ("photon", "pm_direct"):
         if not cfg.photon_volume:
             return ("photon_volume=False (the exact photon gather needs the "
                     "photon pipeline, which is not ported)")
-        if cfg.gi_mode == "photon" and gi_vol is None:
-            return ("gi_mode='photon' without an irradiance volume (pass "
-                    "gi_vol; the photon pass that builds one is not "
+        if gi_vol is None:
+            return (f"gi_mode={cfg.gi_mode!r} without an irradiance volume "
+                    "(pass gi_vol; the photon pass that builds one is not "
                     "ported)")
+    return None
+
+
+def fused_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
+    """None if rtf_tpu's fused kernel renders the scene+config on a TPU,
+    else why not: the gates of rtf_tpu/render/fused.py::fuse_reason and
+    fused_seg.py::seg_reason, in their order (the kernel's textured
+    variant is the segmented path's).  'photon' and caustics run only from
+    irradiance volumes handed in.  The port's wave kernel (render/wave.py)
+    takes all of these but a mesh over MAX_FACES faces (render_path)."""
+    if cfg.gi_mode == "photon" and not cfg.photon_volume:
+        return "gi_mode=photon without photon_volume (exact kNN is XLA)"
+    if cfg.gi_mode not in GI_MODES:
+        return f"gi_mode={cfg.gi_mode!r} not kernelized"
+    if caustic_vol is not None and not cfg.photon_volume:
+        return ("a caustic volume with photon_volume=False (the exact "
+                "photon gather needs the photon pipeline, which is not "
+                "ported)")
     if cfg.resolved_split_mode() != "rr":
-        return "split_mode='both' (only the 'rr' split is ported)"
+        return "split_mode='both' (exact Fresnel split is XLA-only)"
     if cfg.tex_filter:
-        return "tex_filter (ray-differential filtering is not ported)"
-    if scene.dof > 0:
-        return "depth of field (the lens is not ported)"
+        return "tex_filter (ray-differential filtering is XLA-only)"
     mt = scene.materials
     for tm in (mt.emission_tm, mt.reflection_tm, mt.refraction_tm):
         if int(tm.max()) >= 0:
             return "emission/reflection/refraction texture maps"
     if sum(1 for k in scene.light_kinds if k != "ambient") > MAX_LIGHTS:
         return f"more than {MAX_LIGHTS} non-ambient lights"
-    nf = 0 if scene.mesh is None else scene.mesh.tri_a.shape[0]
-    if nf > MAX_FACES:
-        return f"mesh has {nf} faces > {MAX_FACES}"
+    nf = _num_faces(scene)
+    if nf > MXU_STREAM_MAX_FACES:
+        return f"mesh has {nf} faces > streaming budget {MXU_STREAM_MAX_FACES}"
     nm = mt.diffuse.shape[0]
     if nm > MAX_MATERIALS:
         return f"{nm} materials > {MAX_MATERIALS}"
-    return None
+    return _photon_reason(cfg, gi_vol)
+
+
+def _num_faces(scene: Scene) -> int:
+    return 0 if scene.mesh is None else scene.mesh.tri_a.shape[0]
+
+
+def wavefront_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
+    """None if the XLA wavefront's port (render/integrator.py) renders the
+    scene+config, else why not."""
+    if cfg.gi_mode not in WAVEFRONT_GI_MODES:
+        return f"gi_mode={cfg.gi_mode!r} is not a mode of rtf_tpu"
+    if cfg.tex_filter:
+        return ("tex_filter (footprint_duv and sample_texmap_filtered are "
+                "not ported)")
+    if caustic_vol is not None:
+        return ("a caustic volume on the wavefront (its caustic term is "
+                "the exact photon gather, which is not ported)")
+    if scene.mesh is not None and scene.num_mesh_inst > 0 \
+            and scene.mesh_algo not in MESH_ALGOS:
+        return (f"mesh_algo={scene.mesh_algo!r} (the port runs "
+                f"{', '.join(MESH_ALGOS)}; bvh_traverse is not ported)")
+    return _photon_reason(cfg, gi_vol)
+
+
+def render_path(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
+    """The path rtf_tpu takes on a TPU (renderer.py:447-480) as (path,
+    why): ('fused', None) where the wave kernel runs it, else
+    ('wavefront', the fused path's reason), or (None, why neither runs
+    it).  A mesh over MAX_FACES faces that passes the fused gates is the
+    fused kernel's MXU-table variant's on a TPU, so it stays refused."""
+    why = fused_reason(scene, cfg, gi_vol, caustic_vol)
+    if why is None:
+        nf = _num_faces(scene)
+        if nf > MAX_FACES:
+            return None, (f"mesh has {nf} faces > {MAX_FACES} (rtf_tpu runs "
+                          "it on the fused kernel's MXU-table variant, which "
+                          "is not ported)")
+        return "fused", None
+    wf = wavefront_reason(scene, cfg, gi_vol, caustic_vol)
+    if wf is None:
+        return "wavefront", why
+    return None, f"fused: {why}; wavefront: {wf}"
 
 
 @dataclass

@@ -34,7 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
-from rtf_tpu_torch.ops.pack import DZ_EPS, ZERO
+from rtf_tpu_torch.ops.mesh_hit import _tri_test
+from rtf_tpu_torch.ops.pack import ZERO
 from rtf_tpu_torch.ops.texture import env_uv_ch, sample_texmap_ch
 from rtf_tpu_torch.render.scene_tables import WaveTables
 
@@ -233,29 +234,6 @@ def _face_slice(h: _Host, inst):
     f0 = int(h.tiles[t0][6])
     f1 = int(h.tiles[t0 + nt - 1][6] + h.tiles[t0 + nt - 1][7])
     return h.faces[f0:f1]
-
-
-def _tri_test(col, lo3, ld3):
-    """Projected-barycentric ray/triangle test (pallas_mesh.py layout rows
-    0-11): `col` holds the 12 face rows, broadcastable against the ray
-    channels lo3/ld3.  Returns (t, dn, ba, bb, bc, valid without the t
-    cap)."""
-    lx, ly, lz = lo3
-    dx, dy, dz = ld3
-    dn = dx * col[0] + dy * col[1] + dz * col[2]
-    pn = lx * col[0] + ly * col[1] + lz * col[2] - col[3]
-    bad = torch.abs(dn) < DZ_EPS
-    t = -pn / torch.where(bad, torch.full_like(dn, DZ_EPS), dn)
-    hx = lx + t * dx
-    hy = ly + t * dy
-    hz = lz + t * dz
-    pu = torch.where(col[10] > 0.5, hy, hx)
-    pv = torch.where(col[11] > 0.5, hy, hz)
-    ba = col[4] + col[5] * pu + col[6] * pv
-    bb = col[7] + col[8] * pu + col[9] * pv
-    bc = 1.0 - ba - bb
-    valid = (~bad) & (t > ZERO) & (ba >= 0.0) & (bb >= 0.0) & (bc >= 0.0)
-    return t, dn, ba, bb, bc, valid
 
 
 def _tri_block(F, lo3, ld3):

@@ -155,6 +155,22 @@ class Scene:
     world_max: tuple = (1.0,) * 3
     # any file texture exists (the textured kernel variant is needed)
     has_file_tex: bool = False
+    # the wavefront's statics (rtf_tpu/scene/build.py:165-196): some point
+    # light has a size (soft shadows), some material is glossy, the
+    # material channels with a texture map ("diffuse", "specular")
+    any_soft_light: bool = False
+    any_glossy: bool = False
+    tm_channels: tuple = ()
+    # mesh closest hit: 'auto' (ops/mesh_hit.py: the kernel on the card,
+    # its plain version on the CPU; 'pallas' and 'pallas_interpret', the
+    # names a scene built by rtf_tpu may carry, mean the same here)
+    mesh_algo: str = "auto"
+    # intersection era statics, set from the RenderConfig by `render`:
+    # sphere epsilon (Proj3/4: 0), the reference-exact sphere quadratic
+    # and hit-point shadow origins, the Proj3 min-root sphere rule
+    isect_zero: float = 1e-3
+    ref_exact: bool = False
+    sphere_minroot: bool = False
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
 
 
@@ -500,5 +516,13 @@ def build_scene(desc: SceneDesc, device="cuda") -> Scene:
         world_max=bounds(b.wmax, 1.0),
         has_file_tex=any(t.kind == "file" and t.data is not None
                          for t in b.textures),
+        any_soft_light=any(l.kind == "point" and l.size > 0
+                           for l in desc.lights),
+        any_glossy=bool(float(materials.refl_gloss.max()) > 0
+                        or float(materials.refr_gloss.max()) > 0),
+        tm_channels=tuple(
+            ch for ch, tm in (("diffuse", materials.diffuse_tm),
+                              ("specular", materials.specular_tm))
+            if int(tm.max()) >= 0),
         device=dev,
     )

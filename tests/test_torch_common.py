@@ -171,45 +171,49 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("case", [
-    "faces", "emission_texture", "gi", "both_split", "tex_filter", "dof",
-    "lights", "materials"])
+    "faces", "gi", "tex_filter", "tex_filter_wavefront", "caustic_wavefront",
+    "photon_no_volume", "faces_rr_gi", "bvh"])
 def test_unsupported_scenes_raise(case):
-    from rtf_tpu_torch.core.transform import Transform
+    """What neither path of the port renders yet.  The cases this test
+    had before the wavefront was ported (the 'both' split, DOF, more than
+    2 lights, more than 16 materials, emission texture maps) render now
+    (test_torch_wavefront_render.py::test_formerly_refused_scenes_render)."""
+    import dataclasses
+
+    from rtf_tpu_torch.gi.volume import load_volume
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
     from rtf_tpu_torch.scene.build import build_scene
-    from rtf_tpu_torch.scene.model import (
-        LightDesc, TexMapDesc, TextureDesc, TexturedColorDesc)
-    from rtf_tpu_torch.scene.procedural import _mtl, _node, box_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    from test_torch_gi_volume import VOLUME
     desc = box_scene(8, 6, mesh_subdiv=0)
     cfg = RenderConfig(min_samples=8, max_samples=8, bounces=0,
                        shadow_min=1, shadow_max=1)
-    if case == "faces":
-        desc = box_scene(8, 6, mesh_subdiv=3)          # 1280 faces
-    elif case == "emission_texture":
-        m = desc.materials["wall"]
-        tex = TextureDesc(kind="file", data=np.zeros((2, 2, 3), np.float32))
-        m.emission = TexturedColorDesc(np.ones(3), TexMapDesc(tex))
-    elif case == "gi":             # hemisphere GI is ported, pm_direct not
-        cfg = cfg.with_(gi_mode="pm_direct")
-    elif case == "both_split":
-        cfg = cfg.with_(split_mode="both")
+    both = cfg.with_(split_mode="both")
+    kw, match = {}, None
+    if case in ("faces", "faces_rr_gi"):
+        # rtf_tpu runs >512 faces on 'rr' on its fused MXU-table variant
+        desc, match = box_scene(8, 6, mesh_subdiv=3), "MXU"  # 1280 faces
+        if case == "faces_rr_gi":
+            cfg = cfg.with_(gi_mode="hemisphere", hemisphere_samples=2)
+    elif case == "gi":             # pm_direct needs a volume
+        cfg, match = cfg.with_(gi_mode="pm_direct"), "irradiance volume"
     elif case == "tex_filter":
-        cfg = cfg.with_(tex_filter=True)
-    elif case == "dof":
-        desc = box_scene(8, 6, mesh_subdiv=0, dof=0.5)
-    elif case == "lights":
-        desc.lights += [LightDesc(kind="point", intensity=np.ones(3)),
-                        LightDesc(kind="direct", intensity=np.ones(3))]
-    elif case == "materials":      # 6 box materials + 12 more
-        for k in range(12):
-            desc.materials[f"m{k}"] = _mtl(f"m{k}", (0.5, 0.5, 0.5))
-            desc.root.children.append(_node(
-                f"s{k}", "sphere", f"m{k}",
-                Transform().translate([0, 0, 100 + 3 * k])))
+        cfg, match = cfg.with_(tex_filter=True), "tex_filter"
+    elif case == "tex_filter_wavefront":
+        cfg, match = both.with_(tex_filter=True), "footprint_duv"
+    elif case == "caustic_wavefront":
+        cfg, match = both, "caustic volume on the wavefront"
+        kw = dict(caustic_vol=load_volume(VOLUME, device="cpu"))
+    elif case == "photon_no_volume":
+        cfg, match = both.with_(gi_mode="photon"), "photon pass"
+    else:                          # bvh_traverse is not ported
+        cfg, match = both, "bvh"
     scene = build_scene(desc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        render(scene, cfg, device="cpu")
+    if case == "bvh":
+        scene = dataclasses.replace(scene, mesh_algo="bvh")
+    with pytest.raises(NotImplementedError, match=match):
+        render(scene, cfg, device="cpu", **kw)
 
 
 def test_textured_scene_renders_on_cpu():

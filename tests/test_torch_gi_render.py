@@ -3,7 +3,9 @@ render, device='cpu'): hemisphere GI brightens the box like
 test_render.py:225 and tracks rtf_tpu.render.renderer.render in the mean
 within test_fused.py:153's 8% band (the RNG streams differ); photon and
 caustic volumes add light on top of the same waves; the GI configurations
-outside the slice are refused with NotImplementedError."""
+neither path of the port renders are refused with NotImplementedError (GI
+on the 'both' split and with a lens render now:
+test_torch_wavefront_gi.py, test_torch_wavefront_render.py)."""
 import numpy as np
 import pytest
 
@@ -68,7 +70,7 @@ def test_render_photon_and_caustic_volumes_add_light():
 
 @pytest.mark.parametrize("case", [
     "photon_no_volume", "photon_volume_false", "caustic_volume_false",
-    "pm_direct", "gi_both_split", "gi_dof"])
+    "pm_direct", "caustic_both_split", "pm_direct_volume_false"])
 def test_gi_refusals_raise(case):
     from rtf_tpu_torch.gi.volume import load_volume
     from rtf_tpu_torch.render.config import RenderConfig
@@ -90,10 +92,13 @@ def test_gi_refusals_raise(case):
         kw = dict(caustic_vol=vol)
     elif case == "pm_direct":
         cfg, match = cfg.with_(gi_mode="pm_direct"), "pm_direct"
-    elif case == "gi_both_split":
-        cfg, match = cfg.with_(split_mode="both"), "both"
+    elif case == "caustic_both_split":      # the wavefront's is the gather
+        cfg, match = cfg.with_(split_mode="both"), "caustic volume"
+        kw = dict(caustic_vol=vol)
     else:
-        desc, match = box_scene(8, 6, mesh_subdiv=0, dof=0.5), "depth"
+        cfg, match = cfg.with_(gi_mode="pm_direct", photon_volume=False), \
+            "photon pipeline"
+        kw = dict(gi_vol=vol)
     scene = build_scene(desc, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         render(scene, cfg, device="cpu", **kw)

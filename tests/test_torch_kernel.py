@@ -188,3 +188,112 @@ def test_wave_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         W.wave(_cfg(), tables, o3, o3, torch.ones(4, dtype=torch.bool),
                0)
+
+
+def _mesh_inputs(case, dev):
+    """rays8, the slot's table columns and boxes as the wavefront hands
+    them to mesh_closest_hit: camera rays of the 64x48 box in the ball's
+    local space ("camera"; "dead": every other lane from the dead-lane
+    sentinel; "capped": a finite t_init that cuts the ball), or 4096
+    random rays aimed at it ("random")."""
+    from rtf_tpu_torch.ops.mesh_hit import pack_rays
+    from rtf_tpu_torch.ops.trace import _to_local
+    from rtf_tpu_torch.render.camera import pixel_order, primary_rays
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    scene = build_scene(box_scene(64, 48, mesh_subdiv=2), device=dev)
+    if case == "random":
+        g = torch.Generator(dev).manual_seed(7)
+        o = torch.rand((4096, 3), generator=g, device=dev) * 40.0 - 20.0
+        d = torch.rand((4096, 3), generator=g, device=dev) * 6.0 \
+            + torch.tensor([-2.0, 1.0, 0.0], device=dev) - o
+        d = d / d.norm(dim=1, keepdim=True)
+    else:
+        order = torch.as_tensor(pixel_order(64, 48),
+                                device=dev).to(torch.int64)
+        o, d = primary_rays(scene, order % 64, order // 64, torch.tensor(2))
+        if case == "dead":
+            o = o.clone()
+            o[::2] = 1.0e7
+    t_init = torch.full((o.shape[0],), 1e30, device=dev)
+    if case == "capped":
+        t_init = 60.0 + 6.0 * torch.rand(
+            o.shape[0], generator=torch.Generator(dev).manual_seed(3),
+            device=dev)
+    lo, ld = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0], o, d)
+    rays8, _ = pack_rays(lo, ld, t_init)
+    col0, fpad, ar0, nt, _ = scene.mesh.slot_pack[0]
+    return (rays8, scene.mesh.tri_packed[:, col0:col0 + fpad],
+            scene.mesh.tile_aabb[ar0:ar0 + nt], col0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["camera", "dead", "capped", "random"])
+def test_mesh_kernel_matches_plain(cuda_dev, case):
+    """csrc/mesh_hit.cu against mesh_closest_hit_plain on the same inputs:
+    faces (and so hit masks) equal, t, front, ba and bb within rtol 1e-6
+    (both round the same operations in the same order)."""
+    from rtf_tpu_torch.ops import mesh_hit as M
+    rays8, tris, aabb, face0 = _mesh_inputs(case, cuda_dev)
+    before = M.launches
+    kern = M.mesh_closest_hit(rays8, tris, aabb, face0)
+    plain = M.mesh_closest_hit_plain(rays8, tris, aabb, face0)
+    torch.cuda.synchronize()
+    assert M.launches == before + 1
+    assert torch.equal(kern[1], plain[1])
+    assert int((kern[1] >= 0).sum()) > 20
+    for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
+        assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
+
+
+@pytest.mark.cuda
+def test_wavefront_on_the_card_runs_the_kernel(cuda_dev, monkeypatch):
+    """A wavefront frame on the card launches mesh_closest_hit for every
+    trace and never calls the plain version."""
+    from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(M, "mesh_closest_hit_plain", refuse)
+    scene = build_scene(box_scene(32, 24, light_size=1.0), device=cuda_dev)
+    cfg = RenderConfig(min_samples=2, max_samples=2, bounces=2)
+    before = M.launches
+    res = render(scene, cfg, device=cuda_dev)
+    # per wave 1 + bounces shade_lanes of 1 + 4 + 16 traces
+    assert M.launches - before == 2 * 3 * 21
+    assert res.image.mean() > 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["pallas", "pallas_interpret"])
+def test_no_mesh_algo_runs_the_plain_version_on_the_card(cuda_dev,
+                                                         monkeypatch, algo):
+    """Every mesh_algo the port accepts launches the kernel on CUDA
+    tensors: trace and trace_shadow never reach the plain version."""
+    import dataclasses
+
+    from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.ops.trace import MESH_ALGOS, trace, trace_shadow
+    from rtf_tpu_torch.render.camera import pixel_order, primary_rays
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(M, "mesh_closest_hit_plain", refuse)
+    assert algo in MESH_ALGOS
+    scene = dataclasses.replace(
+        build_scene(box_scene(32, 24), device=cuda_dev), mesh_algo=algo)
+    order = torch.as_tensor(pixel_order(32, 24),
+                            device=cuda_dev).to(torch.int64)
+    o, d = primary_rays(scene, order % 32, order // 32, torch.tensor(0))
+    before = M.launches
+    hit = trace(scene, o, d)
+    lit = trace_shadow(scene, o, d, 1.0)
+    torch.cuda.synchronize()
+    assert M.launches - before == 2
+    assert bool(hit.is_hit.any()) and lit.shape == (o.shape[0],)
