@@ -8,9 +8,10 @@ imports only the port, torch and numpy, and exits nonzero on any failure.
 With no arguments it runs every phase; given phase numbers, the build and
 those phases only (for iterating on one path):
 
-1. build    builds the two kernel libraries (one nvcc per source, started
-            together): the wave kernel (its four variants: untextured or
-            textured, with or without GI rows) and mesh_closest_hit, from
+1. build    builds the three kernel libraries (one nvcc per source, started
+            together): the wave kernel (its eight variants: untextured or
+            textured, with or without GI rows, the immediates mesh or the
+            MXU tables), mesh_closest_hit and mesh_closest_hit_mxu, from
             the sources in the checkout, and prints the build time and
             register counts;
 2. kernel   holds the kernel against its plain PyTorch version on the card
@@ -65,7 +66,27 @@ those phases only (for iterating on one path):
             plain version's; a 160x120 frame with the kernel against the
             same frame with the plain version put in the kernel's place, and a
             wavefront GI frame (400x300, 4 spp, 2 bounces, 4 hemisphere
-            samples) that must add light.
+            samples) that must add light;
+8. mxu      the main path's config (800x600, 64 spp, 4 bounces, hard
+            shadows) on box_scene(800, 600, mesh_subdiv=5): a 20,480-face
+            ball (160 tiles) on the MXU tables, so the untextured MXU
+            variant: phase 3's checks and figures (kernel against plain at
+            bounce 0 and 4 at full width, 64 launches a frame, best of 3,
+            profile, events, work counters and bound), a 160x120 frame at
+            mesh_subdiv=6 (81,920 faces) with the kernel against the same
+            frame with the plain wave put in the kernel's place; then
+            mesh_closest_hit_mxu on the frame's 480,000 primary rays in the
+            ball's local space against the ball's Plücker matrix (40 tiles
+            of 512 faces): against its plain version on every 7th ray
+            (68,608, exact), against mesh_closest_hit on all rays (the same
+            hit mask, faces equal but for a stated share of shared-edge
+            rays), its time on all rays (CUDA events) and its bound;
+9. hybrid_mxu phase 6's hybrid frame (800x600, 8 spp, 4 bounces, photon GI
+            with 30 hemisphere samples, photon and caustic volumes) on the
+            textured box with the 20,480-face ball: the textured MXU
+            variant with GI rows and, on every child wave, the lane
+            permutation of render/gi.py::gi_mesh_perm; phase 6's checks
+            and figures.
 
 Tolerances: at bounce 0 the hit masks are equal, radiance within atol
 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
@@ -80,7 +101,7 @@ every row is finite and the query weight is zero on dead lanes.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
-build/chip_smoke_{main,textured,gi,hybrid,wavefront}.png.
+build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu}.png.
 """
 import json
 import os
@@ -101,11 +122,15 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # rtf_tpu_torch/csrc/wave_kernel.cu (add, mul, div, sqrt, floor, min/max
 # and compare count 1 each; expf/powf/sinf/cosf/asinf count 1): a lower
 # bound.  A texture sample includes its map's transform, the tiling and
-# the product with the colour it scales; env is the angular-map uv.
+# the product with the colour it scales; env is the angular-map uv.  A
+# Plücker pair (csrc/plucker.cuh): its three six-term sums and the two
+# winding tests, which every pair needs (the plane terms and the division
+# of the few pairs inside a winding are not counted); cross is o x d, once
+# per instance and ray on the MXU tables.
 OPS = dict(sphere=73, plane=46, inst=42, slab=26, tri=40, shade=250,
-           shadow=12, tex_file=62, tex_checker=22, env=19)
+           shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9)
 STATS = ["rays", "hits", "shadow", "tiles", "tri_closest", "tri_shadow",
-         "prim_shadow", "inst", "tex_file", "tex_checker", "env"]
+         "prim_shadow", "inst", "tex_file", "tex_checker", "env", "root"]
 
 
 def fail(msg):
@@ -148,18 +173,19 @@ def checker_desc(box_scene, w, h):
     return desc
 
 
-def textured_desc(box_scene, w, h, seed=0):
+def textured_desc(box_scene, w, h, seed=0, mesh_subdiv=2):
     """The textured box (tests/test_torch_common.py::textured_desc builds
     the same): file texture A (512x512) on the walls' kd through
     Transform().scale(0.25), B (256x256) on the ball's kd (spherical
     vertex uv), the scaled checker on the mirror's ks and C (512x512) as
     the environment map with colour (1, 1, 1); texels float32 in [0, 1)
-    from np.random.RandomState(seed), drawn A, B, C."""
+    from np.random.RandomState(seed), drawn A, B, C.  mesh_subdiv sizes the
+    ball (2: 320 faces, the immediates; 5: 20,480, the MXU tables)."""
     import numpy as np
     from rtf_tpu_torch.core.transform import Transform
     from rtf_tpu_torch.scene.model import (
         TexMapDesc, TextureDesc, TexturedColorDesc)
-    desc = box_scene(w, h, with_mesh=True)
+    desc = box_scene(w, h, with_mesh=True, mesh_subdiv=mesh_subdiv)
     rng = np.random.RandomState(seed)
     tex_a, tex_b, tex_c = (
         TextureDesc(kind="file", name=name,
@@ -260,19 +286,23 @@ def bound(tables, st, n, rows_in, rows_out):
     (each input once: rows_in floats in and rows_out out per ray, the
     tables and the atlas's texels at 12 bytes) over the HBM rate.  Also
     the bound with four 16-byte texel reads per file-texture sample
-    instead of the atlas once."""
+    instead of the atlas once.  On the MXU tables a face test is a
+    Plücker pair, and each instance transform adds o x d and a root-box
+    slab test."""
     ns, np_ = tables.spheres.shape[0], tables.planes.shape[0]
+    face_ops = OPS["pair"] if tables.mxu else OPS["tri"]
     flops = (st["rays"] * (ns * OPS["sphere"] + np_ * OPS["plane"])
              + st["inst"] * OPS["inst"] + st["tiles"] * OPS["slab"]
-             + (st["tri_closest"] + st["tri_shadow"]) * OPS["tri"]
+             + st["root"] * (OPS["slab"] + OPS["cross"])
+             + (st["tri_closest"] + st["tri_shadow"]) * face_ops
              + st["prim_shadow"] * OPS["plane"]
              + st["hits"] * OPS["shade"] + st["shadow"] * OPS["shadow"]
              + st["tex_file"] * OPS["tex_file"]
              + st["tex_checker"] * OPS["tex_checker"]
              + st["env"] * OPS["env"])
     table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
-        "spheres", "planes", "mesh_insts", "tiles", "faces", "materials",
-        "lights", "texmaps", "textures"))
+        "spheres", "planes", "mesh_insts", "roots", "tiles", "faces",
+        "materials", "lights", "texmaps", "textures"))
     texels = tables.atlas.shape[0] if tables.has_file_tex else 0
     nbytes = n * rows_in * 4 + n * rows_out * 4 + table_bytes + texels * 12
     nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
@@ -304,7 +334,7 @@ def box_volume(scene, seed, dev):
 
 def main(argv):
     # no arguments: every phase; phase numbers: the build and those only
-    phases = {int(a) for a in argv} or set(range(1, 8))
+    phases = {int(a) for a in argv} or set(range(1, 10))
     try:
         import torch
     except ImportError:
@@ -322,6 +352,9 @@ def main(argv):
     from rtf_tpu_torch.render.gi import (
         child_wave_args, gi_wave, primary_gi_from)
     from rtf_tpu_torch.ops import mesh_hit as M_
+    from rtf_tpu_torch.ops import mesh_hit_mxu as X_
+    from rtf_tpu_torch.ops.trace import _to_local
+    from rtf_tpu_torch.render import renderer as R_
     from rtf_tpu_torch.render.camera import (
         pixel_order, primary_rays, primary_rays_ch)
     from rtf_tpu_torch.render.integrator import render_wave
@@ -344,7 +377,8 @@ def main(argv):
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            # wave: per variant wave_kernel<TEXTURED, ROWS>, mangled Lb0/Lb1
+            # wave: per variant wave_kernel<TEXTURED, GI, MXU>, mangled
+            # Lb0/Lb1
             if any(k in line for k in ("registers", "spill",
                                        "entry function")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
@@ -467,7 +501,8 @@ def main(argv):
     cfg = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=BOUNCES,
                        shadow_min=1, shadow_max=1, gi_mode="none")
     check(cfg.resolved_split_mode() == "rr", "main path must run split rr")
-    counters = ("launches", "launches_textured")
+    counters = ("launches", "launches_textured", "launches_mxu",
+                "launches_textured_mxu")
 
     def profile_frame(tag, frame_s, fn, kernel="wave_kernel"):
         """Where one frame's device time goes (torch.profiler over fn):
@@ -558,7 +593,7 @@ def main(argv):
         bound, and the plain version's time per wave."""
         scene = build_scene(desc, device=dev)
         tables = scene_tables(scene)
-        check(tables.textured == (counter == "launches_textured"),
+        check(W_.launch_counter(tables) == counter,
               f"{tag}: wrong kernel variant")
         o3, d3 = rays(scene, 0)
         n = W * H
@@ -648,7 +683,7 @@ def main(argv):
         against the same on the plain version."""
         scene = build_scene(desc, device=dev)
         tables = scene_tables(scene)
-        check(tables.textured == (counter == "launches_textured"),
+        check(W_.launch_counter(tables) == counter,
               f"{tag}: wrong kernel variant")
         w, h = scene.width, scene.height
         n = w * h
@@ -775,7 +810,7 @@ def main(argv):
         return {
             "launches": launches, "max_abs_err": max(errs),
             "max_abs_err_gi_wave": err_gi, "share_outside_atol": share_gi,
-            "max_abs_err_phase2_800x600": rows_err[
+            "max_abs_err_phase2_800x600": None if tables.mxu else rows_err[
                 "wave_textured_gi" if tables.textured else "wave_gi"],
             "ms": per_launch("ms"), "ms_profiler": prof_ms,
             "plain_ms": per_launch("plain_ms"), "plain_gi_wave_ms": plain_gi,
@@ -1036,13 +1071,166 @@ def main(argv):
             "small_frame_max_abs_err": float(ferr.max()),
             "gi_gain": float(gain), "per_input": kinds}
 
+    def small_frame_vs_plain(tag, desc, fcfg, counter):
+        """A 160x120 frame with the wave kernel against the same frame with
+        the plain wave put in the kernel's place (one seed, so the same
+        draws): hit masks and sample counts equal, z within rtol, at most
+        1% of pixels outside ATOL, means within 1%.  Returns the max abs
+        error."""
+        scene = build_scene(desc, device=dev)
+        stab = scene_tables(scene)
+        check(W_.launch_counter(stab) == counter,
+              f"{tag}: wrong kernel variant")
+        setattr(W_, counter, 0)
+        fk = render(scene, fcfg, seed=5, device=dev, tables=stab)
+        check(getattr(W_, counter) == fcfg.max_samples,
+              f"{tag}: the small frame ran the kernel")
+        setattr(W_, counter, 0)
+        kernel_fn = R_.wave
+        R_.wave = (lambda cfg_, tables_, *a, stats=None, **k:
+                   W_.wave_plain(cfg_, tables_, *a, **k))
+        try:
+            fp = render(scene, fcfg, seed=5, device=dev, tables=stab)
+        finally:
+            R_.wave = kernel_fn
+        check(getattr(W_, counter) == 0, f"{tag}: the plain frame launched "
+              "the kernel")
+        check(np.array_equal(fk.sample_count, fp.sample_count)
+              and np.array_equal(fk.z >= 1e29, fp.z >= 1e29),
+              f"{tag}: hit masks or sample counts differ")
+        hitpx = fk.z < 1e29
+        zrel = np.abs(fk.z - fp.z)[hitpx] / np.abs(fp.z[hitpx])
+        ferr = np.abs(fk.radiance - fp.radiance).max(-1)
+        share = float((ferr > ATOL).mean())
+        check(float(zrel.max()) <= ZTOL, f"{tag}: z beyond rtol")
+        check(share <= FLIP_SHARE and abs(fk.radiance.mean()
+                                          / fp.radiance.mean() - 1.0)
+              <= MEAN_TOL, f"{tag}: {share:.4f} of pixels off, means "
+              f"{fk.radiance.mean()} vs {fp.radiance.mean()}")
+        print(f"[{tag}] {scene.width}x{scene.height} frame "
+              f"({scene.mesh.tri_a.shape[0]} faces), kernel vs plain: "
+              f"max_abs_err={float(ferr.max()):.3e}, share outside {ATOL:g} "
+              f"{share:.5f}, means {fk.radiance.mean():.6f} vs "
+              f"{fp.radiance.mean():.6f}", flush=True)
+        return float(ferr.max())
+
+    def drive_mxu():
+        """Phase 8: the main path's config on the 20,480-face ball (the
+        untextured MXU variant), as phase 3; a 160x120 frame at
+        mesh_subdiv=6 against the plain wave; then mesh_closest_hit_mxu on
+        the frame's primary rays in the ball's local space."""
+        t_phase = time.perf_counter()
+        wave_res = drive("mxu", box_scene(W, H, with_mesh=True, mesh_subdiv=5),
+                         box_scene(*SMALL, with_mesh=True, mesh_subdiv=5),
+                         "launches_mxu")
+        wave_res["small_frame_subdiv6_max_abs_err"] = small_frame_vs_plain(
+            "mxu", box_scene(*SMALL, with_mesh=True, mesh_subdiv=6),
+            cfg.with_(min_samples=4, max_samples=4, split_mode="rr"),
+            "launches_mxu")
+        print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: wave kernel "
+              "checks and figures", flush=True)
+
+        # the dense closest hit on the frame's primary rays, ball-local
+        scene = build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5),
+                            device=dev)
+        mesh = scene.mesh
+        f0, f1 = mesh.slot_faces[0]
+        abc = [getattr(mesh, k)[f0:f1].cpu().numpy() for k in
+               ("tri_a", "tri_b", "tri_c")]
+        trim = torch.as_tensor(X_.pack_tri_matrix(*abc), device=dev)
+        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+        o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
+        lo, ld = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0],
+                           o, d)
+        t_init = torch.full((W * H,), 1e30, device=dev)
+        rays16, npad = X_.pack_rays16(lo, ld, t_init)
+        # every 7th ray of the frame (68,608), spread over the whole image
+        sub = rays16[::7].contiguous()
+        X_.launches = 0
+        kern = X_.mesh_closest_hit_mxu(rays16, trim)
+        plain = X_.mesh_closest_hit_mxu_plain(sub, trim)
+        torch.cuda.synchronize()
+        check(X_.launches == 1, "mesh_closest_hit_mxu: one launch")
+        check(torch.equal(kern[1][::7], plain[1]),
+              f"mesh_closest_hit_mxu: faces differ from the plain version "
+              f"on {int((kern[1][::7] != plain[1]).sum())} rays")
+        err = max(float((k[::7] - p).abs().max())
+                  for k, p in zip(kern[0:1] + kern[2:],
+                                  plain[0:1] + plain[2:]))
+        check(err == 0.0, f"mesh_closest_hit_mxu: max abs err {err} against "
+              "the plain version")
+        hits = int((kern[1] >= 0).sum())
+        sub_hits = int((plain[1] >= 0).sum())
+        check(sub_hits > 0, "no ray of the subset hits the ball")
+        # the same rays through mesh_closest_hit (the packed 128-face
+        # tables): the same hit mask; faces (mapped to arena ids) equal but
+        # on rays that meet an edge shared by two faces
+        col0, fpad, ar0, nt, _ = mesh.slot_pack[0]
+        rays8, _ = M_.pack_rays(lo, ld, t_init)
+        mh = M_.mesh_closest_hit(rays8, mesh.tri_packed[:, col0:col0 + fpad],
+                                 mesh.tile_aabb[ar0:ar0 + nt], col0)
+        torch.cuda.synchronize()
+        mh_hit = mh[1][:W * H] >= 0
+        check(torch.equal(mh_hit, kern[1][:W * H] >= 0),
+              f"mesh_closest_hit_mxu and mesh_closest_hit: hit masks differ "
+              f"on {int((mh_hit != (kern[1][:W * H] >= 0)).sum())} rays")
+        arena = mesh.tri_perm.to(torch.int64)[
+            mh[1][:W * H].clamp(min=0).to(torch.int64)]
+        differ = int((mh_hit & (arena != kern[1][:W * H])).sum())
+        face_share = differ / max(hits, 1)
+        check(face_share <= 0.01, f"faces differ from mesh_closest_hit on "
+              f"{face_share:.4f} of the hits")
+        t_rel = float(((mh[0][:W * H] - kern[0][:W * H]).abs()
+                       / kern[0][:W * H].abs())[mh_hit].max())
+        print(f"[mxu] mesh_closest_hit_mxu: {npad} rays ({hits} hit the "
+              f"ball), plain on every 7th, {sub.shape[0]} rays ({sub_hits} "
+              f"hits): faces "
+              f"equal, max_abs_err={err:.3e}; against mesh_closest_hit: hit "
+              f"masks equal, faces differ on {differ} of {hits} hits "
+              f"({face_share:.5f}), t within rtol {t_rel:.3e}", flush=True)
+
+        def launch():
+            return X_.mesh_closest_hit_mxu(rays16, trim)
+        ms = events_ms(launch, reps=5)
+        ms_sub = events_ms(lambda: X_.mesh_closest_hit_mxu(sub, trim), reps=5)
+        pms_sub = host_ms(lambda: X_.mesh_closest_hit_mxu_plain(sub, trim), 1)
+        t0 = time.perf_counter()         # warm from the subset's runs
+        X_.mesh_closest_hit_mxu_plain(rays16, trim)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        pairs = npad * trim.shape[0] * (trim.shape[2] // 5)
+        flops = pairs * OPS["pair"]
+        # each input once: 64 B per ray and the matrix; each output once
+        nbytes = npad * 64 + trim.numel() * 4 + npad * 20
+        bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+        bd_ms = max(bytes_ms, ops_ms)
+        print(f"[mxu] mesh_closest_hit_mxu: {ms:.4f} ms on {npad} rays "
+              f"({ms_sub:.4f} ms on {sub.shape[0]}; mean of 5, CUDA events), "
+              f"plain {pms:.1f} ms ({pms_sub:.1f} ms on {sub.shape[0]}); "
+              f"{pairs} pairs, "
+              f"{flops:.4e} FP32 ops, {nbytes} bytes; bound {bd_ms:.4f} ms "
+              f"(ops {ops_ms:.4f}, bytes {bytes_ms:.5f})", flush=True)
+        print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: phase passed",
+              flush=True)
+        dense = {"launches": 1, "max_abs_err": err, "ms": ms,
+                 "plain_ms": pms, "bound_ms": bd_ms,
+                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                 "library_ms": None, "rays": npad, "hits": hits,
+                 "pairs": pairs, "subset_rays": sub.shape[0],
+                 "ms_subset": ms_sub, "plain_ms_subset": pms_sub,
+                 "faces_differ_from_mesh_closest_hit": differ,
+                 "main_path": "phase 8: the frame's primary rays, not a "
+                              "caller of the port"}
+        return [wave_res, dense]
+
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
                           hemisphere_samples=4, queue_factor=1.0)
     hyb_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=4,
                            shadow_min=4, shadow_max=16, gi_mode="photon",
                            hemisphere_samples=30)
-    # (phase, kernels-line entry, the function that runs the phase)
+    # (phase, kernels-line entries, the function that runs the phase and
+    # returns one result per entry)
     runs = [
         # ---- phase 3: the main path (untextured variant)
         (3, {"name": "wave",
@@ -1075,9 +1263,35 @@ def main(argv):
              "source": "rtf_tpu_torch/csrc/mesh_hit.cu",
              "replaces": "rtf_tpu/ops/pallas_mesh.py:330"},
          drive_wavefront),
+        # ---- phase 8: the main path's config on a 20,480-face mesh (the
+        # MXU variant), and the dense Plücker closest hit
+        (8, [{"name": "wave_mxu",
+              "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+              "replaces": "rtf_tpu/render/fused.py:1741 (MXU tables: "
+                          "_mesh_closest_mxu :774, _mesh_anyhit_mxu :920)"},
+             {"name": "mesh_closest_hit_mxu",
+              "source": "rtf_tpu_torch/csrc/mesh_hit_mxu.cu",
+              "replaces": "rtf_tpu/ops/pallas_mesh_mxu.py:179"}],
+         drive_mxu),
+        # ---- phase 9: the hybrid frame on the 20,480-face mesh (the
+        # textured MXU variant with GI rows, gi_mesh_perm)
+        (9, {"name": "wave_textured_mxu",
+             "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+             "replaces": "rtf_tpu/render/fused_seg.py:482 and :516 (MXU "
+                         "tables, has_mesh_tables)"},
+         lambda: drive_gi("hybrid_mxu",
+                          textured_desc(box_scene, W, H, mesh_subdiv=5),
+                          hyb_cfg, "launches_textured_mxu", volumes=True)),
     ]
-    kernels = [{**entry, "route": "cuda", **fn(), "build_s": build_s}
-               for ph, entry, fn in runs if ph in phases]
+    kernels = []
+    for ph, entries, fn in runs:
+        if ph not in phases:
+            continue
+        results = fn()
+        if isinstance(entries, dict):
+            entries, results = [entries], [results]
+        kernels += [{**e, "route": "cuda", **r, "build_s": build_s}
+                    for e, r in zip(entries, results)]
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,12 +2,15 @@
 
 Each source in csrc/ becomes its own shared library with a plain C
 interface, compiled for sm_90a (Hopper) at first use into build/ at the
-root of the checkout; a library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded.  `build()` starts one nvcc per source, all at once.
+root of the checkout; a library's file name carries a hash of its source,
+the shared headers (csrc/*.cuh) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  `build()` starts one nvcc
+per source, all at once.
 
-  wave      csrc/wave_kernel.cu  rtf_wave_launch      (render/wave.py)
-  mesh_hit  csrc/mesh_hit.cu     rtf_mesh_hit_launch  (ops/mesh_hit.py)
+  wave          csrc/wave_kernel.cu   rtf_wave_launch     (render/wave.py)
+  mesh_hit      csrc/mesh_hit.cu      rtf_mesh_hit_launch (ops/mesh_hit.py)
+  mesh_hit_mxu  csrc/mesh_hit_mxu.cu  rtf_mesh_hit_mxu_launch
+                                                  (ops/mesh_hit_mxu.py)
 """
 from __future__ import annotations
 
@@ -32,18 +35,23 @@ KERNELS = {
         _P, _I,                  # stats, n
         _I, _I, _I,              # seed, blk0, nbounce
         _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
-        _P, _P, _P, _P, _I,      # tiles, faces, mats, lights, nl
+        _P, _P, _P, _P, _P, _I,  # roots, tiles, faces, mats, lights, nl
         _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
         _I, _I, _I,              # env_tm, env_l2, textured
         _F, _F, _F,              # env rgb
         _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
-        _I, _I, _I, _I,          # shadow max/min, need_uv, has_gloss
+        _I, _I, _I, _I, _I,      # shadow max/min, need_uv, has_gloss, mxu
         _P]),                    # stream
     "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
         _P, _I,                  # rays8, n
         _P, _L, _I, _P, _I,      # tris, row stride, tiles, aabb, face0
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
         _P, _P]),                # stats, stream
+    "mesh_hit_mxu": ("mesh_hit_mxu.cu", "rtf_mesh_hit_mxu_launch", [
+        _P, _I,                  # rays16, n
+        _P, _I, _I, _I,          # trim, ntiles, tile, face0
+        _P, _P, _P, _P, _P,      # t, face, front, ba, bb
+        _P]),                    # stream
 }
 
 _LIBS = {}
@@ -64,7 +72,9 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(source(name).read_bytes()
+    headers = b"".join(p.read_bytes()
+                       for p in sorted((ROOT / "csrc").glob("*.cuh")))
+    h = hashlib.sha256(source(name).read_bytes() + headers
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
 

@@ -3,23 +3,42 @@
 // Replaces three Pallas TPU kernels:
 //   * rtf_tpu/render/fused.py::_wave_kernel (pallas_call fused.py:1741, the
 //     kernel behind fused_wave), immediates mesh variant, with its
-//     surf_out/gi_from rows: the untextured variants wave_kernel<false, *>;
+//     surf_out/gi_from rows: the untextured variants wave_kernel<false, *, *>;
 //   * rtf_tpu/render/fused_seg.py::_seg_hit_kernel (pallas_call
 //     fused_seg.py:482) and _seg_shade_kernel (fused_seg.py:516, with its
 //     15 gi_out rows), with the XLA texture segment between them
-//     (_seg_texture, _seg_env): the textured variants wave_kernel<true, *>.
+//     (_seg_texture, _seg_env): the textured variants wave_kernel<true, *, *>.
 //     The TPU splits each bounce into a hit kernel, an XLA gather and a
 //     shade kernel only because Pallas TPU has no vector gather; here each
 //     thread reads the atlas itself, so a bounce stays in registers and a
 //     wave is one launch.
+// The third template flag is MXU: a mesh of more than 512 faces, which
+// rtf_tpu runs on the same kernels with its MXU tables (fused.py::
+// _mesh_closest_mxu, _mesh_anyhit_mxu; fused_seg.py's hit and shade kernels
+// with has_mesh_tables), takes the Plücker pair test (plucker.cuh) over
+// ops/mxu_pack.py's face rows in place of the projected-barycentric test:
+// wave_kernel<*, *, true>.  Per mesh instance a thread slab-tests its own
+// segment against the instance's padded root box, then walks the
+// instance's 128-face tiles in the front-to-back order of its own local
+// direction's octant (the table's rows 6-13; rtf_tpu picks the order from
+// a 1024-lane block's summed direction, which changes only which of two
+// exactly tied faces in different tiles wins), each behind a slab test on
+// the padded tile box capped by its own best t, and tests the tile's
+// faces with a strict t < best.  The winner's normal, material, front and
+// uv come from its shade row once per instance: normal = nc + ba (na -
+// nc) + bb (nb - nc), front = d . n <= 0 with the geometric normal, uv =
+// uv_c + ba (uv_a - uv_c) + bb (uv_b - uv_c).  rtf_tpu streams tables over
+// 24 MiB tile by tile from HBM only because of VMEM; here one table in
+// device memory serves every size.  The four immediates variants
+// wave_kernel<*, *, false> keep the code they had.
 // The second template flag is GI (render/gi.py): a child wave passes 14 ray
 // rows instead of 7, with its throughput, absorption and ray type
 // (has_state), and a launch may ask for the GI rows: with surf_out the
 // first-hit surface p, n, kd, k_eff (12 rows), with gi_from = k one photon
 // query p, n, kd * k_eff (9 rows) per bounce b >= k; zero rows where the
 // lane did not hit or never reached the bounce.  Launches that need
-// neither run wave_kernel<*, false>, the code and registers the kernel had
-// before GI.
+// neither run wave_kernel<*, false, *>, the code and registers the kernel
+// had before GI.
 // It computes what render/wave.py::wave_plain computes, with the same
 // operations in the same order: closest hit with uv (spheres, planes, then
 // mesh faces in packed Morton order with a strict t < best), kd/ks as the
@@ -70,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "plucker.cuh"
+
 namespace {
 
 constexpr float BIG = 1.0e30f;
@@ -84,6 +105,7 @@ constexpr float INV_PI_F = 0.3183098861837907f;
 constexpr int RT_REFLECT = 1, RT_REFRACT = 2;
 constexpr int INST_W = 24, TILE_W = 8, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
 constexpr int TEXMAP_W = 10, TEX_W = 10;
+constexpr int MXU_TILE_W = 16, ROOT_W = 8;   // MXU tile rows, root boxes
 constexpr float TEX_FILE = 0.0f;
 constexpr int THREADS = 128;
 
@@ -93,14 +115,16 @@ enum Stat {
   STAT_HITS = 1,         // rays that hit and were shaded
   STAT_SHADOW = 2,       // shadow rays traced
   STAT_TILES = 3,        // tile slab tests
-  STAT_TRI_CLOSEST = 4,  // triangle tests, closest hit
-  STAT_TRI_SHADOW = 5,   // triangle tests, shadow rays
+  STAT_TRI_CLOSEST = 4,  // triangle tests (MXU: pair tests), closest hit
+  STAT_TRI_SHADOW = 5,   // triangle tests (MXU: pair tests), shadow rays
   STAT_PRIM_SHADOW = 6,  // sphere/plane tests, shadow rays
   STAT_INST = 7,         // mesh-instance ray transforms
   STAT_TEX_FILE = 8,     // bilinear file-texture samples (kd, ks, env)
   STAT_TEX_CHECKER = 9,  // checker samples
   STAT_ENV = 10,         // environment-map uv computations
-  NSTAT = 11
+  NSTAT = 11,            // the counters of the immediates variants
+  STAT_ROOT = 11,        // root-box slab tests (MXU variants)
+  NSTAT_MXU = 12
 };
 
 struct Args {
@@ -116,6 +140,7 @@ struct Args {
   const float* spheres; int ns;
   const float* planes; int np;
   const float* insts; int ni;
+  const float* roots;  // [ni, 8] padded root boxes (MXU variants)
   const float* tiles;
   const float* faces;
   const float* mats;
@@ -272,7 +297,103 @@ __device__ __forceinline__ bool tri(const float* F, const float lo[3],
   return !bad && t > ZERO && ba >= 0.0f && bb >= 0.0f && bc >= 0.0f;
 }
 
+// fused.py::_mesh_closest_mxu for one ray: per instance the root box,
+// then the tiles in the octant's visit order, then their faces; the
+// winner is resolved from its shade row once per instance
+__device__ void mesh_closest_mxu(const Args& A, const float o[3],
+                                 const float d[3], Hit& h,
+                                 unsigned long long* cnt) {
+  float lo[3], l[3];
+  for (int k = 0; k < A.ni; ++k) {
+    const float* I = A.insts + INST_W * k;
+    to_local(I, o, d, lo, l);
+    float ild[3];
+    inv_dir(l, ild);
+    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }
+    if (!slab(A.roots + ROOT_W * k, lo, ild, h.t)) continue;
+    float c[3];
+    plucker::cross_od(lo, l, c);
+    const int oct = 6 + (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
+        + (l[2] >= 0.0f ? 1 : 0);
+    const int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
+    int best = -1;
+    float bsa = 0.0f, bsb = 0.0f, bsc = 0.0f, bdn = 0.0f;
+    for (int s = 0; s < nt; ++s) {
+      const int j = (int)ld(A.tiles + MXU_TILE_W * (t0 + s) + oct);
+      const float* T = A.tiles + MXU_TILE_W * j;
+      if (cnt) cnt[STAT_TILES] += 1;
+      if (!slab(T, lo, ild, h.t)) continue;
+      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);
+      if (cnt) cnt[STAT_TRI_CLOSEST] += nf;
+      for (int f = f0; f < f0 + nf; ++f) {
+        const float4* F4 =
+            reinterpret_cast<const float4*>(A.faces + FACE_W * f);
+        float t, sa, sb, sc, dn;
+        if (!plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
+            || !(t < h.t))
+          continue;
+        h.t = t;
+        best = f;
+        bsa = sa; bsb = sb; bsc = sc; bdn = dn;
+      }
+    }
+    if (best < 0) continue;
+    const float* F = A.faces + FACE_W * best;
+    float ba, bb;
+    plucker::bary(bsa, bsb, bsc, ba, bb);
+    const float lnx = ld(F + 22) + ba * ld(F + 25) + bb * ld(F + 28);
+    const float lny = ld(F + 23) + ba * ld(F + 26) + bb * ld(F + 29);
+    const float lnz = ld(F + 24) + ba * ld(F + 27) + bb * ld(F + 30);
+    mat3(I + 12, lnx, lny, lnz, h.nx, h.ny, h.nz);
+    h.mtl = (int)ld(F + 31);
+    h.front = bdn <= 0.0f;
+    if (A.need_uv) {
+      h.u = ld(F + 32) + ba * ld(F + 34) + bb * ld(F + 36);
+      h.v = ld(F + 33) + ba * ld(F + 35) + bb * ld(F + 37);
+    }
+  }
+}
+
+// fused.py::_mesh_anyhit_mxu for one shadow ray: some face with
+// 1e-14 < t < cap
+__device__ bool mesh_anyhit_mxu(const Args& A, const float o[3],
+                                const float d[3], float cap,
+                                unsigned long long* cnt) {
+  float lo[3], l[3];
+  for (int k = 0; k < A.ni; ++k) {
+    const float* I = A.insts + INST_W * k;
+    to_local(I, o, d, lo, l);
+    float ild[3];
+    inv_dir(l, ild);
+    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }
+    if (!slab(A.roots + ROOT_W * k, lo, ild, cap)) continue;
+    float c[3];
+    plucker::cross_od(lo, l, c);
+    const int oct = 6 + (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
+        + (l[2] >= 0.0f ? 1 : 0);
+    const int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
+    for (int s = 0; s < nt; ++s) {
+      const int j = (int)ld(A.tiles + MXU_TILE_W * (t0 + s) + oct);
+      const float* T = A.tiles + MXU_TILE_W * j;
+      if (cnt) cnt[STAT_TILES] += 1;
+      if (!slab(T, lo, ild, cap)) continue;
+      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);
+      for (int f = f0; f < f0 + nf; ++f) {
+        if (cnt) cnt[STAT_TRI_SHADOW] += 1;
+        const float4* F4 =
+            reinterpret_cast<const float4*>(A.faces + FACE_W * f);
+        float t, sa, sb, sc, dn;
+        if (plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
+            && t > 1e-14f && t < cap)
+          return true;
+      }
+    }
+  }
+  return false;
+}
+
 // fused.py::_closest_hit: primitives first, then the mesh
+template <bool MXU>
 __device__ void closest_hit(const Args& A, const float o[3],
                             const float d[3], Hit& h,
                             unsigned long long* cnt) {
@@ -322,7 +443,8 @@ __device__ void closest_hit(const Args& A, const float o[3],
       }
     }
   }
-  for (int k = 0; k < A.ni; ++k) {
+  if constexpr (MXU) mesh_closest_mxu(A, o, d, h, cnt);
+  for (int k = 0; !MXU && k < A.ni; ++k) {
     const float* I = A.insts + INST_W * k;
     to_local(I, o, d, lo, l);
     float ild[3];
@@ -356,6 +478,7 @@ __device__ void closest_hit(const Args& A, const float o[3],
 }
 
 // shadow ray: any occluder with 1e-14 < t < cap (GenLight::Shadow)
+template <bool MXU>
 __device__ bool occluded(const Args& A, const float o[3], const float d[3],
                          float cap, unsigned long long* cnt) {
   float lo[3], l[3];
@@ -375,7 +498,10 @@ __device__ bool occluded(const Args& A, const float o[3], const float d[3],
     bool in = plane(lo, l, tp, hx, hy);
     if (in && tp >= ZERO && tp > 1e-14f && tp < cap) return true;
   }
-  for (int k = 0; k < A.ni; ++k) {
+  if constexpr (MXU) {
+    if (mesh_anyhit_mxu(A, o, d, cap, cnt)) return true;
+  }
+  for (int k = 0; !MXU && k < A.ni; ++k) {
     const float* I = A.insts + INST_W * k;
     to_local(I, o, d, lo, l);
     float ild[3];
@@ -526,7 +652,7 @@ __device__ __forceinline__ void write_rows(const Args& A, int i, int b,
   }
 }
 
-template <bool TEXTURED, bool GI>
+template <bool TEXTURED, bool GI, bool MXU>
 __global__ void __launch_bounds__(THREADS)
 wave_kernel(const Args A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -549,7 +675,8 @@ wave_kernel(const Args A) {
   }
   int rows_done = 0;  // bounces whose GI rows are written (GI only)
   float acc[3] = {0.0f, 0.0f, 0.0f}, hit0 = 0.0f, z0 = BIG;
-  unsigned long long cnt_[NSTAT] = {};
+  constexpr int NS = MXU ? NSTAT_MXU : NSTAT;
+  unsigned long long cnt_[NS] = {};
   unsigned long long* cnt = A.stats ? cnt_ : nullptr;
   const uint32_t idx = (uint32_t)(i & 1023);
   const uint32_t seed0 = A.seed + (A.blk0 + (uint32_t)(i >> 10)) * 7919u;
@@ -559,7 +686,7 @@ wave_kernel(const Args A) {
     const uint32_t seed = seed0 + (uint32_t)b * 101u;
     if (cnt) cnt[STAT_RAYS] += 1;
     Hit h;
-    closest_hit(A, o, d, h, cnt);
+    closest_hit<MXU>(A, o, d, h, cnt);
     const bool hit = h.t < BIG;
     float rad[3] = {0.0f, 0.0f, 0.0f};
     if (!hit) {
@@ -658,7 +785,7 @@ wave_kernel(const Args A) {
       if (!soft) {
         float so[3];
         offset_origin(p, nrm, sd, so);
-        vis = occluded(A, so, sd, tmax, cnt) ? 0.0f : 1.0f;
+        vis = occluded<MXU>(A, so, sd, tmax, cnt) ? 0.0f : 1.0f;
       } else {
         float sums[2] = {0.0f, 0.0f};   // first nmin samples, the rest
         for (int si = 0; si < nmax; ++si) {
@@ -676,7 +803,7 @@ wave_kernel(const Args A) {
             td[a] = sd[a] + (v1[a] * r * ca + v2[a] * r * sa);
           float so[3];
           offset_origin(p, nrm, td, so);
-          float lit = occluded(A, so, td, tmax, cnt) ? 0.0f : 1.0f;
+          float lit = occluded<MXU>(A, so, td, tmax, cnt) ? 0.0f : 1.0f;
           sums[si < nmin ? 0 : 1] = sums[si < nmin ? 0 : 1] + lit;
         }
         bool pen = nmax > nmin && sums[0] > 0.0f && sums[0] < (float)nmin;
@@ -784,7 +911,7 @@ wave_kernel(const Args A) {
       write_rows(A, i, b, nullptr, nullptr, nullptr, nullptr);
   }
   if (cnt)
-    for (int s = 0; s < NSTAT; ++s)
+    for (int s = 0; s < NS; ++s)
       if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);
 }
 
@@ -796,15 +923,15 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                     int surf_out, int gi_from, long long* stats, int n,
                     int seed, int blk0, int nbounce,
                     const float* spheres, int ns, const float* planes,
-                    int np, const float* insts, int ni, const float* tiles,
-                    const float* faces, const float* mats,
+                    int np, const float* insts, int ni, const float* roots,
+                    const float* tiles, const float* faces, const float* mats,
                     const float* lights, int nl, const float* texmaps,
                     const float* textures, const float* atlas, int atlas_w,
                     int env_tm, int env_l2, int textured, float env_r,
                     float env_g, float env_b, float coef, int inverse_square,
                     int env_on_reflect_miss, float tot_thr, float col_thr,
                     int shadow_max, int shadow_min, int need_uv,
-                    int has_gloss, void* stream) {
+                    int has_gloss, int mxu, void* stream) {
   if (n <= 0) return 0;
   Args A;
   A.rays = rays;
@@ -820,6 +947,7 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   A.spheres = spheres; A.ns = ns;
   A.planes = planes; A.np = np;
   A.insts = insts; A.ni = ni;
+  A.roots = roots;
   A.tiles = tiles;
   A.faces = faces;
   A.mats = mats;
@@ -843,14 +971,24 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   int blocks = (n + THREADS - 1) / THREADS;
   const bool gi = has_state || surf_out || gi_from >= 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (textured && gi)
-    wave_kernel<true, true><<<blocks, THREADS, 0, st>>>(A);
-  else if (textured)
-    wave_kernel<true, false><<<blocks, THREADS, 0, st>>>(A);
-  else if (gi)
-    wave_kernel<false, true><<<blocks, THREADS, 0, st>>>(A);
-  else
-    wave_kernel<false, false><<<blocks, THREADS, 0, st>>>(A);
+  if (mxu) {
+    if (textured && gi)
+      wave_kernel<true, true, true><<<blocks, THREADS, 0, st>>>(A);
+    else if (textured)
+      wave_kernel<true, false, true><<<blocks, THREADS, 0, st>>>(A);
+    else if (gi)
+      wave_kernel<false, true, true><<<blocks, THREADS, 0, st>>>(A);
+    else
+      wave_kernel<false, false, true><<<blocks, THREADS, 0, st>>>(A);
+  } else if (textured && gi) {
+    wave_kernel<true, true, false><<<blocks, THREADS, 0, st>>>(A);
+  } else if (textured) {
+    wave_kernel<true, false, false><<<blocks, THREADS, 0, st>>>(A);
+  } else if (gi) {
+    wave_kernel<false, true, false><<<blocks, THREADS, 0, st>>>(A);
+  } else {
+    wave_kernel<false, false, false><<<blocks, THREADS, 0, st>>>(A);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,173 @@
+"""Plücker tables of large meshes (rtf_tpu/render/fused.py::_mxu_pack,
+NumPy only), and the Plücker ray-triangle pair test that reads them.
+
+rtf_tpu runs a mesh of more than 512 faces on its wave kernel's MXU-table
+variant: per 128-face Morton tile one [1024, 16] x [16, 5*128] matrix
+product gives, for every ray-face pair, the three edge signs and the plane
+terms of the bilinear factorization (rtf_tpu/ops/pallas_mesh_mxu.py:1-33):
+
+    s_k = d . m_k + (o x d) . e_k      (w_k = (m_k, e_k) the Plücker
+                                        coordinates of the edge opposite
+                                        vertex k: w_a = plucker(b, c), ...)
+    dn  = d . n,   on = n . a - o . n  (n the unit geometric normal)
+
+The same numbers are kept here, one row per face instead of the TPU's
+matrix layout, so that one thread per ray reads a face with a few 16-byte
+loads (csrc/wave_kernel.cu).  Face rows [NT * 128, FACE_W] float32, each
+slot's faces in Morton order, each tile padded with zero rows:
+
+    0-5   w_a = plucker(b, c)    (cross(b, c), c - b)
+    6-11  w_b = plucker(c, a)
+    12-17 w_c = plucker(a, b)
+    18-20 n, the unit geometric normal   21  n . a
+    22-24 vertex normal c   25-27 na - nc   28-30 nb - nc
+    31    material id
+    32-33 uv_c   34-35 uv_a - uv_c   36-37 uv_b - uv_c
+
+Degenerate faces (zero normal) have rows 0-21 zero, so dn == 0 and they
+never hit.  These are the columns of rtf_tpu's `trit` (rows 0-21) and
+`shade` tables (rows 22-37; its geometric-normal columns 10-12 are row
+18-20 here, the same numbers).  Tile rows [NT, TILE_W]: 0-5 the tile's
+AABB (lo xyz, hi xyz; empty tiles 1e30 / -1e30), 6-13 the front-to-back
+visit order of the slot's tiles for each direction octant (global tile
+index at visit step k, octant o = 4 (dx >= 0) + 2 (dy >= 0) + (dz >= 0)),
+14 the tile's first face row, 15 its face count.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rtf_tpu_torch.ops.pack import DZ_EPS, ZERO, _morton3
+
+MXU_TILE = 128        # faces per tile (fused.py:56)
+FACE_W = 40
+TILE_W = 16
+
+
+def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
+             slot_faces):
+    """fused.py::_mxu_pack on float32 NumPy arrays of a mesh arena.
+    Returns dict(faces [NT*128, 40], tiles [NT, 16],
+    slots {slot: (first tile, tile count, lo3, hi3)}), lo3/hi3 the slot's
+    bounding box as Python floats."""
+    face_parts, tile_parts, slots = [], [], {}
+    row0 = 0
+    for slot, (f0, f1) in enumerate(slot_faces):
+        a, b, c = tri_a[f0:f1], tri_b[f0:f1], tri_c[f0:f1]
+        nav, nbv, ncv = tri_na[f0:f1], tri_nb[f0:f1], tri_nc[f0:f1]
+        mt = tri_mtl[f0:f1]
+        at = attr_t[f0:f1]
+        f = f1 - f0
+        order = np.argsort(_morton3((a + b + c) / 3.0), kind="stable")
+        a, b, c = a[order], b[order], c[order]
+        nav, nbv, ncv, mt, at = (x[order] for x in (nav, nbv, ncv, mt, at))
+
+        n = np.cross(b - a, c - a)
+        ln = np.linalg.norm(n, axis=-1, keepdims=True)
+        degen = ln[:, 0] == 0
+        n = n / np.where(ln > 0, ln, 1.0)
+        na_d = np.sum(n * a, axis=-1)
+
+        def plucker(p, q):
+            return np.concatenate([np.cross(p, q), q - p], axis=-1)
+
+        w = [plucker(b, c), plucker(c, a), plucker(a, b)]
+        for wk in w:
+            wk[degen] = 0.0
+        n[degen] = 0.0
+        na_d[degen] = 0.0
+
+        nt = max(1, (f + MXU_TILE - 1) // MXU_TILE)
+        faces = np.zeros((nt * MXU_TILE, FACE_W), np.float32)
+        faces[:f, 0:6], faces[:f, 6:12], faces[:f, 12:18] = w
+        faces[:f, 18:21] = n
+        faces[:f, 21] = na_d
+        faces[:f, 22:25] = ncv
+        faces[:f, 25:28] = nav - ncv
+        faces[:f, 28:31] = nbv - ncv
+        faces[:f, 31] = mt
+        uva, uvb, uvc = at[:, 0:2], at[:, 3:5], at[:, 6:8]
+        faces[:f, 32:34] = uvc
+        faces[:f, 34:36] = uva - uvc
+        faces[:f, 36:38] = uvb - uvc
+
+        tiles = np.zeros((nt, TILE_W), np.float32)
+        tri_lo = np.minimum(np.minimum(a, b), c)
+        tri_hi = np.maximum(np.maximum(a, b), c)
+        boxes = []
+        for j in range(nt):
+            lo, hi = j * MXU_TILE, min(f, (j + 1) * MXU_TILE)
+            if hi <= lo:
+                boxes.append((1e30, 1e30, 1e30, -1e30, -1e30, -1e30))
+            else:
+                boxes.append(tuple(float(x) for x in tri_lo[lo:hi].min(0))
+                             + tuple(float(x) for x in tri_hi[lo:hi].max(0)))
+            tiles[j, 0:6] = boxes[-1]
+            tiles[j, 14] = (row0 + j) * MXU_TILE
+            tiles[j, 15] = max(hi - lo, 0)
+        # near-to-far along each octant's diagonal, empty tiles last
+        ctr = np.array([[(bb[0] + bb[3]) / 2, (bb[1] + bb[4]) / 2,
+                         (bb[2] + bb[5]) / 2]
+                        if bb[0] <= bb[3] else [1e30, 1e30, 1e30]
+                        for bb in boxes], np.float64)
+        for o in range(8):
+            s = np.array([1.0 if o & 4 else -1.0, 1.0 if o & 2 else -1.0,
+                          1.0 if o & 1 else -1.0])
+            key = ctr @ s
+            key[ctr[:, 0] >= 1e30] = np.inf
+            tiles[:, 6 + o] = (np.argsort(key, kind="stable")
+                               + row0).astype(np.float32)
+        slots[slot] = (row0, nt, tuple(float(x) for x in tri_lo.min(0)),
+                       tuple(float(x) for x in tri_hi.max(0)))
+        face_parts.append(faces)
+        tile_parts.append(tiles)
+        row0 += nt
+    return dict(faces=np.concatenate(face_parts),
+                tiles=np.concatenate(tile_parts), slots=slots)
+
+
+def mesh_mxu_pack(mesh):
+    """`mxu_pack` of a built scene's MeshArena (scene/build.py)."""
+    def np32(x):
+        return x.cpu().numpy().astype(np.float32)
+    return mxu_pack(*(np32(getattr(mesh, k)) for k in (
+        "tri_a", "tri_b", "tri_c", "tri_na", "tri_nb", "tri_nc")),
+        mesh.tri_mtl.cpu().numpy(), np32(mesh.attr_t), mesh.slot_faces)
+
+
+def cross_od(o3, d3):
+    """o x d per ray, in fused.py::_rays16's order."""
+    return (o3[1] * d3[2] - o3[2] * d3[1],
+            o3[2] * d3[0] - o3[0] * d3[2],
+            o3[0] * d3[1] - o3[1] * d3[0])
+
+
+def plucker_pair(col, d3, c3, o3):
+    """The pair test of csrc/plucker.cuh: face columns col[k] (rows 0-21 of
+    the face layout, broadcastable against the ray channels), ray d, o x d
+    and o.  Every product is summed in one fixed order, element by element
+    (no matmul), so the kernel agrees bit for bit.  Returns (t, valid
+    without a t cap, sa, sb, sc, dn): valid = some winding inside, |dn| >=
+    1e-7 and t > 1e-3."""
+    dx, dy, dz = d3
+    cx, cy, cz = c3
+    s = [dx * col[6 * k] + dy * col[6 * k + 1] + dz * col[6 * k + 2]
+         + cx * col[6 * k + 3] + cy * col[6 * k + 4] + cz * col[6 * k + 5]
+         for k in range(3)]
+    dn = dx * col[18] + dy * col[19] + dz * col[20]
+    on = col[21] - (o3[0] * col[18] + o3[1] * col[19] + o3[2] * col[20])
+    sa, sb, sc = s
+    inside = ((torch.minimum(torch.minimum(sa, sb), sc) >= 0.0)
+              | (torch.maximum(torch.maximum(sa, sb), sc) <= 0.0))
+    bad = torch.abs(dn) < DZ_EPS
+    t = on / torch.where(bad, torch.full_like(dn, DZ_EPS), dn)
+    return t, inside & ~bad & (t > ZERO), sa, sb, sc, dn
+
+
+def plucker_bary(sa, sb, sc):
+    """The winner's barycentrics ba, bb: s_k over their sum (1 where the
+    sum is 0)."""
+    ssum = sa + sb + sc
+    rs = 1.0 / torch.where(ssum == 0.0, torch.ones_like(ssum), ssum)
+    return sa * rs, sb * rs

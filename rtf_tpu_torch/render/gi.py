@@ -15,8 +15,10 @@ Randomness: jax.random's draws cannot be reproduced, so the two uniforms
 of each hemisphere sample (azimuth, sin^2 theta) are inputs; the renderer
 draws them from a torch.Generator on the device.  The kernel's per-lane
 hash RNG is reproduced bit for bit, child i running on
-seed + (i + 1) * 104729 in int32.  `_gi_mesh_perm` (a lane permutation
-that only pays with the MXU mesh tables, fused.py:1977) is not ported.
+seed + (i + 1) * 104729 in int32.  With the MXU mesh tables each child
+wave's lanes are permuted first (`gi_mesh_perm`, fused.py:1976-1983), as
+rtf_tpu does: the permutation relabels the per-lane hash-RNG streams, so
+it is reproduced exactly.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from rtf_tpu_torch.gi.volume import sample_volume_ch
 from rtf_tpu_torch.render.wave import (
-    RT_REFRACT, _i32, _norm3, _offset_origin, wave,
+    RT_REFRACT, _i32, _mat3, _norm3, _offset_origin, wave,
 )
 
 CHILD_SEED_STRIDE = 104729
@@ -126,22 +128,78 @@ def child_wave_args(cfg, surf, hit0, alive, seed, i, u_phi, ysq):
                  rtype=RT_REFRACT))
 
 
+def gi_mesh_perm(tables, o3, d3, alive):
+    """fused.py::_gi_mesh_perm: the lane permutation that groups child rays
+    by mesh interest, (perm, inv) [N] int64; inputs go through perm and
+    per-lane outputs come back through inv.  Lanes whose ray enters some
+    mesh instance's root box (its slot's unpadded bounds, in the
+    instance's local space) sort first, by the 4x4x4 Morton cell of their
+    origin over the live origins' bounds, then by the octant of their
+    world direction; then the other live lanes, then the dead ones.  The
+    sort is stable.  On the TPU it makes 1024-lane blocks homogeneous so
+    that their tile culls skip work; here it is kept because it decides
+    which lane, and so which hash-RNG stream, traces each child ray."""
+    n = o3.shape[1]
+    enters = torch.zeros(n, dtype=torch.bool, device=o3.device)
+    for inst, (mlo, mhi) in zip(tables.mesh_insts.tolist(),
+                                tables.mesh_bounds):
+        lo3 = _mat3(inst[0:9], o3[0] - inst[9], o3[1] - inst[10],
+                    o3[2] - inst[11])
+        ld3 = _mat3(inst[0:9], d3[0], d3[1], d3[2])
+        tmin = torch.zeros(n, device=o3.device)
+        tmax = torch.full((n,), torch.inf, device=o3.device)
+        for c in range(3):
+            idc = torch.where(torch.abs(ld3[c]) < 1e-20,
+                              torch.where(ld3[c] < 0.0, -1e30, 1e30),
+                              1.0 / ld3[c])
+            a = (mlo[c] - lo3[c]) * idc
+            b = (mhi[c] - lo3[c]) * idc
+            tmin = torch.maximum(tmin, torch.minimum(a, b))
+            tmax = torch.minimum(tmax, torch.maximum(a, b))
+        enters = enters | (tmax >= tmin)
+    octant = ((d3[0] < 0).to(torch.int64) + 2 * (d3[1] < 0).to(torch.int64)
+              + 4 * (d3[2] < 0).to(torch.int64))
+    # a 2-bit Morton cell per axis of the origin over the live origins'
+    # bounds; bit b of axis c goes to bit 3 b + c
+    cell = torch.zeros(n, dtype=torch.int64, device=o3.device)
+    for c in range(3):
+        oc = torch.where(alive, o3[c], 0.0)
+        olo = torch.amin(torch.where(alive, o3[c], 1e29))
+        ohi = torch.amax(torch.where(alive, o3[c], -1e29))
+        q = torch.clamp(((oc - olo) / torch.clamp(ohi - olo, min=1e-6)
+                         * 4.0).to(torch.int32), 0, 3).to(torch.int64)
+        cell = cell | ((q & 1) << c) | (((q >> 1) & 1) << (3 + c))
+    bucket = torch.where(alive, torch.where(enters, cell * 8 + octant, 512),
+                         513)
+    perm = torch.argsort(bucket, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=o3.device)
+    return perm, inv
+
+
 def gi_chunks(cfg, tables, surf, hit0, alive, seed, uniforms, gi_vol=None,
               wave_fn=wave):
     """fused.py::fused_gi_chunks over all cfg.hemisphere_samples samples
     (rtf_tpu splits them into dispatches only for a TPU runtime limit):
-    each a child wave from the first-hit surface rows, weighted 1/S.
-    uniforms[i] = (u_phi [N], ysq [N]) of sample i.  Returns their
-    radiance summed, [3, N]."""
+    each a child wave from the first-hit surface rows, weighted 1/S, its
+    lanes permuted by `gi_mesh_perm` when cfg.gi_mesh_sort and the mesh is
+    on the MXU tables.  uniforms[i] = (u_phi [N], ysq [N]) of sample i.
+    Returns their radiance summed, [3, N]."""
     acc = torch.zeros_like(surf[0:3])
     for i in range(cfg.hemisphere_samples):
-        args, kw = child_wave_args(cfg, surf, hit0, alive, seed, i,
-                                   *uniforms[i])
-        out = wave_fn(cfg, tables, *args, **kw,
+        (o3, d3, alive_c, seed_c), kw = child_wave_args(
+            cfg, surf, hit0, alive, seed, i, *uniforms[i])
+        inv = None
+        if cfg.gi_mesh_sort and tables.mxu:
+            perm, inv = gi_mesh_perm(tables, o3, d3, alive_c)
+            o3, d3, alive_c = o3[:, perm], d3[:, perm], alive_c[perm]
+            kw["tput3"] = kw["tput3"][:, perm]
+        out = wave_fn(cfg, tables, o3, d3, alive_c, seed_c, **kw,
                       gi_from=0 if gi_vol is not None else None)
-        acc = acc + out[0]
+        rad = out[0]
         if gi_vol is not None:
-            acc = acc + volume_terms(out[4], gi_vol)
+            rad = rad + volume_terms(out[4], gi_vol)
+        acc = acc + (rad if inv is None else rad[:, inv])
     return acc
 
 

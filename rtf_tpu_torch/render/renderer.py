@@ -4,10 +4,11 @@ The port of rtf_tpu/render/renderer.py: a wave is (all pixels, in
 `pixel_order`) x (one Halton sample index).  `render` takes the path
 rtf_tpu takes on a TPU (render/scene_tables.py::render_path): one launch
 of the wave kernel per wave where rtf_tpu's fused or segmented kernel path
-runs the scene+config, else the XLA wavefront's port
-(render/integrator.py::render_wave, lane ids as pixels), whose mesh test
-is the mesh_closest_hit kernel.  The chosen path is printed once per scene
-and path ("[rtf] render path: ...", silenced by RTF_QUIET=1).  Adaptive
+runs the scene+config (a mesh over 512 faces on its MXU-table variant),
+else the XLA wavefront's port (render/integrator.py::render_wave, lane ids
+as pixels), whose mesh test is the mesh_closest_hit kernel.  The chosen
+path is printed once per scene and path ("[rtf] render path: ...",
+silenced by RTF_QUIET=1).  Adaptive
 antialiasing is the reference's two-phase scheme (main.cpp:266-307):
 MIN_SAMPLE samples everywhere, then pixels whose per-channel sample
 variance exceeds THRESHOLD get the remaining samples as masked waves.
@@ -46,7 +47,7 @@ from rtf_tpu_torch.render.config import RenderConfig
 from rtf_tpu_torch.render.gi import gi_wave
 from rtf_tpu_torch.render.integrator import render_wave
 from rtf_tpu_torch.render.scene_tables import (
-    WaveTables, render_path, scene_tables,
+    MAX_FACES, WaveTables, mesh_mode, render_path, scene_tables,
 )
 from rtf_tpu_torch.render.wave import wave
 from rtf_tpu_torch.scene.build import Scene, resolve_device
@@ -259,7 +260,13 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     if gi_vol is not None and cfg.gi_mode not in ("photon", "pm_direct"):
         raise ValueError(f"gi_vol is read only by gi_mode 'photon' and "
                          f"'pm_direct', not {cfg.gi_mode!r}")
-    _log_path(scene, "fused" if path == "fused" else "XLA wavefront", why)
+    if path == "fused":
+        label = ("fused, the wave kernel's MXU-table mesh variant "
+                 f"({scene.mesh.tri_a.shape[0]} faces > {MAX_FACES})"
+                 if mesh_mode(scene) == "mxu" else "fused")
+    else:
+        label = "XLA wavefront"
+    _log_path(scene, label, why)
     gi_vol, caustic_vol = (None if v is None else v.to(dev)
                            for v in (gi_vol, caustic_vol))
     if (float(cfg.isect_zero), bool(cfg.ref_exact),

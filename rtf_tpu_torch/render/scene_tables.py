@@ -18,9 +18,15 @@ Row layouts (float32; integer fields are stored as exact floats):
   instances [K, 24]  0-8 itm (world->local, row-major), 9-11 pos,
                      12-20 nrm (local->world normals, row-major), 21 mtl;
                      mesh instances: 22 first tile, 23 tile count
+  roots     [I, 8]   on the MXU tables, per mesh instance its slot's root
+                     box, 0-2 lo, 3-5 hi (padded, see below)
   tiles     [T, 8]   0-2 AABB lo, 3-5 AABB hi (padded, see below),
-                     6 first face, 7 face count
-  faces     [F, 40]  the packed per-face rows of ops/pack.py, Morton order
+                     6 first face, 7 face count; on the MXU tables [T, 16]:
+                     0-5 the padded box, 6-13 the octant visit orders,
+                     14 first face row, 15 face count (ops/mxu_pack.py)
+  faces     [F, 40]  the packed per-face rows of ops/pack.py, Morton order;
+                     on the MXU tables [T * 128, 40], ops/mxu_pack.py's
+                     Plücker and shade rows
   materials [M, 24]  0-2 kd, 3-5 ks, 6 gloss, 7-9 refl, 10-12 refr, 13 ior,
                      14-16 absorb, 17-19 emission, 20 refl gloss,
                      21 refr gloss, 22/23 kd/ks texmap id (-1: none)
@@ -32,12 +38,19 @@ Row layouts (float32; integer fields are stored as exact floats):
   atlas     [R*W, 4] the texels of the [R, W, 3] row atlas, row-major, each
                      padded to 4 floats (one 16-byte load in the kernel)
 
+Meshes of up to MAX_FACES faces take the packed rows of ops/pack.py (the
+TPU kernel's immediates); a larger mesh takes rtf_tpu's MXU tables
+(fused.py::scene_mesh_mode, `mxu` below), and the wave kernel its MXU
+variant.  rtf_tpu streams tables over 24 MiB from HBM tile by tile only
+because of VMEM (fused.py:1627-1633); here one table in device memory
+serves every size up to MXU_STREAM_MAX_FACES.
+
 Checker and file textures take the same path: a material's kd/ks texmap
 id picks a texmaps row, whose texture row says which sampler runs.
 
-The tile boxes are padded by 1e-4 * (1 + the largest |coordinate| of the
-box): the triangle vertices lie on the box faces, so a slab entry rounded
-a hair past a triangle's own t must not cull it.
+The tile and root boxes are padded by 1e-4 * (1 + the largest |coordinate|
+of the box): the triangle vertices lie on the box faces, so a slab entry
+rounded a hair past a triangle's own t must not cull it.
 """
 from __future__ import annotations
 
@@ -46,13 +59,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rtf_tpu_torch.ops.mxu_pack import mesh_mxu_pack
 from rtf_tpu_torch.ops.pack import TRI_LANES
 from rtf_tpu_torch.ops.trace import MESH_ALGOS
 from rtf_tpu_torch.scene.build import (
     LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, Scene,
 )
 
-MAX_FACES = 512        # mesh faces the slice's kernel walks (fused.py:55)
+MAX_FACES = 512        # immediates budget; above it the MXU tables
+                       # (fused.py:55, scene_mesh_mode)
 MXU_STREAM_MAX_FACES = 1 << 20  # rtf_tpu's fused gate (fused.py:61)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
@@ -86,7 +101,7 @@ def fused_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     fused_seg.py::seg_reason, in their order (the kernel's textured
     variant is the segmented path's).  'photon' and caustics run only from
     irradiance volumes handed in.  The port's wave kernel (render/wave.py)
-    takes all of these but a mesh over MAX_FACES faces (render_path)."""
+    takes all of these, a mesh over MAX_FACES faces on its MXU variant."""
     if cfg.gi_mode == "photon" and not cfg.photon_volume:
         return "gi_mode=photon without photon_volume (exact kNN is XLA)"
     if cfg.gi_mode not in GI_MODES:
@@ -136,19 +151,21 @@ def wavefront_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     return _photon_reason(cfg, gi_vol)
 
 
+def mesh_mode(scene: Scene) -> str:
+    """fused.py::scene_mesh_mode: 'none' without mesh instances, 'imm' up
+    to MAX_FACES faces, 'mxu' above."""
+    if scene.mesh is None or scene.num_mesh_inst == 0:
+        return "none"
+    return "imm" if _num_faces(scene) <= MAX_FACES else "mxu"
+
+
 def render_path(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     """The path rtf_tpu takes on a TPU (renderer.py:447-480) as (path,
-    why): ('fused', None) where the wave kernel runs it, else
-    ('wavefront', the fused path's reason), or (None, why neither runs
-    it).  A mesh over MAX_FACES faces that passes the fused gates is the
-    fused kernel's MXU-table variant's on a TPU, so it stays refused."""
+    why): ('fused', None) where the wave kernel runs it (a mesh over
+    MAX_FACES faces on its MXU variant), else ('wavefront', the fused
+    path's reason), or (None, why neither runs it)."""
     why = fused_reason(scene, cfg, gi_vol, caustic_vol)
     if why is None:
-        nf = _num_faces(scene)
-        if nf > MAX_FACES:
-            return None, (f"mesh has {nf} faces > {MAX_FACES} (rtf_tpu runs "
-                          "it on the fused kernel's MXU-table variant, which "
-                          "is not ported)")
         return "fused", None
     wf = wavefront_reason(scene, cfg, gi_vol, caustic_vol)
     if wf is None:
@@ -161,8 +178,9 @@ class WaveTables:
     spheres: torch.Tensor     # [S, 24]
     planes: torch.Tensor      # [P, 24]
     mesh_insts: torch.Tensor  # [I, 24]
-    tiles: torch.Tensor       # [T, 8]
-    faces: torch.Tensor       # [F, 40]
+    roots: torch.Tensor       # [I, 8] on the MXU tables, else [0, 8]
+    tiles: torch.Tensor       # [T, 8], on the MXU tables [T, 16]
+    faces: torch.Tensor       # [F, 40], on the MXU tables [T * 128, 40]
     materials: torch.Tensor   # [M, 24]
     lights: torch.Tensor      # [L, 16]
     texmaps: torch.Tensor     # [Q, 10]
@@ -175,6 +193,11 @@ class WaveTables:
     has_file_tex: bool        # some texture is a file texture
     need_uv: bool             # some material has a kd/ks texture map
     has_gloss: bool           # some material has glossy refl/refr
+    mxu: bool = False         # the mesh is on the MXU tables
+    # on the MXU tables, per mesh instance its slot's unpadded root box
+    # (lo3, hi3) as Python floats, what fused.py's scene_consts gives
+    # _gi_mesh_perm
+    mesh_bounds: tuple = ()
 
     @property
     def textured(self) -> bool:
@@ -199,6 +222,11 @@ def _instances(group, n, extra=None) -> np.ndarray:
     return rows
 
 
+def _pad_box(lo, hi):
+    pad = TILE_PAD * (1.0 + max(np.abs(lo).max(), np.abs(hi).max()))
+    return lo - pad, hi + pad
+
+
 def _mesh_tables(scene: Scene):
     """Tiles and faces per mesh instance, in packed (Morton) order with
     padding and degenerate columns dropped (as scene_consts drops them)."""
@@ -218,18 +246,38 @@ def _mesh_tables(scene: Scene):
         for j in range(nt):
             cols = table[:, col0 + j * TRI_LANES:col0 + (j + 1) * TRI_LANES]
             keep = ~((cols[0] == 0) & (cols[1] == 0) & (cols[2] == 0))
-            lo = aabb_all[ar0 + j, 0:3]
-            hi = aabb_all[ar0 + j, 3:6]
-            pad = TILE_PAD * (1.0 + max(np.abs(lo).max(), np.abs(hi).max()))
+            lo, hi = _pad_box(aabb_all[ar0 + j, 0:3], aabb_all[ar0 + j, 3:6])
             tiles.append(np.concatenate(
-                [lo - pad, hi + pad,
-                 [sum(len(f) for f in faces), int(keep.sum())]]))
+                [lo, hi, [sum(len(f) for f in faces), int(keep.sum())]]))
             faces.append(cols[:, keep].T)
         slot_rows[slot] = (tile0, nt)
         ranges.append(slot_rows[slot])
     return (np.asarray(tiles, np.float32),
             np.concatenate(faces).astype(np.float32),
             np.asarray(ranges, np.float32))
+
+
+def _mxu_tables(scene: Scene):
+    """The MXU tables (ops/mxu_pack.py) with padded tile boxes, every slot
+    in slot order; per instance its tile range and its slot's bounds."""
+    pack = mesh_mxu_pack(scene.mesh)
+    tiles = pack["tiles"]
+    for j in range(tiles.shape[0]):
+        if tiles[j, 0] <= tiles[j, 3]:        # empty tiles stay empty
+            tiles[j, 0:3], tiles[j, 3:6] = _pad_box(tiles[j, 0:3],
+                                                    tiles[j, 3:6])
+    slots = [pack["slots"][s] for s in scene.mesh_inst_slots]
+    ranges = np.asarray([s[:2] for s in slots], np.float32)
+    bounds = tuple((s[2], s[3]) for s in slots)
+    return tiles, pack["faces"], ranges, bounds
+
+
+def _roots(bounds) -> np.ndarray:
+    rows = np.zeros((len(bounds), 8), np.float32)
+    for i, (lo, hi) in enumerate(bounds):
+        rows[i, 0:3], rows[i, 3:6] = _pad_box(np.asarray(lo, np.float32),
+                                              np.asarray(hi, np.float32))
+    return rows
 
 
 def _materials(scene: Scene) -> np.ndarray:
@@ -286,7 +334,11 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
     """Flatten a built scene into the wave kernel's tables on `device`
     (default: the scene's own device)."""
     dev = scene.device if device is None else torch.device(device)
-    tiles, faces, ranges = _mesh_tables(scene)
+    mxu = mesh_mode(scene) == "mxu"
+    if mxu:
+        tiles, faces, ranges, bounds = _mxu_tables(scene)
+    else:
+        (tiles, faces, ranges), bounds = _mesh_tables(scene), ()
     mats = _materials(scene)
     texmaps, textures, atlas, atlas_w = _texture_tables(scene)
 
@@ -298,6 +350,7 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
         planes=t(_instances(scene.planes, scene.num_planes)),
         mesh_insts=t(_instances(scene.mesh_inst, scene.num_mesh_inst,
                                 ranges if len(ranges) else None)),
+        roots=t(_roots(bounds)),
         tiles=t(tiles), faces=t(faces), materials=t(mats),
         lights=t(_lights(scene)),
         texmaps=t(texmaps), textures=t(textures), atlas=t(atlas),
@@ -307,4 +360,5 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
         has_file_tex=bool(scene.has_file_tex),
         need_uv=bool(mats[:, 22:24].max(initial=-1.0) >= 0),
         has_gloss=bool(mats[:, 20:22].max(initial=0.0) > 0),
+        mxu=mxu, mesh_bounds=bounds,
     )

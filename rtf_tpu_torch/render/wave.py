@@ -20,9 +20,12 @@ wave starts from a per-lane throughput, absorption and ray type.
 `wave_plain` computes the same function with one tensor lane per ray and
 is what the CPU runs; `wave` launches csrc/wave_kernel.cu for CUDA
 tensors, in its textured variant when the scene has file textures or an
-environment map.  Both read the same tables (render/scene_tables.py) and
-the same per-lane hash RNG as the TPU kernel (`_rand01`,
-fused.py:1136-1150): lane
+environment map, and in its MXU variant when the mesh is on rtf_tpu's
+MXU tables (more than 512 faces; render/scene_tables.py): the Plücker
+pair test of fused.py::_mesh_closest_mxu and _mesh_anyhit_mxu in place of
+the projected-barycentric one.  Both read the same tables
+(render/scene_tables.py) and the same per-lane hash RNG as the TPU kernel
+(`_rand01`, fused.py:1136-1150): lane
 i draws from the 1024-lane group i // 1024 with per-group seed
 seed + (blk0 + i // 1024) * 7919 in int32, so lane order is the caller's
 ray order and results are per lane comparable with the JAX package.
@@ -35,6 +38,9 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.ops.mesh_hit import _tri_test
+from rtf_tpu_torch.ops.mxu_pack import (
+    MXU_TILE, cross_od, plucker_bary, plucker_pair,
+)
 from rtf_tpu_torch.ops.pack import ZERO
 from rtf_tpu_torch.ops.texture import env_uv_ch, sample_texmap_ch
 from rtf_tpu_torch.render.scene_tables import WaveTables
@@ -46,13 +52,18 @@ RT_PRIMARY, RT_REFLECT, RT_REFRACT = 0, 1, 2
 SURF_ROWS = 12        # first-hit p(3) n(3) kd(3) k_eff(3)
 GI_ROWS = 9           # per-bounce photon query: p(3) n(3) kd * k_eff(3)
 _M32 = 0xFFFFFFFF
-_CHUNK = 1 << 20      # ray x face elements per plain mesh step
+_CHUNK = 1 << 20      # ray x face elements per plain mesh step (CPU)
+_CHUNK_CUDA = 1 << 24  # the same on the card, where the plain version runs
+                       # only to be compared with the kernel
 
-# kernel launches made by `wave`, untextured and textured variant (the
-# plain version never counts)
+# kernel launches made by `wave`, untextured and textured variant, with
+# the immediates mesh or none and with the MXU tables (the plain version
+# never counts)
 launches = 0
 launches_textured = 0
-NSTAT = 11            # work counters of the kernel (csrc/wave_kernel.cu)
+launches_mxu = 0
+launches_textured_mxu = 0
+NSTAT = 12            # work counters of the kernel (csrc/wave_kernel.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +236,23 @@ class _Host:
         self.lights = tables.lights.tolist()
         self.faces = tables.faces
         self.mats = tables.materials
+        self.mxu = tables.mxu
+        if self.mxu:
+            dev = tables.faces.device
+            self.roots = tables.roots.tolist()
+            self.boxes = tables.tiles[:, 0:6]
+            # the pair test's face columns per tile, [T, 128, 22]
+            self.pair_cols = tables.faces[:, 0:22].reshape(
+                -1, MXU_TILE, 22).permute(2, 0, 1).contiguous()
+            # rank[o, j]: tile j's place in octant o's visit order (its
+            # row in the order's column; ranks compare within a slot)
+            nt = tables.tiles.shape[0]
+            order = tables.tiles[:, 6:14].to(torch.int64)
+            self.rank = torch.empty((8, nt), dtype=torch.int64, device=dev)
+            steps = torch.arange(nt, device=dev)
+            for o in range(8):
+                self.rank[o, order[:, o]] = steps
+            self.chunk = _CHUNK_CUDA if dev.type == "cuda" else _CHUNK
 
 
 def _face_slice(h: _Host, inst):
@@ -252,6 +280,9 @@ def _mesh_closest(h, o3, d3, st, need_uv):
     """Closest mesh hit, merged into st = [t, nx, ny, nz, mtl, front, u, v]
     with the strict `t < best` of the TPU kernel: the first face (in packed
     order) at the minimum t wins, and only if it beats the current best."""
+    if h.mxu:
+        _mesh_closest_mxu(h, o3, d3, st, need_uv)
+        return
     for inst in h.insts:
         F = _face_slice(h, inst)
         if F.shape[0] == 0:
@@ -286,6 +317,8 @@ def _mesh_closest(h, o3, d3, st, need_uv):
 
 def _mesh_anyhit(h, o3, d3, t_cap):
     """Mesh occlusion of shadow rays (1e-14 < t < t_cap)."""
+    if h.mxu:
+        return _mesh_anyhit_mxu(h, o3, d3, t_cap)
     occ = torch.zeros_like(o3[0], dtype=torch.bool)
     for inst in h.insts:
         F = _face_slice(h, inst)
@@ -300,6 +333,143 @@ def _mesh_anyhit(h, o3, d3, t_cap):
                                       tuple(v[sl] for v in ld3))
             hit = valid & (t > 1e-14) & (t < t_cap[sl][:, None])
             occ[sl] |= hit.any(dim=1)
+    return occ
+
+
+def _inv_dir(ld3):
+    """Per-lane 1/d for slab tests, a huge signed finite for zero
+    components (fused.py::_inv_dir)."""
+    return tuple(torch.where(torch.abs(v) < 1e-30,
+                             torch.where(v < 0.0, -1e30, 1e30), 1.0 / v)
+                 for v in ld3)
+
+
+def _slab(lo, hi, lo3, ild3, cap):
+    """The kernel's slab test of the segments [0, cap) against boxes
+    (lo, hi): three values each, broadcastable against the rays."""
+    tmin = torch.zeros_like(lo3[0] * lo[0])
+    tmax = torch.full_like(tmin, BIG)
+    for a in range(3):
+        t0 = (lo[a] - lo3[a]) * ild3[a]
+        t1 = (hi[a] - lo3[a]) * ild3[a]
+        tmin = torch.maximum(tmin, torch.minimum(t0, t1))
+        tmax = torch.minimum(tmax, torch.maximum(t0, t1))
+    return (tmax >= tmin) & (tmin < cap)
+
+
+def _mxu_pairs(h, k, o3, d3, cap):
+    """The (lane, tile) pairs of mesh instance k whose segments [0, cap)
+    enter the instance's root box and the tile's box: (lanes, local o, d,
+    o x d of those lanes, pair lane positions, pair tiles).  The culls are
+    the kernel's and conservative (padded boxes): a face they drop has
+    t >= cap, so neither a closest hit nor an occluder."""
+    inst = h.insts[k]
+    t0, nt = int(inst[22]), int(inst[23])
+    lo3, ld3 = _to_local(inst, o3, d3)
+    ild3 = _inv_dir(ld3)
+    root = h.roots[k]
+    lanes = torch.nonzero(_slab(root[0:3], root[3:6], lo3, ild3, cap))[:, 0]
+    lo3, ld3, ild3 = (tuple(v[lanes] for v in x) for x in (lo3, ld3, ild3))
+    box = h.boxes[t0:t0 + nt]
+    enter = _slab([box[:, a] for a in range(3)],
+                  [box[:, 3 + a] for a in range(3)],
+                  tuple(v[:, None] for v in lo3),
+                  tuple(v[:, None] for v in ild3), cap[lanes][:, None])
+    pl, pj = torch.nonzero(enter, as_tuple=True)
+    return lanes, lo3, ld3, cross_od(lo3, ld3), pl, pj + t0
+
+
+def _pair_block(h, tiles, lo3, ld3, c3):
+    """The pair test of rays [p] against every face of their tile [p]:
+    (t, valid) [p, 128]."""
+    col = [h.pair_cols[c][tiles] for c in range(22)]
+    t, valid, *_ = plucker_pair(col, *(tuple(v[:, None] for v in x)
+                                       for x in (ld3, c3, lo3)))
+    return t, valid
+
+
+def _mesh_closest_mxu(h, o3, d3, st, need_uv):
+    """Closest mesh hit on the MXU tables (fused.py::_mesh_closest_mxu),
+    merged into st like `_mesh_closest`.  Per instance the winner is the
+    least t below the current best; among exact ties the earliest face in
+    the lane's visit order: its tiles in the order of its local direction's
+    octant (fused.py::_octant_col for one lane), a tile's faces by column.
+    That is the kernel's walk with a strict `t < best`."""
+    cols = torch.arange(MXU_TILE, device=o3[0].device)
+    for k in range(len(h.insts)):
+        lanes, lo3, ld3, c3, pl, pj = _mxu_pairs(h, k, o3, d3, st[0])
+        if pl.numel() == 0:
+            continue
+        # each pair's least t and the lowest column at it
+        step = max(1, h.chunk // MXU_TILE)
+        tp, cp = [], []
+        for s in range(0, pl.numel(), step):
+            sl = slice(s, s + step)
+            t, valid = _pair_block(h, pj[sl], *(tuple(v[pl[sl]] for v in x)
+                                                for x in (lo3, ld3, c3)))
+            tt = torch.where(valid, t, torch.inf)
+            tmin = torch.amin(tt, dim=1)
+            tp.append(tmin)
+            cp.append(torch.amin(torch.where(tt == tmin[:, None], cols,
+                                             MXU_TILE), dim=1))
+        tp, cp = torch.cat(tp), torch.cat(cp)
+        # per lane: the least t, then the earliest (tile rank, column)
+        m = lanes.numel()
+        lmin = torch.full((m,), torch.inf, device=tp.device).scatter_reduce(
+            0, pl, tp, "amin")
+        octant = ((ld3[0] >= 0.0).to(torch.int64) * 4
+                  + (ld3[1] >= 0.0).to(torch.int64) * 2
+                  + (ld3[2] >= 0.0).to(torch.int64))
+        key = torch.where((tp == lmin[pl]) & (tp < torch.inf),
+                          h.rank[octant[pl], pj] * MXU_TILE + cp,
+                          torch.iinfo(torch.int64).max)
+        lkey = torch.full((m,), torch.iinfo(torch.int64).max,
+                          device=tp.device).scatter_reduce(0, pl, key, "amin")
+        ok = lmin < st[0][lanes]
+        win = torch.nonzero(ok & (lkey < torch.iinfo(torch.int64).max))[:, 0]
+        if win.numel() == 0:
+            continue
+        # the winning pair of each lane: its tile and column
+        wp = torch.nonzero(key == lkey[pl])[:, 0]
+        wtile = torch.empty(m, dtype=torch.int64, device=tp.device)
+        wcol = torch.empty_like(wtile)
+        wtile[pl[wp]] = pj[wp]
+        wcol[pl[wp]] = cp[wp]
+        # re-evaluate each winner alone: the same elementwise ops, so the
+        # same values as in the block
+        Fw = h.faces[wtile[win] * MXU_TILE + wcol[win]]
+        l3, r3, x3 = (tuple(v[win] for v in x) for x in (lo3, ld3, c3))
+        tw, _, sa, sb, sc, dn = plucker_pair(
+            [Fw[:, c] for c in range(22)], r3, x3, l3)
+        ba, bb = plucker_bary(sa, sb, sc)
+        ln3 = [Fw[:, 22 + c] + ba * Fw[:, 25 + c] + bb * Fw[:, 28 + c]
+               for c in range(3)]
+        w3 = _mat3(h.insts[k][12:21], *ln3)
+        vals = [tw, w3[0], w3[1], w3[2], Fw[:, 31],
+                (dn <= 0.0).to(torch.float32)]
+        if need_uv:
+            vals += [Fw[:, 32 + c] + ba * Fw[:, 34 + c] + bb * Fw[:, 36 + c]
+                     for c in range(2)]
+        idx = lanes[win]
+        for j, v in enumerate(vals):
+            st[j] = st[j].index_put((idx,), v)
+
+
+def _mesh_anyhit_mxu(h, o3, d3, t_cap):
+    """Mesh occlusion of shadow rays on the MXU tables
+    (fused.py::_mesh_anyhit_mxu): some valid t with 1e-14 < t < t_cap."""
+    occ = torch.zeros_like(o3[0], dtype=torch.bool)
+    for k in range(len(h.insts)):
+        lanes, lo3, ld3, c3, pl, pj = _mxu_pairs(h, k, o3, d3, t_cap)
+        step = max(1, h.chunk // MXU_TILE)
+        for s in range(0, pl.numel(), step):
+            sl = slice(s, s + step)
+            li = pl[sl]
+            t, valid = _pair_block(h, pj[sl], *(tuple(v[li] for v in x)
+                                                for x in (lo3, ld3, c3)))
+            cap = t_cap[lanes[li]][:, None]
+            hit = (valid & (t > 1e-14) & (t < cap)).any(dim=1)
+            occ[lanes[li[hit]]] = True
     return occ
 
 
@@ -706,13 +876,14 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     [3, N] per bounce b >= gi_from (see `split_rows`).  On lanes that did
     not hit at a bounce its rows are zero.  tput3, absorb3 and rtype seed
     a child wave (`pack_rays`).  Scenes with file textures or an
-    environment map launch the kernel's textured variant (counted in
-    `launches_textured`), others the untextured one (counted in
-    `launches`).
+    environment map launch the kernel's textured variant, others the
+    untextured one, each in its MXU-table form for a mesh over 512 faces;
+    each launch is counted in the module's counter of its variant
+    (`launches`, `launches_textured`, `launches_mxu`,
+    `launches_textured_mxu`; see `launch_counter`).
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
     work counts to (see csrc/wave_kernel.cu, STAT_*)."""
-    global launches, launches_textured
     if o3.device.type == "cpu":
         return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0,
                           tput3, absorb3, rtype, surf_out, gi_from)
@@ -722,8 +893,9 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     lib = _build.load()
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
-    for name in ("spheres", "planes", "mesh_insts", "tiles", "faces",
-                 "materials", "lights", "texmaps", "textures", "atlas"):
+    for name in ("spheres", "planes", "mesh_insts", "roots", "tiles",
+                 "faces", "materials", "lights", "texmaps", "textures",
+                 "atlas"):
         x = getattr(tables, name)
         if x.device != dev or x.dtype != torch.float32 \
                 or not x.is_contiguous():
@@ -759,7 +931,7 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ptr(tables.spheres), tables.spheres.shape[0],
             ptr(tables.planes), tables.planes.shape[0],
             ptr(tables.mesh_insts), tables.mesh_insts.shape[0],
-            ptr(tables.tiles), ptr(tables.faces),
+            ptr(tables.roots), ptr(tables.tiles), ptr(tables.faces),
             ptr(tables.materials), ptr(tables.lights),
             tables.lights.shape[0],
             ptr(tables.texmaps), ptr(tables.textures), ptr(tables.atlas),
@@ -771,13 +943,18 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ctypes.c_float(prm["total_reflection_threshold"]),
             ctypes.c_float(prm["color_threshold"]),
             prm["shadow_max"], prm["shadow_min"],
-            int(tables.need_uv), int(tables.has_gloss),
+            int(tables.need_uv), int(tables.has_gloss), int(tables.mxu),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
-    if tables.textured:
-        launches_textured += 1
-    else:
-        launches += 1
+    name = launch_counter(tables)
+    globals()[name] += 1
     return split_rows(out, nbounce, surf_out, gi_from)
+
+
+def launch_counter(tables: WaveTables) -> str:
+    """The name of the counter that `wave` adds a launch to for these
+    tables: the kernel variant (textured or not, the MXU tables or not)."""
+    return ("launches_textured" if tables.textured else "launches") \
+        + ("_mxu" if tables.mxu else "")

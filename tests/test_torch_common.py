@@ -171,13 +171,15 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("case", [
-    "faces", "gi", "tex_filter", "tex_filter_wavefront", "caustic_wavefront",
-    "photon_no_volume", "faces_rr_gi", "bvh"])
+    "gi", "tex_filter", "tex_filter_wavefront", "caustic_wavefront",
+    "photon_no_volume", "bvh"])
 def test_unsupported_scenes_raise(case):
     """What neither path of the port renders yet.  The cases this test
     had before the wavefront was ported (the 'both' split, DOF, more than
     2 lights, more than 16 materials, emission texture maps) render now
-    (test_torch_wavefront_render.py::test_formerly_refused_scenes_render)."""
+    (test_torch_wavefront_render.py::test_formerly_refused_scenes_render),
+    and so do its large-mesh cases since the MXU variant was ported
+    (test_large_mesh_scenes_render)."""
     import dataclasses
 
     from rtf_tpu_torch.gi.volume import load_volume
@@ -191,12 +193,7 @@ def test_unsupported_scenes_raise(case):
                        shadow_min=1, shadow_max=1)
     both = cfg.with_(split_mode="both")
     kw, match = {}, None
-    if case in ("faces", "faces_rr_gi"):
-        # rtf_tpu runs >512 faces on 'rr' on its fused MXU-table variant
-        desc, match = box_scene(8, 6, mesh_subdiv=3), "MXU"  # 1280 faces
-        if case == "faces_rr_gi":
-            cfg = cfg.with_(gi_mode="hemisphere", hemisphere_samples=2)
-    elif case == "gi":             # pm_direct needs a volume
+    if case == "gi":               # pm_direct needs a volume
         cfg, match = cfg.with_(gi_mode="pm_direct"), "irradiance volume"
     elif case == "tex_filter":
         cfg, match = cfg.with_(tex_filter=True), "tex_filter"
@@ -214,6 +211,31 @@ def test_unsupported_scenes_raise(case):
         scene = dataclasses.replace(scene, mesh_algo="bvh")
     with pytest.raises(NotImplementedError, match=match):
         render(scene, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["faces", "faces_rr_gi"])
+def test_large_mesh_scenes_render(case):
+    """A mesh over 512 faces on the 'rr' split, without and with
+    hemisphere GI (the two scenes the port refused before its MXU variant):
+    the fused path, the wave's MXU tables, a finite frame that is not
+    black on the CPU."""
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.render.scene_tables import render_path, scene_tables
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    scene = build_scene(box_scene(8, 6, mesh_subdiv=3), device="cpu")
+    cfg = RenderConfig(min_samples=8, max_samples=8, bounces=0,
+                       shadow_min=1, shadow_max=1)
+    if case == "faces_rr_gi":
+        cfg = cfg.with_(gi_mode="hemisphere", hemisphere_samples=2)
+    assert scene.mesh.tri_a.shape[0] == 1280
+    assert render_path(scene, cfg) == ("fused", None)
+    tables = scene_tables(scene)
+    assert tables.mxu
+    res = render(scene, cfg, device="cpu", tables=tables)
+    assert np.isfinite(res.radiance).all()
+    assert res.image.shape == (6, 8, 3) and res.image.mean() > 5.0
 
 
 def test_textured_scene_renders_on_cpu():

@@ -1,15 +1,19 @@
-"""The wave kernel (csrc/wave_kernel.cu) against its plain PyTorch version
-on the card, and the wrapper's device rules.
+"""The kernels (csrc/wave_kernel.cu, mesh_hit.cu, mesh_hit_mxu.cu) against
+their plain PyTorch versions on the card, and the wrapper's device rules.
 
 Tests marked `cuda` need a CUDA card and nvcc; they skip elsewhere.  On
-the card run them with `python -m pytest tests/test_torch_kernel.py`.
+the card run them with `python -m pytest --noconftest
+tests/test_torch_kernel.py`.
 Tolerances are chip_smoke.py's: bounce 0 exact hit masks, atol 2e-4 and
 z rtol 1e-4; past bounce 0 at most 1% of lanes outside 2e-4 (a rounding
 flip of a Russian-roulette choice) and the mean within 1%.  Dead lanes
 (the "-dead" cases, as the adaptive ladder's later rungs mask pixels) give
 exactly zero radiance and no hit.  The "textured" cases (file textures,
 an environment map and a checker; tests/test_torch_common.py) run the
-kernel's textured variant, counted in `launches_textured`.  The GI rows
+kernel's textured variant, counted in `launches_textured`; the "mxu-"
+cases the 1280-face ball on the MXU tables (the MXU variants, counted in
+`launches_mxu` and `launches_textured_mxu`), and the dense Plücker closest
+hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The GI rows
 (surface and photon-query rows, render/wave.py::split_rows) of bounce 0
 agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
 of lanes with the mean within 1%."""
@@ -48,13 +52,18 @@ def _cfg(**kw):
 
 
 def _desc(name):
+    """The scene of a case name: box, soft (a sized light), checker or
+    textured, each with the 80-face ball; with the prefix "mxu-" the
+    1280-face ball (the kernel's MXU variants)."""
     from rtf_tpu_torch.scene.procedural import box_scene
     name = name.removesuffix("-dead")
+    subdiv = 3 if name.startswith("mxu-") else 1
+    name = name.removeprefix("mxu-")
     if name == "checker":
         return checker_desc(64, 48)
     if name == "textured":
-        return textured_desc(64, 48)
-    return box_scene(64, 48, mesh_subdiv=1,
+        return textured_desc(64, 48, mesh_subdiv=subdiv)
+    return box_scene(64, 48, mesh_subdiv=subdiv,
                      light_size=1.0 if name == "soft" else 0.0)
 
 
@@ -175,6 +184,103 @@ def test_kernel_rows_match_plain(cuda_dev, name, case):
             < 0.01
         return
     _rows_close(plain, kern, args[2], gi_from)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bounces,seed", [
+    ("mxu-box", 0, 123), ("mxu-soft", 0, 2 ** 31 - 5), ("mxu-box", 4, 31),
+    ("mxu-soft", 4, 77), ("mxu-box-dead", 4, 5), ("mxu-soft-dead", 0, 8),
+    ("mxu-textured", 0, 3), ("mxu-textured", 4, 2 ** 31 - 5),
+    ("mxu-textured-dead", 4, 9)])
+def test_mxu_kernel_matches_plain(cuda_dev, name, bounces, seed):
+    """The MXU variants (wave_kernel<*, *, true>) against wave_plain on the
+    1280-face ball, with the tolerances of test_kernel_matches_plain."""
+    from rtf_tpu_torch.render import wave as W
+    textured = "textured" in name
+    soft = "soft" in name
+    cfg = _cfg(bounces=bounces, shadow_min=4 if soft else 1,
+               shadow_max=16 if soft else 1, split_mode="rr",
+               env_on_reflect_miss=textured)
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    assert tables.mxu and tables.textured == textured
+    if name.endswith("-dead"):
+        alive[::2] = False
+    pr, ph, pz = W.wave_plain(cfg, tables, o3, d3, alive, seed)
+    counter = W.launch_counter(tables)
+    before = getattr(W, counter)
+    kr, kh, kz = W.wave(cfg, tables, o3, d3, alive, seed)
+    torch.cuda.synchronize()
+    assert getattr(W, counter) == before + 1
+    assert torch.equal(kh, ph)
+    assert not bool(kh[~alive].any())
+    assert bool((kr[:, ~alive] == 0).all())
+    err = (kr - pr).abs()
+    if bounces == 0:
+        assert float(err.max()) <= 2e-4
+        torch.testing.assert_close(kz[ph], pz[ph], rtol=1e-4, atol=0.0)
+    else:
+        assert float((err > 2e-4).any(0).float().mean()) <= 0.01
+        assert abs(float(kr.mean()) / float(pr.mean()) - 1.0) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mxu-box", "mxu-textured"])
+@pytest.mark.parametrize("case", ["surf", "gi_from=0", "child rows"])
+def test_mxu_kernel_rows_match_plain(cuda_dev, name, case):
+    """The GI rows of the MXU variants and a hemisphere child wave with its
+    query rows, every other lane dead, against wave_plain (`_rows_close`)."""
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.render.gi import child_wave_args
+    cfg = _cfg(bounces=2, split_mode="rr", hemisphere_samples=4,
+               env_on_reflect_miss=name == "mxu-textured")
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    kw = dict(surf_out=True) if case == "surf" \
+        else dict(surf_out=True, gi_from=0)
+    args = (o3, d3, alive, 13)
+    if case == "child rows":
+        _, hit0, _, surf, _ = W.wave_plain(cfg, tables, *args, **kw)
+        half = alive.clone()
+        half[::2] = False
+        u = torch.rand((2, alive.shape[0]), device=cuda_dev,
+                       generator=torch.Generator(cuda_dev).manual_seed(1))
+        args, kw = child_wave_args(cfg, surf, hit0, half, 13, 1, u[0], u[1])
+        kw["gi_from"] = 0
+    plain = W.wave_plain(cfg, tables, *args, **kw)
+    kern = W.wave(cfg, tables, *args, **kw)
+    torch.cuda.synchronize()
+    _rows_close(plain, kern, args[2], 0)
+
+
+@pytest.mark.cuda
+def test_mesh_mxu_kernel_matches_plain(cuda_dev):
+    """csrc/mesh_hit_mxu.cu against mesh_closest_hit_mxu_plain: 8192 rays
+    at the subdiv-4 icosphere (5120 faces, ten 512-face tiles), a quarter
+    of them with t_init 0 (as padding rays), face0 = 77: faces equal, t,
+    front, ba and bb within rtol 1e-6."""
+    from rtf_tpu_torch.ops import mesh_hit_mxu as M
+    from rtf_tpu_torch.scene.procedural import icosphere_mesh
+    m = icosphere_mesh(4)
+    a, b, c = (m.v[m.f[:, k]] for k in range(3))
+    trim = torch.as_tensor(M.pack_tri_matrix(a, b, c), device=cuda_dev)
+    g = torch.Generator(cuda_dev).manual_seed(2)
+    n = 8192
+    o = torch.randn((n, 3), generator=g, device=cuda_dev)
+    o = 4.0 * o / o.norm(dim=1, keepdim=True)
+    d = torch.rand((n, 3), generator=g, device=cuda_dev) * 2.4 - 1.2 - o
+    d = d / d.norm(dim=1, keepdim=True)
+    t0 = torch.full((n,), 100.0, device=cuda_dev)
+    t0[::4] = 0.0
+    rays16, _ = M.pack_rays16(o, d, t0)
+    before = M.launches
+    kern = M.mesh_closest_hit_mxu(rays16, trim, 77)
+    plain = M.mesh_closest_hit_mxu_plain(rays16, trim, 77)
+    torch.cuda.synchronize()
+    assert M.launches == before + 1
+    assert 0.3 < float((kern[1] >= 0).float().mean()) < 0.75
+    assert not bool((kern[1][::4] >= 0).any())
+    assert torch.equal(kern[1], plain[1])
+    for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
+        assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
 
 
 def test_wave_refuses_other_devices():
