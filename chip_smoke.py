@@ -64,17 +64,22 @@ those phases only (for iterating on one path):
             wave, 8 waves: 840); one wave profiled; the kernel's time per
             launch (CUDA events, profiler), work counts and bound, and the
             plain version's; a 160x120 frame with the kernel against the
-            same frame with the plain version put in the kernel's place, and a
+            same frame with the plain version put in the kernel's place
+            (exact: the splat sums each pixel's lanes in lane order), and a
             wavefront GI frame (400x300, 4 spp, 2 bounces, 4 hemisphere
             samples) that must add light;
 8. mxu      the main path's config (800x600, 64 spp, 4 bounces, hard
             shadows) on box_scene(800, 600, mesh_subdiv=5): a 20,480-face
-            ball (160 tiles) on the MXU tables, so the untextured MXU
-            variant: phase 3's checks and figures (kernel against plain at
-            bounce 0 and 4 at full width, 64 launches a frame, best of 3,
-            profile, events, work counters and bound), a 160x120 frame at
-            mesh_subdiv=6 (81,920 faces) with the kernel against the same
-            frame with the plain wave put in the kernel's place; then
+            ball (160 tiles in 20 groups) on the MXU tables, so the
+            untextured MXU variant: phase 3's checks and figures (kernel
+            against plain at bounce 0 and 4 at full width, exact; 64
+            launches a frame, best of 3, profile, events, work counters
+            and bound), the MXU walk's counters (slab tests of each level,
+            pairs, SIMT efficiency of the walk and of the pair loops, the
+            bounce loop's cycles by part, each block's cycles) with the
+            bound on these counts, a 160x120 frame at mesh_subdiv=6
+            (81,920 faces) with the kernel against the same frame with the
+            plain wave put in the kernel's place (exact); then
             mesh_closest_hit_mxu on the frame's 480,000 primary rays in the
             ball's local space against the ball's Plücker matrix (40 tiles
             of 512 faces): against its plain version on every 7th ray
@@ -86,7 +91,8 @@ those phases only (for iterating on one path):
             textured box with the 20,480-face ball: the textured MXU
             variant with GI rows and, on every child wave, the lane
             permutation of render/gi.py::gi_mesh_perm; phase 6's checks
-            and figures.
+            and figures (every kernel-against-plain case exact), and per
+            launch kind the MXU walk's counters as in phase 8.
 
 Tolerances: at bounce 0 the hit masks are equal, radiance within atol
 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
@@ -129,10 +135,14 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # per instance and ray on the MXU tables.
 OPS = dict(sphere=73, plane=46, inst=42, slab=26, tri=40, shade=250,
            shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9)
+# the wave kernel's counters (csrc/wave_kernel.cu, STAT_*): work, then on
+# the MXU variants the walk's slab tests, cycles by part (summed over
+# lanes) and warp-iterations with their active lanes
 STATS = ["rays", "hits", "shadow", "tiles", "tri_closest", "tri_shadow",
-         "prim_shadow", "inst", "tex_file", "tex_checker", "env", "root"]
-
-
+         "prim_shadow", "inst", "tex_file", "tex_checker", "env", "root",
+         "groups", "leaves", "cyc_root", "cyc_walk", "cyc_pair",
+         "cyc_bounces", "walk_iters", "walk_lanes", "pair_iters",
+         "pair_lanes", "root_in"]
 def fail(msg):
     print(f"[chip_smoke] FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -291,8 +301,9 @@ def bound(tables, st, n, rows_in, rows_out):
     slab test."""
     ns, np_ = tables.spheres.shape[0], tables.planes.shape[0]
     face_ops = OPS["pair"] if tables.mxu else OPS["tri"]
+    slabs = st["tiles"] + st.get("groups", 0) + st.get("leaves", 0)
     flops = (st["rays"] * (ns * OPS["sphere"] + np_ * OPS["plane"])
-             + st["inst"] * OPS["inst"] + st["tiles"] * OPS["slab"]
+             + st["inst"] * OPS["inst"] + slabs * OPS["slab"]
              + st["root"] * (OPS["slab"] + OPS["cross"])
              + (st["tri_closest"] + st["tri_shadow"]) * face_ops
              + st["prim_shadow"] * OPS["plane"]
@@ -301,8 +312,9 @@ def bound(tables, st, n, rows_in, rows_out):
              + st["tex_checker"] * OPS["tex_checker"]
              + st["env"] * OPS["env"])
     table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
-        "spheres", "planes", "mesh_insts", "roots", "tiles", "faces",
-        "materials", "lights", "texmaps", "textures"))
+        "spheres", "planes", "mesh_insts", "roots", "faces", "materials",
+        "lights", "texmaps", "textures") + (
+            ("groups", "tnodes", "leaves") if tables.mxu else ("tiles",)))
     texels = tables.atlas.shape[0] if tables.has_file_tex else 0
     nbytes = n * rows_in * 4 + n * rows_out * 4 + table_bytes + texels * 12
     nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
@@ -312,6 +324,34 @@ def bound(tables, st, n, rows_in, rows_out):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 bound_ms_texel_reads=max(nbytes_reads / HBM_BPS * 1e3,
                                          ops_ms))
+
+
+def walk_figures(st, blocks):
+    """What the MXU counters say about one launch: per walk (a root-box
+    test that passed) the slab tests of each level below the root and the
+    pairs, the SIMT efficiency of the walk and of the pair loops (active
+    lanes over 32 per warp-iteration), the bounce loop's cycles by part
+    (lane cycles: a lane waiting on its warp's other lanes counts where it
+    waits), and the blocks' cycles (each block's longest lane): max, sum,
+    mean."""
+    cyc = max(st["cyc_bounces"], 1)
+    walks = max(st["root_in"], 1)
+    out = {
+        "walks": st["root_in"],
+        "per_walk": {k: st[k] / walks for k in ("groups", "tiles",
+                                                 "leaves")},
+        "pairs": st["tri_closest"] + st["tri_shadow"],
+        "simt_walk": st["walk_lanes"] / max(32 * st["walk_iters"], 1),
+        "simt_pairs": st["pair_lanes"] / max(32 * st["pair_iters"], 1),
+        "cycles_share": {k: st["cyc_" + k] / cyc
+                         for k in ("root", "walk", "pair")},
+        "block_cycles_max": max(blocks) if blocks else 0,
+        "block_cycles_sum": sum(blocks),
+        "block_cycles_mean": sum(blocks) / max(len(blocks), 1),
+    }
+    out["per_walk"]["pairs"] = out["pairs"] / walks
+    out["cycles_share"]["rest"] = 1.0 - sum(out["cycles_share"].values())
+    return out
 
 
 def box_volume(scene, seed, dev):
@@ -566,8 +606,10 @@ def main(argv):
         return (time.perf_counter() - t0_) / reps * 1e3
 
     def profiled_ms(fn, reps=5):
-        """The wave kernel's own device time per call of fn (torch.profiler
-        over reps calls)."""
+        """The wave kernel's own device time per launch (torch.profiler over
+        reps calls of fn, one launch each), over the kernel records the
+        profiler delivered: late in this process it can deliver fewer than
+        reps, so their count is printed when it falls short."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -576,15 +618,52 @@ def main(argv):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA
-                 and "wave_kernel" in ev.key)
-        return us / reps / 1e3
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and "wave_kernel" in ev.key]
+        count = sum(ev.count for ev in evs)
+        check(count > 0, "the profiler recorded no wave_kernel launch")
+        if count < reps:
+            print(f"[profiler] {count} of {reps} wave_kernel launches "
+                  "recorded", flush=True)
+        return sum(ev.self_device_time_total for ev in evs) / count / 1e3
 
-    def work(fn):
-        stats = torch.zeros(W_.NSTAT, dtype=torch.int64, device=dev)
+    def work(fn, n):
+        """The kernel's counters over one call of fn (n lanes), and each
+        block's cycles (the MXU variants; zeros elsewhere)."""
+        stats = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
         fn(stats=stats)
-        return dict(zip(STATS, stats.tolist()))
+        st = stats.tolist()
+        return dict(zip(STATS, st)), st[W_.NSTAT:]
+
+    def report_walk(tag, tables, fn, n, rows_in, rows_out):
+        """Run fn (one launch of n lanes) with the counters on: print the
+        MXU walk's counters and figures, the launch's time with the
+        counters on (CUDA events), and the bound on this run's counts.
+        Returns (work counts, figures)."""
+        st, blocks = work(fn, n)
+        fig = walk_figures(st, blocks)
+        buf = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
+        fig["ms_counters_on"] = events_ms(lambda: fn(stats=buf), reps=5)
+        bd = bound(tables, st, n, rows_in, rows_out)
+        fig["bound_ms"] = bd["bound_ms"]
+        cs = fig["cycles_share"]
+        pw = fig["per_walk"]
+        print(f"[{tag}] MXU walk: root {st['root']} slab tests "
+              f"({st['root_in']} pass), groups {st['groups']}, tiles "
+              f"{st['tiles']}, leaves {st['leaves']}, pairs {fig['pairs']}"
+              f" (per walk {pw['groups']:.2f}, {pw['tiles']:.2f}, "
+              f"{pw['leaves']:.2f}, {pw['pairs']:.2f}); SIMT efficiency walk "
+              f"{fig['simt_walk']:.4f}, pairs {fig['simt_pairs']:.4f}; "
+              f"bounce-loop cycles {st['cyc_bounces']}: root "
+              f"{cs['root']:.4f}, walk {cs['walk']:.4f}, pairs "
+              f"{cs['pair']:.4f}, rest {cs['rest']:.4f}; block cycles max "
+              f"{fig['block_cycles_max']}, sum {fig['block_cycles_sum']}, "
+              f"mean {fig['block_cycles_mean']:.1f} over {len(blocks)} "
+              f"blocks (a launch with the counters on: "
+              f"{fig['ms_counters_on']:.4f} ms, CUDA events); bound "
+              f"{bd['bound_ms']:.5f} ms on these counts", flush=True)
+        return st, fig
 
     def drive(tag, desc, small_desc, counter):
         """Render one path at W x H through `render`, counting the
@@ -602,6 +681,8 @@ def main(argv):
                           *both(cfg.with_(bounces=0), tables, o3, d3, 11), 0)
         err4, share4 = compare(f"{tag} b{BOUNCES} {W}x{H}",
                                *both(cfg, tables, o3, d3, 11), BOUNCES)
+        check(not tables.mxu or err0 == err4 == 0.0,
+              f"{tag}: the MXU walk is not exact ({err0}, {err4})")
 
         render(scene, cfg, device=dev, tables=tables)     # warm-up frame
         frame_s, res = float("inf"), None
@@ -641,12 +722,20 @@ def main(argv):
         def launch(**kw):
             return W_.wave(cfg, tables, o3, d3, alive, 11, **kw)
         kern_ms = events_ms(launch)
-        st = work(launch)
+        walk = None
+        if tables.mxu:
+            st, walk = report_walk(tag, tables, launch, n, 7, 5)
+        else:
+            st, _ = work(launch, n)
         # 7 floats in and 5 out per ray (the atlas's float4 padding is the
         # kernel's choice, not the function's)
         bd = bound(tables, st, n, 7, 5)
+        launch_prof_ms = profiled_ms(launch) if tables.mxu else None
         print(f"[{tag}] kernel {kern_ms:.4f} ms/launch at {W}x{H} (mean of "
-              f"20, CUDA events); work {json.dumps(st)}; "
+              f"20, CUDA events"
+              + (f"; {launch_prof_ms:.4f} ms by the profiler, kernel only"
+                 if tables.mxu else "")
+              + f"); work {json.dumps(st)}; "
               f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
               f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
               f"{bd['bytes_ms']:.4f}); with four texel reads per sample, "
@@ -671,7 +760,9 @@ def main(argv):
             "bound_by": bd["bound_by"],
             "bound_ms_texel_reads": bd["bound_ms_texel_reads"],
             "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
-            "work": st}
+            "work": st,
+            **({"walk": walk, "ms_profiler_launch": launch_prof_ms}
+               if tables.mxu else {})}
 
     def drive_gi(tag, desc, gcfg, counter, volumes=False):
         """Render one GI path through `render`, every frame counted in
@@ -685,6 +776,9 @@ def main(argv):
         tables = scene_tables(scene)
         check(W_.launch_counter(tables) == counter,
               f"{tag}: wrong kernel variant")
+        # the phase's own uniforms (seed 5), whichever phases ran before:
+        # phase 9's child launch is chip_ab.py's
+        gen = torch.Generator(device=dev).manual_seed(5)
         w, h = scene.width, scene.height
         n = w * h
         s_hemi, spp = gcfg.hemisphere_samples, gcfg.max_samples
@@ -774,11 +868,17 @@ def main(argv):
             pms = (time.perf_counter() - t0) * 1e3
             ms = events_ms(fn)
             ms_prof = profiled_ms(fn)
-            st = work(fn)
+            walk = None
+            if tables.mxu:
+                st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
+                                       rows_in, rows_out)
+            else:
+                st, _ = work(fn, n)
             bd = bound(tables, st, n, rows_in, rows_out)
             kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
                                 max_abs_err=errs[-1], work=st,
-                                rows_in=rows_in, rows_out=rows_out, **bd)
+                                rows_in=rows_in, rows_out=rows_out, **bd,
+                                **({"walk": walk} if walk else {}))
             print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
                   f"events), {ms_prof:.4f} ms (profiler, kernel only), "
                   f"plain {pms:.2f} ms; rows {rows_in} in, "
@@ -804,6 +904,8 @@ def main(argv):
         err_gi, share_gi = compare(f"{tag} gi_wave {w}x{h}", plain, kern,
                                    alive, gcfg.bounces)
         errs.append(err_gi)
+        check(not tables.mxu or max(errs) == 0.0,
+              f"{tag}: the MXU walk is not exact ({errs})")
         print(f"[{tag}] plain GI sample wave ({1 + s_hemi} plain waves and "
               f"their host work) {plain_gi:.2f} ms", flush=True)
         print(f"[{tag}] phase passed", flush=True)
@@ -1031,6 +1133,10 @@ def main(argv):
               f"max_abs_err={float(ferr.max()):.3e}, share outside {ATOL:g} "
               f"{share:.5f}, means {fk.radiance.mean():.6f} vs "
               f"{fp.radiance.mean():.6f}", flush=True)
+        # the splat sums each pixel's lanes in lane order, so the two
+        # frames agree exactly where the kernel equals its plain version
+        check(float(ferr.max()) == 0.0, "wavefront: the 160x120 frame "
+              f"differs from the plain version's by {float(ferr.max())}")
         stamp("small frames")
 
         # hemisphere GI on the wavefront adds light
@@ -1127,6 +1233,8 @@ def main(argv):
             "mxu", box_scene(*SMALL, with_mesh=True, mesh_subdiv=6),
             cfg.with_(min_samples=4, max_samples=4, split_mode="rr"),
             "launches_mxu")
+        check(wave_res["small_frame_subdiv6_max_abs_err"] == 0.0,
+              "mxu: the subdiv-6 frame is not exact")
         print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: wave kernel "
               "checks and figures", flush=True)
 

@@ -41,6 +41,8 @@ KERNELS = {
         _F, _F, _F,              # env rgb
         _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
         _I, _I, _I, _I, _I,      # shadow max/min, need_uv, has_gloss, mxu
+        _P, _I, _P, _P,          # groups, ng, tnodes, leaves
+        _I, _I,                  # roots and groups staged, block cycles
         _P]),                    # stream
     "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
         _P, _I,                  # rays8, n

@@ -17,20 +17,33 @@
 // _mesh_closest_mxu, _mesh_anyhit_mxu; fused_seg.py's hit and shade kernels
 // with has_mesh_tables), takes the Plücker pair test (plucker.cuh) over
 // ops/mxu_pack.py's face rows in place of the projected-barycentric test:
-// wave_kernel<*, *, true>.  Per mesh instance a thread slab-tests its own
-// segment against the instance's padded root box, then walks the
-// instance's 128-face tiles in the front-to-back order of its own local
-// direction's octant (the table's rows 6-13; rtf_tpu picks the order from
-// a 1024-lane block's summed direction, which changes only which of two
-// exactly tied faces in different tiles wins), each behind a slab test on
-// the padded tile box capped by its own best t, and tests the tile's
-// faces with a strict t < best.  The winner's normal, material, front and
-// uv come from its shade row once per instance: normal = nc + ba (na -
-// nc) + bb (nb - nc), front = d . n <= 0 with the geometric normal, uv =
-// uv_c + ba (uv_a - uv_c) + bb (uv_b - uv_c).  rtf_tpu streams tables over
-// 24 MiB tile by tile from HBM only because of VMEM; here one table in
-// device memory serves every size.  The four immediates variants
-// wave_kernel<*, *, false> keep the code they had.
+// wave_kernel<*, *, true>.  rtf_tpu tests a ray block against a whole
+// 128-face tile in one matrix product; one thread per ray wants fewer
+// tests instead, so the walk goes down a box hierarchy per mesh instance:
+// the instance's padded root box, then its groups of 8 tiles in the
+// near-to-far order of the lane's own local direction's octant, within an
+// entered group its tiles, within an entered tile its 16-face leaves (each
+// level near to far), within an entered leaf its faces.  Every slab test
+// is capped by the lane's current best t.  The winner is the least t, then
+// the least key = rank * 128 + column (the tile's rank in the octant's
+// visit order, the face's column in its tile), strictly below the best t
+// from before the instance: exactly what the plain _mesh_closest_mxu
+// computes (render/wave.py) and what a strict-< walk of the tiles in
+// octant order finds, so the visit order changes only how early a lane
+// stops, never the winner.  The boxes are padded, so a face at t <= cap
+// lies inside every box on its path with a slab entry < t: an exactly
+// tied face is still visited.  The levels that every entering ray reads
+// (roots and groups) are staged in shared memory once per block where
+// they fit in 48 KB (render/wave.py::smem_staged), else read from device
+// memory by the same walk; tiles, leaves and faces stay in device memory
+// (staging the tiles too was slower, PERF.md section 6).  The winner's
+// normal, material, front and uv come from its shade row once per
+// instance: normal = nc + ba (na - nc) + bb (nb - nc), front =
+// d . n <= 0 with the geometric normal, uv = uv_c + ba (uv_a - uv_c) + bb
+// (uv_b - uv_c).  rtf_tpu streams tables over 24 MiB tile by tile from HBM
+// only because of VMEM; here one table in device memory serves every size.
+// The four immediates variants wave_kernel<*, *, false> keep the code they
+// had.
 // The second template flag is GI (render/gi.py): a child wave passes 14 ray
 // rows instead of 7, with its throughput, absorption and ray type
 // (has_state), and a launch may ask for the GI rows: with surf_out the
@@ -105,7 +118,9 @@ constexpr float INV_PI_F = 0.3183098861837907f;
 constexpr int RT_REFLECT = 1, RT_REFRACT = 2;
 constexpr int INST_W = 24, TILE_W = 8, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
 constexpr int TEXMAP_W = 10, TEX_W = 10;
-constexpr int MXU_TILE_W = 16, ROOT_W = 8;   // MXU tile rows, root boxes
+constexpr int ROOT_W = 8;                     // MXU root boxes
+constexpr int NODE_W = 24, LEAF_W = 8;        // MXU groups/tnodes, leaves
+constexpr int MXU_TILE = 128, LEAF_FACES = 16, TILE_LEAVES = 8;
 constexpr float TEX_FILE = 0.0f;
 constexpr int THREADS = 128;
 
@@ -123,8 +138,23 @@ enum Stat {
   STAT_TEX_CHECKER = 9,  // checker samples
   STAT_ENV = 10,         // environment-map uv computations
   NSTAT = 11,            // the counters of the immediates variants
-  STAT_ROOT = 11,        // root-box slab tests (MXU variants)
-  NSTAT_MXU = 12
+  // MXU variants: work (STAT_TILES counts tile slab tests there), then
+  // clock64() cycles summed over lanes, then warp-iterations and their
+  // active lanes (__popc(__activemask()), counted once per warp)
+  STAT_ROOT = 11,        // root-box slab tests
+  STAT_GROUPS = 12,      // group slab tests
+  STAT_LEAVES = 13,      // leaf slab tests
+  STAT_CYC_ROOT = 14,    // cycles: instance transform and root-box test
+  STAT_CYC_WALK = 15,    // cycles: group, tile and leaf walk
+  STAT_CYC_PAIR = 16,    // cycles: pair loops
+  STAT_CYC_BOUNCES = 17, // cycles: the whole bounce loop
+  STAT_WALK_ITERS = 18,  // warp-iterations of the walk's slab tests
+  STAT_WALK_LANES = 19,
+  STAT_PAIR_ITERS = 20,  // warp-iterations of the pair loops
+  STAT_PAIR_LANES = 21,
+  STAT_ROOT_IN = 22,     // root-box tests passed (lanes that walk)
+  NSTAT_MXU = 23         // with stats_blocks each block's cycles (its
+                         // longest lane) follow at 23 + block
 };
 
 struct Args {
@@ -140,9 +170,14 @@ struct Args {
   const float* spheres; int ns;
   const float* planes; int np;
   const float* insts; int ni;
-  const float* roots;  // [ni, 8] padded root boxes (MXU variants)
+  const float* roots;  // [ni, 8] padded root boxes, group range (MXU)
   const float* tiles;
   const float* faces;
+  const float* groups; int ng;   // MXU: [ng, 24] groups of 8 tiles
+  const float* tnodes;           // MXU: [T, 24] the walk's tile rows
+  const float* leaves;           // MXU: [T * 8, 8] 16-face leaves
+  int staged;          // MXU: roots and groups in shared memory
+  int stats_blocks;    // MXU: per-block cycles after the counters
   const float* mats;
   const float* lights; int nl;
   const float* texmaps;
@@ -297,47 +332,195 @@ __device__ __forceinline__ bool tri(const float* F, const float lo[3],
   return !bad && t > ZERO && ba >= 0.0f && bb >= 0.0f && bc >= 0.0f;
 }
 
-// fused.py::_mesh_closest_mxu for one ray: per instance the root box,
-// then the tiles in the octant's visit order, then their faces; the
-// winner is resolved from its shade row once per instance
+// ---- the MXU walk
+
+// the hierarchy's upper levels for this launch: the block's shared-memory
+// copies where they were staged, else the tables in device memory (generic
+// loads serve both)
+struct Tree {
+  const float* roots;
+  const float* groups;
+};
+
+__device__ __forceinline__ Tree tree(const Args& A) {
+  extern __shared__ float4 smem4[];
+  const float* sm = reinterpret_cast<const float*>(smem4);
+  return Tree{A.staged ? sm : A.roots,
+              A.staged ? sm + ROOT_W * A.ni : A.groups};
+}
+
+// copy the roots and groups into shared memory: every thread of the
+// block, one barrier (16-byte rows)
+__device__ __forceinline__ void stage_tree(const Args& A) {
+  extern __shared__ float4 smem4[];
+  if (!A.staged) return;   // the same for the whole launch
+  const int nr = 2 * A.ni, n4 = nr + 6 * A.ng;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x)
+    smem4[q] = __ldg(q < nr ? reinterpret_cast<const float4*>(A.roots) + q
+                            : reinterpret_cast<const float4*>(A.groups)
+                                  + (q - nr));
+  __syncthreads();
+}
+
+// slab test of [0, cap) against the box lo = (x0, y0, z0), hi = (x1, y1,
+// z1), with the arithmetic of `slab`
+__device__ __forceinline__ bool slab6(float x0, float y0, float z0,
+                                      float x1, float y1, float z1,
+                                      const float lo[3], const float ild[3],
+                                      float cap) {
+  const float b0[3] = {x0, y0, z0}, b1[3] = {x1, y1, z1};
+  float tmin = 0.0f, tmax = BIG;
+  for (int a = 0; a < 3; ++a) {
+    float t0 = (b0[a] - lo[a]) * ild[a];
+    float t1 = (b1[a] - lo[a]) * ild[a];
+    tmin = fmaxf(tmin, fminf(t0, t1));
+    tmax = fminf(tmax, fmaxf(t0, t1));
+  }
+  return tmax >= tmin && tmin < cap;
+}
+
+// the same on a row whose columns 0-5 hold the box (shared or device
+// memory)
+__device__ __forceinline__ bool slab_row(const float* B, const float lo[3],
+                                         const float ild[3], float cap) {
+  return slab6(B[0], B[1], B[2], B[3], B[4], B[5], lo, ild, cap);
+}
+
+// one warp-iteration of a loop of the walk: counted once per warp, by its
+// first active lane, with the number of active lanes
+__device__ __forceinline__ void warp_step(unsigned long long* cnt, int it) {
+  const unsigned m = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+    cnt[it] += 1;
+    cnt[it + 1] += __popc(m);
+  }
+}
+
+__device__ __forceinline__ int octant(const float l[3]) {
+  return (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
+      + (l[2] >= 0.0f ? 1 : 0);
+}
+
+// one mesh instance in the lane's local frame: the root box; returns false
+// where the segment [0, cap) misses it
+__device__ __forceinline__ bool enter_instance(
+    const Args& A, const Tree& R, int k, const float o[3], const float d[3],
+    float cap, float lo[3], float l[3], float ild[3],
+    unsigned long long* cnt) {
+  const long long c0 = cnt ? clock64() : 0;
+  to_local(A.insts + INST_W * k, o, d, lo, l);
+  inv_dir(l, ild);
+  const bool in = slab_row(R.roots + ROOT_W * k, lo, ild, cap);
+  if (cnt) {
+    cnt[STAT_INST] += 1;
+    cnt[STAT_ROOT] += 1;
+    cnt[STAT_ROOT_IN] += in;
+    cnt[STAT_CYC_ROOT] += clock64() - c0;
+  }
+  return in;
+}
+
+// the faces of the instance's root that a lane's segment may meet: its
+// groups (the slot's order for the lane's octant), their tiles, their
+// leaves, near to far, each behind a slab test capped by cap(); calls
+// face(f, key0) per face of an entered leaf, key0 + f the face's key, and
+// stops when it returns true.  The pair loops' cycles go to *cpair.
+template <typename Cap, typename Face>
+__device__ __forceinline__ bool walk(const Args& A, const Tree& R, int k,
+                                     const float lo[3], const float l[3],
+                                     const float ild[3], Cap cap, Face face,
+                                     unsigned long long* cnt,
+                                     long long* cpair) {
+  const int oct = octant(l);
+  const float* root = R.roots + ROOT_W * k;
+  const int g0 = (int)root[6], ng = (int)root[7];
+  for (int s = 0; s < ng; ++s) {
+    const float* G = R.groups + NODE_W * (int)R.groups[NODE_W * (g0 + s)
+                                                       + 8 + oct];
+    if (cnt) {
+      cnt[STAT_GROUPS] += 1;
+      warp_step(cnt, STAT_WALK_ITERS);
+    }
+    if (!slab_row(G, lo, ild, cap())) continue;
+    const int j0 = (int)G[6], nj = (int)G[7];
+    const uint32_t tord = (uint32_t)G[16 + oct];
+    for (int q = 0; q < nj; ++q) {
+      const int j = j0 + (int)((tord >> (3 * q)) & 7u);
+      const float* T = A.tnodes + NODE_W * j;
+      if (cnt) {
+        cnt[STAT_TILES] += 1;
+        warp_step(cnt, STAT_WALK_ITERS);
+      }
+      if (!slab_row(T, lo, ild, cap())) continue;
+      const int nl = ((int)T[7] + LEAF_FACES - 1) / LEAF_FACES;
+      const int key0 = (int)T[8 + oct] * MXU_TILE - (int)T[6];
+      const uint32_t lord = (uint32_t)T[16 + oct];
+      for (int r = 0; r < nl; ++r) {
+        const float4* L = reinterpret_cast<const float4*>(
+            A.leaves + LEAF_W * (TILE_LEAVES * j
+                                 + (int)((lord >> (3 * r)) & 7u)));
+        const float4 b0 = __ldg(L), b1 = __ldg(L + 1);
+        if (cnt) {
+          cnt[STAT_LEAVES] += 1;
+          warp_step(cnt, STAT_WALK_ITERS);
+        }
+        if (!slab6(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, lo, ild, cap()))
+          continue;
+        const int fa = (int)b1.z, fb = fa + (int)b1.w;
+        const long long p0 = cnt ? clock64() : 0;
+        bool stop = false;
+        for (int f = fa; f < fb && !stop; ++f) {
+          if (cnt) warp_step(cnt, STAT_PAIR_ITERS);
+          stop = face(f, key0);
+        }
+        if (cnt) *cpair += clock64() - p0;
+        if (stop) return true;
+      }
+    }
+  }
+  return false;
+}
+
+// fused.py::_mesh_closest_mxu for one ray: per instance the least t below
+// the best so far, then the least key; the winner is resolved from its
+// shade row once per instance
 __device__ void mesh_closest_mxu(const Args& A, const float o[3],
                                  const float d[3], Hit& h,
                                  unsigned long long* cnt) {
-  float lo[3], l[3];
+  const Tree R = tree(A);
+  float lo[3], l[3], ild[3];
   for (int k = 0; k < A.ni; ++k) {
-    const float* I = A.insts + INST_W * k;
-    to_local(I, o, d, lo, l);
-    float ild[3];
-    inv_dir(l, ild);
-    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }
-    if (!slab(A.roots + ROOT_W * k, lo, ild, h.t)) continue;
+    if (!enter_instance(A, R, k, o, d, h.t, lo, l, ild, cnt)) continue;
+    const long long c0 = cnt ? clock64() : 0;
+    long long cpair = 0;
     float c[3];
     plucker::cross_od(lo, l, c);
-    const int oct = 6 + (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
-        + (l[2] >= 0.0f ? 1 : 0);
-    const int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
-    int best = -1;
+    // bkey -1: the best t is from before this instance, so a tie loses
+    int best = -1, bkey = -1;
     float bsa = 0.0f, bsb = 0.0f, bsc = 0.0f, bdn = 0.0f;
-    for (int s = 0; s < nt; ++s) {
-      const int j = (int)ld(A.tiles + MXU_TILE_W * (t0 + s) + oct);
-      const float* T = A.tiles + MXU_TILE_W * j;
-      if (cnt) cnt[STAT_TILES] += 1;
-      if (!slab(T, lo, ild, h.t)) continue;
-      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);
-      if (cnt) cnt[STAT_TRI_CLOSEST] += nf;
-      for (int f = f0; f < f0 + nf; ++f) {
-        const float4* F4 =
-            reinterpret_cast<const float4*>(A.faces + FACE_W * f);
-        float t, sa, sb, sc, dn;
-        if (!plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
-            || !(t < h.t))
-          continue;
-        h.t = t;
-        best = f;
-        bsa = sa; bsb = sb; bsc = sc; bdn = dn;
-      }
+    walk(A, R, k, lo, l, ild, [&]() { return h.t; },
+         [&](int f, int key0) {
+           if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
+           const float4* F4 =
+               reinterpret_cast<const float4*>(A.faces + FACE_W * f);
+           float t, sa, sb, sc, dn;
+           if (!plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn))
+             return false;
+           const int key = key0 + f;
+           if (t < h.t || (t == h.t && key < bkey)) {
+             h.t = t;
+             best = f;
+             bkey = key;
+             bsa = sa; bsb = sb; bsc = sc; bdn = dn;
+           }
+           return false;
+         }, cnt, &cpair);
+    if (cnt) {
+      cnt[STAT_CYC_PAIR] += cpair;
+      cnt[STAT_CYC_WALK] += clock64() - c0 - cpair;
     }
     if (best < 0) continue;
+    const float* I = A.insts + INST_W * k;
     const float* F = A.faces + FACE_W * best;
     float ba, bb;
     plucker::bary(bsa, bsb, bsc, ba, bb);
@@ -355,39 +538,33 @@ __device__ void mesh_closest_mxu(const Args& A, const float o[3],
 }
 
 // fused.py::_mesh_anyhit_mxu for one shadow ray: some face with
-// 1e-14 < t < cap
+// 1e-14 < t < cap, over the same hierarchy
 __device__ bool mesh_anyhit_mxu(const Args& A, const float o[3],
                                 const float d[3], float cap,
                                 unsigned long long* cnt) {
-  float lo[3], l[3];
+  const Tree R = tree(A);
+  float lo[3], l[3], ild[3];
   for (int k = 0; k < A.ni; ++k) {
-    const float* I = A.insts + INST_W * k;
-    to_local(I, o, d, lo, l);
-    float ild[3];
-    inv_dir(l, ild);
-    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }
-    if (!slab(A.roots + ROOT_W * k, lo, ild, cap)) continue;
+    if (!enter_instance(A, R, k, o, d, cap, lo, l, ild, cnt)) continue;
+    const long long c0 = cnt ? clock64() : 0;
+    long long cpair = 0;
     float c[3];
     plucker::cross_od(lo, l, c);
-    const int oct = 6 + (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
-        + (l[2] >= 0.0f ? 1 : 0);
-    const int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
-    for (int s = 0; s < nt; ++s) {
-      const int j = (int)ld(A.tiles + MXU_TILE_W * (t0 + s) + oct);
-      const float* T = A.tiles + MXU_TILE_W * j;
-      if (cnt) cnt[STAT_TILES] += 1;
-      if (!slab(T, lo, ild, cap)) continue;
-      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);
-      for (int f = f0; f < f0 + nf; ++f) {
-        if (cnt) cnt[STAT_TRI_SHADOW] += 1;
-        const float4* F4 =
-            reinterpret_cast<const float4*>(A.faces + FACE_W * f);
-        float t, sa, sb, sc, dn;
-        if (plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
-            && t > 1e-14f && t < cap)
-          return true;
-      }
+    const bool hit = walk(
+        A, R, k, lo, l, ild, [&]() { return cap; },
+        [&](int f, int) {
+          if (cnt) cnt[STAT_TRI_SHADOW] += 1;
+          const float4* F4 =
+              reinterpret_cast<const float4*>(A.faces + FACE_W * f);
+          float t, sa, sb, sc, dn;
+          return plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
+              && t > 1e-14f && t < cap;
+        }, cnt, &cpair);
+    if (cnt) {
+      cnt[STAT_CYC_PAIR] += cpair;
+      cnt[STAT_CYC_WALK] += clock64() - c0 - cpair;
     }
+    if (hit) return true;
   }
   return false;
 }
@@ -656,6 +833,11 @@ template <bool TEXTURED, bool GI, bool MXU>
 __global__ void __launch_bounds__(THREADS)
 wave_kernel(const Args A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
+  long long k0 = 0;
+  if constexpr (MXU) {
+    if (A.stats && A.stats_blocks) k0 = clock64();
+    stage_tree(A);   // before any lane leaves: the block's one barrier
+  }
   if (i >= A.n) return;
   const int n = A.n;
   float o[3], d[3];
@@ -682,6 +864,10 @@ wave_kernel(const Args A) {
   const uint32_t seed0 = A.seed + (A.blk0 + (uint32_t)(i >> 10)) * 7919u;
   const bool need_uv = A.need_uv != 0;
 
+  long long cb = 0;
+  if constexpr (MXU) {
+    if (cnt) cb = clock64();
+  }
   for (int b = 0; b < A.nbounce && alive; ++b) {
     const uint32_t seed = seed0 + (uint32_t)b * 101u;
     if (cnt) cnt[STAT_RAYS] += 1;
@@ -898,6 +1084,9 @@ wave_kernel(const Args A) {
     }
     rtype = take_r ? RT_REFLECT : RT_REFRACT;
   }
+  if constexpr (MXU) {
+    if (cnt) cnt_[STAT_CYC_BOUNCES] += clock64() - cb;
+  }
 
   A.out[0 * n + i] = acc[0];
   A.out[1 * n + i] = acc[1];
@@ -913,6 +1102,19 @@ wave_kernel(const Args A) {
   if (cnt)
     for (int s = 0; s < NS; ++s)
       if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);
+  if constexpr (MXU) {
+    if (cnt && A.stats_blocks)
+      atomicMax(A.stats + NSTAT_MXU + blockIdx.x,
+                (unsigned long long)(clock64() - k0));
+  }
+}
+
+// launch one variant with `smem` bytes of dynamic shared memory
+template <bool TEXTURED, bool GI, bool MXU>
+cudaError_t launch(int blocks, size_t smem, cudaStream_t st,
+                   const Args& A) {
+  wave_kernel<TEXTURED, GI, MXU><<<blocks, THREADS, smem, st>>>(A);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -931,7 +1133,9 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                     float env_g, float env_b, float coef, int inverse_square,
                     int env_on_reflect_miss, float tot_thr, float col_thr,
                     int shadow_max, int shadow_min, int need_uv,
-                    int has_gloss, int mxu, void* stream) {
+                    int has_gloss, int mxu, const float* groups, int ng,
+                    const float* tnodes, const float* leaves,
+                    int staged, int stats_blocks, void* stream) {
   if (n <= 0) return 0;
   Args A;
   A.rays = rays;
@@ -968,28 +1172,37 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   A.shadow_min = shadow_min;
   A.need_uv = need_uv;
   A.has_gloss = has_gloss;
+  A.groups = groups; A.ng = ng;
+  A.tnodes = tnodes;
+  A.leaves = leaves;
+  A.staged = mxu && staged;
+  A.stats_blocks = stats_blocks;
   int blocks = (n + THREADS - 1) / THREADS;
   const bool gi = has_state || surf_out || gi_from >= 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem =
+      A.staged ? sizeof(float) * (ROOT_W * ni + NODE_W * ng) : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
   if (mxu) {
     if (textured && gi)
-      wave_kernel<true, true, true><<<blocks, THREADS, 0, st>>>(A);
+      e = launch<true, true, true>(blocks, smem, st, A);
     else if (textured)
-      wave_kernel<true, false, true><<<blocks, THREADS, 0, st>>>(A);
+      e = launch<true, false, true>(blocks, smem, st, A);
     else if (gi)
-      wave_kernel<false, true, true><<<blocks, THREADS, 0, st>>>(A);
+      e = launch<false, true, true>(blocks, smem, st, A);
     else
-      wave_kernel<false, false, true><<<blocks, THREADS, 0, st>>>(A);
+      e = launch<false, false, true>(blocks, smem, st, A);
   } else if (textured && gi) {
-    wave_kernel<true, true, false><<<blocks, THREADS, 0, st>>>(A);
+    e = launch<true, true, false>(blocks, 0, st, A);
   } else if (textured) {
-    wave_kernel<true, false, false><<<blocks, THREADS, 0, st>>>(A);
+    e = launch<true, false, false>(blocks, 0, st, A);
   } else if (gi) {
-    wave_kernel<false, true, false><<<blocks, THREADS, 0, st>>>(A);
+    e = launch<false, true, false>(blocks, 0, st, A);
   } else {
-    wave_kernel<false, false, false><<<blocks, THREADS, 0, st>>>(A);
+    e = launch<false, false, false>(blocks, 0, st, A);
   }
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 const char* rtf_error_string(int code) {

@@ -32,6 +32,29 @@ AABB (lo xyz, hi xyz; empty tiles 1e30 / -1e30), 6-13 the front-to-back
 visit order of the slot's tiles for each direction octant (global tile
 index at visit step k, octant o = 4 (dx >= 0) + 2 (dy >= 0) + (dz >= 0)),
 14 the tile's first face row, 15 its face count.
+
+On top of the tiles, the port keeps a box hierarchy per slot that the
+wave kernel walks one ray per thread (csrc/wave_kernel.cu); rtf_tpu's TPU
+tables are one level only because a tile is one matrix product.  The faces
+stay in Morton column order, so a face's (tile, column) key is unchanged.
+
+    groups [NG, GROUP_W]  GROUP_TILES consecutive tiles of one slot: 0-5
+        the group's box (the union of its tiles'), 6 its first tile, 7 its
+        tile count, 8-15 the near-to-far visit order of the slot's groups
+        for each octant (global group index at visit step k, as the tile
+        rows 6-13), 16-23 per octant the near-to-far order of the group's
+        own tiles, packed three bits a step (tile 6 + ((v >> 3 k) & 7) at
+        step k; an exact float below 2^24);
+    tree [NT, TREE_W]  per tile 0-7 its rank in each octant's visit order
+        (the inverse of rows 6-13: its row in the slot's order column),
+        8-15 per octant the near-to-far order of its leaves, packed the
+        same way (non-empty leaves first);
+    leaves [NT * TILE_LEAVES, LEAF_W]  LEAF_FACES consecutive columns of a
+        tile: 0-5 the box of their faces (empty: 1e30 / -1e30), 6 the first
+        face row, 7 the face count.
+
+Every order uses the tiles' key: the box centre along the octant's
+diagonal, empty boxes last, ties by index.
 """
 from __future__ import annotations
 
@@ -43,16 +66,97 @@ from rtf_tpu_torch.ops.pack import DZ_EPS, ZERO, _morton3
 MXU_TILE = 128        # faces per tile (fused.py:56)
 FACE_W = 40
 TILE_W = 16
+GROUP_TILES = 8       # tiles per group
+LEAF_FACES = 16       # faces per leaf
+TILE_LEAVES = MXU_TILE // LEAF_FACES
+GROUP_W, TREE_W, LEAF_W = 24, 16, 8
+EMPTY_BOX = (1e30, 1e30, 1e30, -1e30, -1e30, -1e30)
+
+
+def _octant_keys(ctr):
+    """[..., 8] near-to-far keys of box centres ctr [..., 3] (float64, rows
+    of 1e30 for empty boxes) along each octant's diagonal (fused.py's
+    `ctr @ s`, octant by octant), empty boxes last."""
+    key = np.stack([ctr @ np.array([1.0 if o & 4 else -1.0,
+                                    1.0 if o & 2 else -1.0,
+                                    1.0 if o & 1 else -1.0])
+                    for o in range(8)], axis=-1)
+    key[ctr[..., 0] >= 1e30] = np.inf
+    return key
+
+
+def _centres(boxes):
+    """Centres [..., 3] (float64) of float32 boxes [..., 6], 1e30 where a
+    box is empty."""
+    b = boxes.astype(np.float64)
+    ctr = (b[..., 0:3] + b[..., 3:6]) / 2
+    ctr[b[..., 0] > b[..., 3]] = 1e30
+    return ctr
+
+
+def _packed_orders(boxes):
+    """Per octant the near-to-far order of each row's children, boxes
+    [R, C, 6] with C <= 8, packed three bits a step: [R, 8] float32."""
+    order = np.argsort(_octant_keys(_centres(boxes)), axis=1,
+                       kind="stable")                      # [R, C, 8]
+    shift = 3 * np.arange(boxes.shape[1])[None, :, None]
+    return np.sum(order << shift, axis=1).astype(np.float32)
+
+
+def _tree(tri_lo, tri_hi, f, tiles, row0, grow0):
+    """The hierarchy of one slot (see the module docstring): groups rows,
+    tree rows and leaf rows; tiles [nt, TILE_W] are the slot's tile rows
+    (unpadded boxes and orders), row0 its first tile and grow0 its first
+    group."""
+    nt = tiles.shape[0]
+    # leaves: LEAF_FACES consecutive columns of each tile
+    pad = nt * MXU_TILE - f
+    lo = np.concatenate([tri_lo, np.full((pad, 3), np.inf, np.float32)])
+    hi = np.concatenate([tri_hi, np.full((pad, 3), -np.inf, np.float32)])
+    lo = lo.reshape(nt * TILE_LEAVES, LEAF_FACES, 3).min(1)
+    hi = hi.reshape(nt * TILE_LEAVES, LEAF_FACES, 3).max(1)
+    count = np.clip(f - LEAF_FACES * np.arange(nt * TILE_LEAVES), 0,
+                    LEAF_FACES)
+    leaves = np.zeros((nt * TILE_LEAVES, LEAF_W), np.float32)
+    leaves[:, 0:3], leaves[:, 3:6] = lo, hi
+    leaves[count == 0, 0:6] = EMPTY_BOX
+    leaves[:, 6] = row0 * MXU_TILE + LEAF_FACES * np.arange(nt * TILE_LEAVES)
+    leaves[:, 7] = count
+    tree = np.zeros((nt, TREE_W), np.float32)
+    # rank: the inverse of each octant's visit order (global rows)
+    order = tiles[:, 6:14].astype(np.int64) - row0
+    for o in range(8):
+        tree[order[:, o], o] = row0 + np.arange(nt)
+    tree[:, 8:16] = _packed_orders(
+        leaves[:, 0:6].reshape(nt, TILE_LEAVES, 6))
+    # groups: GROUP_TILES consecutive tiles, the last one short
+    ng = (nt + GROUP_TILES - 1) // GROUP_TILES
+    tb = np.concatenate([tiles[:, 0:6], np.tile(
+        np.asarray(EMPTY_BOX, np.float32), (ng * GROUP_TILES - nt, 1))])
+    tb = tb.reshape(ng, GROUP_TILES, 6)
+    groups = np.zeros((ng, GROUP_W), np.float32)
+    groups[:, 0:3] = tb[:, :, 0:3].min(1)
+    groups[:, 3:6] = tb[:, :, 3:6].max(1)
+    groups[:, 6] = row0 + GROUP_TILES * np.arange(ng)
+    groups[:, 7] = np.minimum(nt - GROUP_TILES * np.arange(ng), GROUP_TILES)
+    groups[:, 8:16] = (np.argsort(_octant_keys(_centres(groups[:, 0:6])),
+                                  axis=0, kind="stable") + grow0)
+    for g in range(ng):
+        groups[g, 16:24] = _packed_orders(tb[g:g + 1, :int(groups[g, 7])])
+    return groups, tree, leaves
 
 
 def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
              slot_faces):
-    """fused.py::_mxu_pack on float32 NumPy arrays of a mesh arena.
-    Returns dict(faces [NT*128, 40], tiles [NT, 16],
-    slots {slot: (first tile, tile count, lo3, hi3)}), lo3/hi3 the slot's
-    bounding box as Python floats."""
+    """fused.py::_mxu_pack on float32 NumPy arrays of a mesh arena, and the
+    box hierarchy on top of it.  Returns dict(faces [NT*128, 40], tiles
+    [NT, 16], slots {slot: (first tile, tile count, lo3, hi3)}, groups
+    [NG, 24], tree [NT, 16], leaves [NT*8, 8], slot_groups {slot: (first
+    group, group count)}), lo3/hi3 the slot's bounding box as Python
+    floats; boxes unpadded."""
     face_parts, tile_parts, slots = [], [], {}
-    row0 = 0
+    tree_parts, slot_groups = [], {}
+    row0 = grow0 = 0
     for slot, (f0, f1) in enumerate(slot_faces):
         a, b, c = tri_a[f0:f1], tri_b[f0:f1], tri_c[f0:f1]
         nav, nbv, ncv = tri_na[f0:f1], tri_nb[f0:f1], tri_nc[f0:f1]
@@ -95,36 +199,28 @@ def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
         tiles = np.zeros((nt, TILE_W), np.float32)
         tri_lo = np.minimum(np.minimum(a, b), c)
         tri_hi = np.maximum(np.maximum(a, b), c)
-        boxes = []
         for j in range(nt):
             lo, hi = j * MXU_TILE, min(f, (j + 1) * MXU_TILE)
-            if hi <= lo:
-                boxes.append((1e30, 1e30, 1e30, -1e30, -1e30, -1e30))
-            else:
-                boxes.append(tuple(float(x) for x in tri_lo[lo:hi].min(0))
-                             + tuple(float(x) for x in tri_hi[lo:hi].max(0)))
-            tiles[j, 0:6] = boxes[-1]
+            tiles[j, 0:6] = EMPTY_BOX if hi <= lo else np.concatenate(
+                [tri_lo[lo:hi].min(0), tri_hi[lo:hi].max(0)])
             tiles[j, 14] = (row0 + j) * MXU_TILE
             tiles[j, 15] = max(hi - lo, 0)
         # near-to-far along each octant's diagonal, empty tiles last
-        ctr = np.array([[(bb[0] + bb[3]) / 2, (bb[1] + bb[4]) / 2,
-                         (bb[2] + bb[5]) / 2]
-                        if bb[0] <= bb[3] else [1e30, 1e30, 1e30]
-                        for bb in boxes], np.float64)
-        for o in range(8):
-            s = np.array([1.0 if o & 4 else -1.0, 1.0 if o & 2 else -1.0,
-                          1.0 if o & 1 else -1.0])
-            key = ctr @ s
-            key[ctr[:, 0] >= 1e30] = np.inf
-            tiles[:, 6 + o] = (np.argsort(key, kind="stable")
-                               + row0).astype(np.float32)
+        tiles[:, 6:14] = np.argsort(_octant_keys(_centres(tiles[:, 0:6])),
+                                    axis=0, kind="stable") + row0
         slots[slot] = (row0, nt, tuple(float(x) for x in tri_lo.min(0)),
                        tuple(float(x) for x in tri_hi.max(0)))
         face_parts.append(faces)
         tile_parts.append(tiles)
+        tree_parts.append(_tree(tri_lo, tri_hi, f, tiles, row0, grow0))
+        slot_groups[slot] = (grow0, tree_parts[-1][0].shape[0])
         row0 += nt
+        grow0 += slot_groups[slot][1]
+    groups, tree, leaves = (np.concatenate(x) for x in zip(*tree_parts))
     return dict(faces=np.concatenate(face_parts),
-                tiles=np.concatenate(tile_parts), slots=slots)
+                tiles=np.concatenate(tile_parts), slots=slots,
+                groups=groups, tree=tree, leaves=leaves,
+                slot_groups=slot_groups)
 
 
 def mesh_mxu_pack(mesh):

@@ -157,12 +157,19 @@ def shade_lanes(scene, cfg, tables, o, d, tput, absorb, pixel, alive, rtype,
 
 
 def _splat(image, pixel, values, mask=None):
-    """image + the per-pixel sums of values (jax.ops.segment_sum).  On the
-    card index_add_ adds with atomics, so a pixel that gets several lanes
-    in one call sums them in no fixed order (last-bit differences)."""
+    """image + the per-pixel sums of values (jax.ops.segment_sum), each
+    pixel's lanes summed in lane order: a stable sort of the lanes by
+    pixel, then a segmented sum over the sorted lanes.  No atomics, so a
+    frame on the card is the same bit for bit from run to run (index_add_
+    on the card adds a pixel's lanes in no fixed order)."""
     if mask is not None:
         values = torch.where(mask[:, None], values, 0.0)
-    return image.index_add(0, pixel, values)
+    px, order = torch.sort(pixel, stable=True)
+    bounds = torch.searchsorted(px, torch.arange(
+        image.shape[0] + 1, dtype=px.dtype, device=px.device))
+    sums = torch.segment_reduce(values[order], "sum",
+                                lengths=bounds.diff(), axis=0, unsafe=True)
+    return image + sums
 
 
 class WaveOutput(NamedTuple):

@@ -19,14 +19,25 @@ Row layouts (float32; integer fields are stored as exact floats):
                      12-20 nrm (local->world normals, row-major), 21 mtl;
                      mesh instances: 22 first tile, 23 tile count
   roots     [I, 8]   on the MXU tables, per mesh instance its slot's root
-                     box, 0-2 lo, 3-5 hi (padded, see below)
+                     box, 0-2 lo, 3-5 hi (padded, see below), 6 the slot's
+                     first group, 7 its group count
   tiles     [T, 8]   0-2 AABB lo, 3-5 AABB hi (padded, see below),
-                     6 first face, 7 face count; on the MXU tables [T, 16]:
-                     0-5 the padded box, 6-13 the octant visit orders,
-                     14 first face row, 15 face count (ops/mxu_pack.py)
+                     6 first face, 7 face count; empty on the MXU tables,
+                     whose tiles are the tnodes rows
   faces     [F, 40]  the packed per-face rows of ops/pack.py, Morton order;
                      on the MXU tables [T * 128, 40], ops/mxu_pack.py's
                      Plücker and shade rows
+  groups    [G, 24]  on the MXU tables, ops/mxu_pack.py's groups of 8
+                     tiles: 0-5 the padded box, 6 first tile, 7 tile
+                     count, 8-15 the slot's group visit orders, 16-23 the
+                     packed orders of the group's tiles
+  tnodes    [T, 24]  on the MXU tables, per tile (ops/mxu_pack.py's tile
+                     rows, whose visit orders become ranks): 0-5 the
+                     padded box, 6 first face row, 7 face count, 8-15 its
+                     rank in each octant's visit order, 16-23 the packed
+                     orders of its leaves
+  leaves    [T*8, 8] on the MXU tables, 16-face leaves: 0-5 the padded box,
+                     6 first face row, 7 face count
   materials [M, 24]  0-2 kd, 3-5 ks, 6 gloss, 7-9 refl, 10-12 refr, 13 ior,
                      14-16 absorb, 17-19 emission, 20 refl gloss,
                      21 refr gloss, 22/23 kd/ks texmap id (-1: none)
@@ -48,9 +59,10 @@ serves every size up to MXU_STREAM_MAX_FACES.
 Checker and file textures take the same path: a material's kd/ks texmap
 id picks a texmaps row, whose texture row says which sampler runs.
 
-The tile and root boxes are padded by 1e-4 * (1 + the largest |coordinate|
-of the box): the triangle vertices lie on the box faces, so a slab entry
-rounded a hair past a triangle's own t must not cull it.
+The root, group, tile and leaf boxes are padded by 1e-4 * (1 + the largest
+|coordinate| of the box): the triangle vertices lie on the box faces, so a
+slab entry rounded a hair past a triangle's own t must not cull it, and a
+face at exactly the lane's best t keeps a slab entry below that t.
 """
 from __future__ import annotations
 
@@ -72,6 +84,7 @@ MXU_STREAM_MAX_FACES = 1 << 20  # rtf_tpu's fused gate (fused.py:61)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
 INST_W, TILE_W, FACE_W, MAT_W, LIGHT_W = 24, 8, 40, 24, 16
+NODE_W = 24            # MXU groups and tnodes rows
 TEXMAP_W, TEX_W = 10, 10
 TILE_PAD = 1e-4
 
@@ -179,8 +192,11 @@ class WaveTables:
     planes: torch.Tensor      # [P, 24]
     mesh_insts: torch.Tensor  # [I, 24]
     roots: torch.Tensor       # [I, 8] on the MXU tables, else [0, 8]
-    tiles: torch.Tensor       # [T, 8], on the MXU tables [T, 16]
+    tiles: torch.Tensor       # [T, 8], on the MXU tables [0, 8]
     faces: torch.Tensor       # [F, 40], on the MXU tables [T * 128, 40]
+    groups: torch.Tensor      # [G, 24] on the MXU tables, else [0, 24]
+    tnodes: torch.Tensor      # [T, 24] on the MXU tables, else [0, 24]
+    leaves: torch.Tensor      # [T * 8, 8] on the MXU tables, else [0, 8]
     materials: torch.Tensor   # [M, 24]
     lights: torch.Tensor      # [L, 16]
     texmaps: torch.Tensor     # [Q, 10]
@@ -257,26 +273,40 @@ def _mesh_tables(scene: Scene):
             np.asarray(ranges, np.float32))
 
 
+def _pad_boxes(rows):
+    """_pad_box on the box columns 0-5 of every non-empty row (empty boxes
+    stay empty), in place: the same float32 operations, row by row."""
+    full = rows[:, 0] <= rows[:, 3]
+    pad = TILE_PAD * (1.0 + np.abs(rows[full, 0:6]).max(1, keepdims=True))
+    rows[full, 0:3] -= pad
+    rows[full, 3:6] += pad
+    return rows
+
+
 def _mxu_tables(scene: Scene):
-    """The MXU tables (ops/mxu_pack.py) with padded tile boxes, every slot
-    in slot order; per instance its tile range and its slot's bounds."""
+    """The MXU tables (ops/mxu_pack.py) with padded boxes, every slot in
+    slot order: faces, groups, tnodes, leaves; per instance its tile
+    range, its group range and its slot's bounds."""
     pack = mesh_mxu_pack(scene.mesh)
-    tiles = pack["tiles"]
-    for j in range(tiles.shape[0]):
-        if tiles[j, 0] <= tiles[j, 3]:        # empty tiles stay empty
-            tiles[j, 0:3], tiles[j, 3:6] = _pad_box(tiles[j, 0:3],
-                                                    tiles[j, 3:6])
+    tiles = _pad_boxes(pack["tiles"])
+    tnodes = np.zeros((tiles.shape[0], NODE_W), np.float32)
+    tnodes[:, 0:6] = tiles[:, 0:6]
+    tnodes[:, 6:8] = tiles[:, 14:16]
+    tnodes[:, 8:24] = pack["tree"]
     slots = [pack["slots"][s] for s in scene.mesh_inst_slots]
     ranges = np.asarray([s[:2] for s in slots], np.float32)
+    groups = [pack["slot_groups"][s] for s in scene.mesh_inst_slots]
     bounds = tuple((s[2], s[3]) for s in slots)
-    return tiles, pack["faces"], ranges, bounds
+    return (pack["faces"], _pad_boxes(pack["groups"]), tnodes,
+            _pad_boxes(pack["leaves"]), ranges, groups, bounds)
 
 
-def _roots(bounds) -> np.ndarray:
+def _roots(bounds, groups) -> np.ndarray:
     rows = np.zeros((len(bounds), 8), np.float32)
     for i, (lo, hi) in enumerate(bounds):
         rows[i, 0:3], rows[i, 3:6] = _pad_box(np.asarray(lo, np.float32),
                                               np.asarray(hi, np.float32))
+        rows[i, 6:8] = groups[i]
     return rows
 
 
@@ -335,8 +365,12 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
     (default: the scene's own device)."""
     dev = scene.device if device is None else torch.device(device)
     mxu = mesh_mode(scene) == "mxu"
+    groups, tnodes = (np.zeros((0, NODE_W), np.float32) for _ in range(2))
+    leaves, root_groups = np.zeros((0, 8), np.float32), ()
     if mxu:
-        tiles, faces, ranges, bounds = _mxu_tables(scene)
+        (faces, groups, tnodes, leaves, ranges, root_groups,
+         bounds) = _mxu_tables(scene)
+        tiles = np.zeros((0, TILE_W), np.float32)
     else:
         (tiles, faces, ranges), bounds = _mesh_tables(scene), ()
     mats = _materials(scene)
@@ -350,8 +384,9 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
         planes=t(_instances(scene.planes, scene.num_planes)),
         mesh_insts=t(_instances(scene.mesh_inst, scene.num_mesh_inst,
                                 ranges if len(ranges) else None)),
-        roots=t(_roots(bounds)),
-        tiles=t(tiles), faces=t(faces), materials=t(mats),
+        roots=t(_roots(bounds, root_groups)),
+        tiles=t(tiles), faces=t(faces), groups=t(groups), tnodes=t(tnodes),
+        leaves=t(leaves), materials=t(mats),
         lights=t(_lights(scene)),
         texmaps=t(texmaps), textures=t(textures), atlas=t(atlas),
         atlas_w=int(atlas_w),

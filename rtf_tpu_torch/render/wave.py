@@ -63,7 +63,25 @@ launches = 0
 launches_textured = 0
 launches_mxu = 0
 launches_textured_mxu = 0
-NSTAT = 12            # work counters of the kernel (csrc/wave_kernel.cu)
+NSTAT = 23            # work counters of the kernel (csrc/wave_kernel.cu)
+THREADS = 128         # the kernel's block size
+# shared memory of an MXU launch (bytes): the roots and groups up to this,
+# else none (they stay in device memory); at most the 48 KB a launch gets
+# without raising its limit
+SMEM_BYTES = 48 * 1024
+
+
+def smem_staged(tables: WaveTables) -> bool:
+    """Whether an MXU launch stages the walk's roots and groups in shared
+    memory (the kernel sizes its shared memory from them)."""
+    return tables.mxu and 4 * (tables.roots.numel()
+                                + tables.groups.numel()) <= SMEM_BYTES
+
+
+def stats_size(n: int) -> int:
+    """Entries of a stats tensor that also takes, on the MXU variants, each
+    block's cycles (see `wave`)."""
+    return NSTAT + (n + THREADS - 1) // THREADS
 
 
 # ---------------------------------------------------------------------------
@@ -240,18 +258,14 @@ class _Host:
         if self.mxu:
             dev = tables.faces.device
             self.roots = tables.roots.tolist()
-            self.boxes = tables.tiles[:, 0:6]
+            self.boxes = tables.tnodes[:, 0:6]
             # the pair test's face columns per tile, [T, 128, 22]
             self.pair_cols = tables.faces[:, 0:22].reshape(
                 -1, MXU_TILE, 22).permute(2, 0, 1).contiguous()
             # rank[o, j]: tile j's place in octant o's visit order (its
-            # row in the order's column; ranks compare within a slot)
-            nt = tables.tiles.shape[0]
-            order = tables.tiles[:, 6:14].to(torch.int64)
-            self.rank = torch.empty((8, nt), dtype=torch.int64, device=dev)
-            steps = torch.arange(nt, device=dev)
-            for o in range(8):
-                self.rank[o, order[:, o]] = steps
+            # row in the order's column; ranks compare within a slot), the
+            # table the kernel reads
+            self.rank = tables.tnodes[:, 8:16].T.to(torch.int64)
             self.chunk = _CHUNK_CUDA if dev.type == "cuda" else _CHUNK
 
 
@@ -883,7 +897,8 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     `launches_textured_mxu`; see `launch_counter`).
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
-    work counts to (see csrc/wave_kernel.cu, STAT_*)."""
+    work counts to (see csrc/wave_kernel.cu, STAT_*); with `stats_size(N)`
+    entries an MXU launch also writes each block's cycles after them."""
     if o3.device.type == "cpu":
         return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0,
                           tput3, absorb3, rtype, surf_out, gi_from)
@@ -894,14 +909,14 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
     for name in ("spheres", "planes", "mesh_insts", "roots", "tiles",
-                 "faces", "materials", "lights", "texmaps", "textures",
-                 "atlas"):
+                 "faces", "groups", "tnodes", "leaves", "materials",
+                 "lights", "texmaps", "textures", "atlas"):
         x = getattr(tables, name)
         if x.device != dev or x.dtype != torch.float32 \
                 or not x.is_contiguous():
             raise ValueError(f"wave: table {name} must be contiguous "
                              f"float32 on {dev}")
-    for name in ("faces", "atlas"):
+    for name in ("faces", "atlas", "roots", "groups", "tnodes", "leaves"):
         if getattr(tables, name).data_ptr() % 16:
             raise ValueError(f"wave: the {name} table must be 16-byte "
                              "aligned (the kernel reads its rows as float4)")
@@ -944,6 +959,9 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ctypes.c_float(prm["color_threshold"]),
             prm["shadow_max"], prm["shadow_min"],
             int(tables.need_uv), int(tables.has_gloss), int(tables.mxu),
+            ptr(tables.groups), tables.groups.shape[0], ptr(tables.tnodes),
+            ptr(tables.leaves), int(smem_staged(tables)),
+            int(stats is not None and stats.numel() >= stats_size(n)),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "

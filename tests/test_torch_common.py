@@ -101,6 +101,85 @@ def textured_desc(w=32, h=24, port=True, seed=0, mesh_subdiv=1,
     return desc
 
 
+def mxu_walk_desc(case, w=32, h=24):
+    """The port's box without its ball, plus 1280-face balls (the MXU
+    tables) for the edge cases of the kernel's hierarchical walk:
+    "tie": one ball whose faces are each listed twice, after one tiny far
+      face at the low corner that Morton order puts first, so each pair
+      of copies is tied at equal t and one pair straddles every 128-face
+      tile boundary (the stable Morton sort keeps copies adjacent);
+    "twin": the ball in two slots at one transform (every hit tied across
+      instances: the first instance keeps it);
+    "two": one ball instanced twice, the second rotated and moved."""
+    from rtf_tpu_torch.core.transform import Transform
+    from rtf_tpu_torch.scene.procedural import (
+        _node, box_scene, icosphere_mesh)
+    desc = box_scene(w, h, with_mesh=False)
+    place = Transform().scale(3).translate([1, 4, 3])
+    ball = icosphere_mesh(3)
+    if case == "tie":
+        nv = len(ball.v)
+        ball.v = np.concatenate([ball.v, np.array(
+            [[-1.5, -1.5, -1.5], [-1.49, -1.5, -1.5], [-1.5, -1.49, -1.5]],
+            np.float32)])
+        ball.f = np.concatenate([[[nv, nv + 1, nv + 2]], ball.f, ball.f]
+                                ).astype(np.int32)
+        ball.face_mtl = np.zeros(len(ball.f), np.int32)
+        ball.compute_normals()
+        nodes = [("ball", ball, place)]
+    elif case == "twin":
+        nodes = [("ball", ball, place), ("twin", icosphere_mesh(3), place)]
+    else:
+        nodes = [("ball", ball, place),
+                 ("ball2", ball, Transform().scale(2.5).rotate([0, 0, 1], 40)
+                  .rotate([1, 0, 0], 25).translate([-6, 8, 14]))]
+    for name, mesh, tf in nodes:
+        desc.root.children.append(_node(name, "mesh", "redball", tf,
+                                        mesh=mesh))
+    return desc
+
+
+def face_rays(scene, dev, offset=2.0):
+    """[3, N] origins and directions of one ray per non-degenerate face
+    of the scene's first mesh instance: from `offset` outside the face's
+    centroid along its world-space normal, straight back at it."""
+    mesh = scene.mesh
+    f0, f1 = mesh.slot_faces[int(scene.mesh_inst_slots[0])]
+    a, b, c = (getattr(mesh, k)[f0:f1].cpu().double() for k in
+               ("tri_a", "tri_b", "tri_c"))
+    n = torch.linalg.cross(b - a, c - a)
+    keep = n.norm(dim=1) > 1e-12
+    itm = scene.mesh_inst.itm[0].cpu().double()
+    ctr = ((a + b + c) / 3.0)[keep] @ torch.linalg.inv(itm).T \
+        + scene.mesh_inst.pos[0].cpu().double()
+    nw = n[keep] @ itm
+    nw = nw / nw.norm(dim=1, keepdim=True)
+    o = (ctr + offset * nw).float().T.contiguous().to(dev)
+    d = (-nw).float().T.contiguous().to(dev)
+    return o, d
+
+
+def vertex_rays(scene, dev, seed=0):
+    """[3, N] origins and directions of one ray per face vertex of the
+    scene's first mesh instance: from a seeded point about 3 outside the
+    vertex straight at it.  A hit on a vertex lies on the faces of its
+    leaf, tile and group boxes, where only their padding keeps the slab
+    entry below t."""
+    mesh = scene.mesh
+    f0, f1 = mesh.slot_faces[int(scene.mesh_inst_slots[0])]
+    v = torch.cat([getattr(mesh, k)[f0:f1].cpu() for k in
+                   ("tri_a", "tri_b", "tri_c")]).double()
+    inv = torch.linalg.inv(scene.mesh_inst.itm[0].cpu().double())
+    vw = v @ inv.T + scene.mesh_inst.pos[0].cpu().double()
+    out = v / v.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    jitter = torch.as_tensor(np.random.RandomState(seed).normal(
+        0, 0.3, tuple(v.shape)))
+    o = vw + 3.0 * (out @ inv.T) + jitter
+    d = (vw - o) / (vw - o).norm(dim=1, keepdim=True)
+    return (o.float().T.contiguous().to(dev),
+            d.float().T.contiguous().to(dev))
+
+
 @pytest.fixture
 def one_torch_thread():
     """Run the test's PyTorch CPU ops on one thread: the port's tests use
@@ -146,7 +225,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "rtf_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

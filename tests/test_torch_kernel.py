@@ -13,14 +13,19 @@ an environment map and a checker; tests/test_torch_common.py) run the
 kernel's textured variant, counted in `launches_textured`; the "mxu-"
 cases the 1280-face ball on the MXU tables (the MXU variants, counted in
 `launches_mxu` and `launches_textured_mxu`), and the dense Plücker closest
-hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The GI rows
+hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The MXU
+walk's edge cases (ties across tiles and instances, two instances, the
+81,920-face ball, shared or device memory for the upper levels, the
+textured variant's GI rows) and the wavefront frame's determinism are
+exact: max abs error 0.0.  The GI rows
 (surface and photon-query rows, render/wave.py::split_rows) of bounce 0
 agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
 of lanes with the mean within 1%."""
 import pytest
 import torch
 
-from test_torch_common import checker_desc, textured_desc
+from test_torch_common import (
+    checker_desc, face_rays, mxu_walk_desc, textured_desc, vertex_rays)
 
 
 @pytest.fixture
@@ -249,6 +254,126 @@ def test_mxu_kernel_rows_match_plain(cuda_dev, name, case):
     kern = W.wave(cfg, tables, *args, **kw)
     torch.cuda.synchronize()
     _rows_close(plain, kern, args[2], 0)
+
+
+def _assert_exact(plain, kern):
+    """Every output of the kernel equals the plain version's bit for bit
+    (max abs error 0.0): radiance, hit mask, z and any rows."""
+    for p, k in zip(plain, kern):
+        if isinstance(p, list):
+            for pq, kq in zip(p, k):
+                for a, b in zip(pq, kq):
+                    assert torch.equal(a, b)
+        elif p is not None:
+            assert torch.equal(p, k), float((p.float() - k.float()).abs()
+                                            .max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bounces,staged", [
+    ("tie", 0, True), ("tie", 4, True), ("tie", 0, False),
+    ("tie", 4, False), ("twin", 0, True), ("twin", 4, False),
+    ("two", 0, True), ("two", 4, False), ("big", 0, True),
+    ("big", 4, False)])
+def test_mxu_walk_exact(cuda_dev, monkeypatch, case, bounces, staged):
+    """The hierarchical MXU walk against wave_plain with max abs error 0.0
+    where an out-of-order walk could go wrong: exact ties at equal t
+    across tiles ("tie"; the frame's rays, one ray per face and one per
+    face vertex, a hit on its boxes' faces) and across
+    instances ("twin"), two instances of one ball, one transformed
+    ("two"), the 81,920-face ball ("big"), with the roots and groups in
+    shared memory or in device memory."""
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.scene.procedural import box_scene
+    if not staged:
+        monkeypatch.setattr(W, "SMEM_BYTES", 0)
+    desc = box_scene(64, 48, mesh_subdiv=6) if case == "big" \
+        else mxu_walk_desc(case, 64, 48)
+    tables, o3, d3, alive = _setup(desc, cuda_dev)
+    assert tables.mxu and W.smem_staged(tables) == staged
+    if case != "big":
+        from rtf_tpu_torch.scene.build import build_scene
+        scene = build_scene(desc, device=cuda_dev)
+        fo, fd = face_rays(scene, cuda_dev)
+        vo, vd = vertex_rays(scene, cuda_dev)
+        o3, d3 = torch.cat([o3, fo, vo], 1), torch.cat([d3, fd, vd], 1)
+        alive = torch.ones(o3.shape[1], dtype=torch.bool, device=cuda_dev)
+    cfg = _cfg(bounces=bounces, split_mode="rr")
+    plain = W.wave_plain(cfg, tables, o3, d3, alive, 21)
+    before = W.launches_mxu
+    kern = W.wave(cfg, tables, o3, d3, alive, 21)
+    torch.cuda.synchronize()
+    assert W.launches_mxu == before + 1
+    assert int(kern[1].sum()) > 100
+    _assert_exact(plain, kern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_mxu_textured_rows_exact(cuda_dev, monkeypatch, staged):
+    """The textured MXU variant with GI rows (surface rows, a query per
+    bounce from bounce 0) against wave_plain, max abs error 0.0."""
+    from rtf_tpu_torch.render import wave as W
+    if not staged:
+        monkeypatch.setattr(W, "SMEM_BYTES", 0)
+    cfg = _cfg(bounces=2, split_mode="rr", env_on_reflect_miss=True)
+    tables, o3, d3, alive = _setup(_desc("mxu-textured"), cuda_dev)
+    assert tables.mxu and tables.textured
+    assert W.smem_staged(tables) == staged
+    kw = dict(surf_out=True, gi_from=0)
+    plain = W.wave_plain(cfg, tables, o3, d3, alive, 13, **kw)
+    kern = W.wave(cfg, tables, o3, d3, alive, 13, **kw)
+    torch.cuda.synchronize()
+    _assert_exact(plain, kern)
+
+
+@pytest.mark.cuda
+def test_mxu_walk_counters(cuda_dev):
+    """The MXU counters: root-box tests and passes (walks), each level's
+    slab tests (the 1280-face ball has 2 groups), pairs, cycles by part
+    within the bounce loop's, warp-iterations with 1-32 active lanes, and
+    each block's cycles after the counters."""
+    from rtf_tpu_torch.render import wave as W
+    tables, o3, d3, alive = _setup(_desc("mxu-box"), cuda_dev)
+    n = o3.shape[1]
+    stats = torch.zeros(W.stats_size(n), dtype=torch.int64, device=cuda_dev)
+    W.wave(_cfg(bounces=2, split_mode="rr"), tables, o3, d3, alive, 5,
+           stats=stats)
+    st = stats.tolist()
+    root, groups, leaves = st[11:14]
+    tiles, pairs, walks = st[3], st[4] + st[5], st[22]
+    assert root == st[7] and 0 < walks < root and 0 < groups <= 2 * walks
+    assert 0 < tiles <= 8 * groups and 0 < leaves <= 8 * tiles
+    assert 0 < pairs <= 16 * leaves
+    cyc_root, cyc_walk, cyc_pair, cyc_bounces = st[14:18]
+    assert min(cyc_root, cyc_walk, cyc_pair) > 0
+    assert cyc_root + cyc_walk + cyc_pair < cyc_bounces
+    for it, lanes in ((st[18], st[19]), (st[20], st[21])):
+        assert 0 < it <= lanes <= 32 * it
+    blocks = st[W.NSTAT:]
+    assert len(blocks) == (n + 127) // 128 and min(blocks) > 0
+
+
+@pytest.mark.cuda
+def test_wavefront_frame_is_deterministic(cuda_dev):
+    """The 160x120 wavefront frame (soft shadows, the 'both' split)
+    rendered twice on the same inputs is the same bit for bit: the splat
+    sums each pixel's lanes in lane order, without atomics."""
+    import numpy as np
+
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.render.scene_tables import render_path
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    scene = build_scene(box_scene(160, 120, light_size=1.0),
+                        device=cuda_dev)
+    cfg = RenderConfig(min_samples=2, max_samples=2)
+    assert render_path(scene, cfg)[0] == "wavefront"
+    a = render(scene, cfg, seed=5, device=cuda_dev)
+    b = render(scene, cfg, seed=5, device=cuda_dev)
+    assert np.array_equal(a.radiance, b.radiance)
+    assert np.array_equal(a.z, b.z) and a.radiance.mean() > 0
 
 
 @pytest.mark.cuda

@@ -87,11 +87,18 @@ def test_mxu_tables_equal_mxu_pack(name):
     for slot, (row0, nts, _, _) in ref["slots"].items():
         f0, f1 = scene.mesh.slot_faces[slot]
         assert tiles[row0:row0 + nts, 15].sum() == f1 - f0
-    # the wave's tables: padded boxes, per instance its slot's tiles
+    # the wave's tables: the tiles as tnodes rows with padded boxes, the
+    # face ranges and the ranks that invert the visit orders; per instance
+    # its slot's tiles
     tab = scene_tables(pscene)
-    assert tab.mxu and tab.textured is False
-    t = tab.tiles.numpy()
-    np.testing.assert_array_equal(t[:, 6:16], tiles[:, 6:16])
+    assert tab.mxu and tab.textured is False and tab.tiles.numel() == 0
+    t = tab.tnodes.numpy()
+    np.testing.assert_array_equal(t[:, 6:8], tiles[:, 14:16])
+    for slot, (row0, nts, _, _) in ref["slots"].items():
+        for o in range(8):
+            order = tiles[row0:row0 + nts, 6 + o].astype(np.int64)
+            np.testing.assert_array_equal(t[order, 8 + o],
+                                          row0 + np.arange(nts))
     full = tiles[:, 0] <= tiles[:, 3]
     assert (t[full, 0:3] < tiles[full, 0:3]).all()
     assert (t[full, 3:6] > tiles[full, 3:6]).all()
