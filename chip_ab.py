@@ -1,62 +1,68 @@
 #!/usr/bin/env python3
-"""Compare versions of the wave kernel, and the wavefront's splat, in turns
-on one card.
+"""Compare versions of the port's kernels in turns on one card.
 
-    python3 chip_ab.py [PARENT_DIR] [--flat-counters] [--out FILE]
+    python3 chip_ab.py [PARENT_DIR] [--out FILE]
 
 Run from the root of a checkout (the change), on a host with a CUDA card
-and nvcc.  The change's kernels build as chip_smoke.py builds them.  On
-the same inputs:
+and nvcc.  The change's kernels build as chip_smoke.py builds them.  The
+launches are chip_smoke.py's, on the same inputs:
 
-1. staging: the change's MXU launches (phase 8's: the untextured variant
-   at 800x600 on the 20,480-face ball, box_scene(800, 600,
-   mesh_subdiv=5), 4 bounces, hard shadows, seed 11; phase 9's primary and
-   child: the textured variant with GI rows on the textured box with the
-   ball, phase 6's config and volumes, a child wave of stratum 0 from
-   uniforms of seed 5) with the walk's roots and groups staged in shared
-   memory and in device memory (SMEM_BYTES 0, as the card tests force
-   it), in turns staged, not, not, staged, staged, not, not, staged; the
-   outputs equal bit for bit;
-2. splat: render/integrator.py::_splat against `index_add` (the atomic
-   splat it replaced) on the inputs of every splat call of one frame of
-   phase 7's config (RenderConfig() on box_scene(800, 600,
-   light_size=1.0)), in turns: per call and per frame; the sorted splat
-   equal to itself bit for bit on a second call and to index_add's within
-   float32 rounding;
+  main, textured      phases 3-4: the wave kernel's immediates variants at
+                      800x600 (the 320-face ball), 4 bounces, seed 11;
+  gi primary, child   phase 5 (box 400x300, hemisphere GI): the primary
+                      launch with its rows and a child launch (uniforms of
+                      seed 5);
+  hybrid primary, child  phase 6 (the textured box, photon GI, two
+                      volumes): the same two launch kinds;
+  mxu, hybrid_mxu primary, child  phases 8-9 on the 20,480-face ball;
+  mesh primary, shadow, bounce 1  phase 7: mesh_closest_hit on the
+                      inputs of one wavefront wave of RenderConfig() on
+                      box_scene(800, 600, light_size=1.0): its primary
+                      rays, its first shadow trace, the first bounce's
+                      compacted queue.
+
+1. counters: one launch of each wave launch with the counters on (the
+   walk's slab tests by level, face tests, SIMT efficiency, lane cycles by
+   part, each block's cycles; csrc/wave_kernel.cu STAT_*), its time with
+   them on and the bound on its counts (chip_smoke.py::bound); for
+   mesh_closest_hit its slab tests and ray-face pairs;
+2. scene tables in shared memory: the change's immediates launches with
+   the small tables that every lane reads per bounce (spheres, planes,
+   mesh instances, lights) staged in shared memory, as the kernel stages
+   them, against the same launches with them in device memory (the
+   fallback of scenes whose tables do not fit, forced through
+   render/wave.py::scene_staged), in turns staged, device memory, device
+   memory, staged, twice; outputs equal bit for bit;
 3. with PARENT_DIR (another checkout of the repository, for example
    `git archive` of the parent commit unpacked in a directory that
-   .gitignore lists): the parent's csrc/wave_kernel.cu, built with the
-   parent's own nvcc flags into build/ab/, and the change's in turns,
-   parent, change, change, parent, on phase 8's launch, phase 9's primary
-   and child launches and the main path's launch (the immediates variant,
-   box_scene(800, 600)), outputs equal bit for bit; then the large-mesh
-   main frame (phase 8) and the large-mesh hybrid frame (phase 9) through
-   `render`.  The parent's library is called through the change's
-   wrapper: the change's arguments past the parent's count are dropped but
-   the stream, the last (a version appends its new arguments before the
-   stream); on the MXU tables it gets the change's tables with
-   ops/mxu_pack.py's padded tile rows [T, 16] in `tiles`, which the flat
-   walk reads there.  The MXU walk's counters (STAT_* 11-22 and each block's
-   cycles) come from one launch of each side with the counters on; the
-   parent's counters are its own where its layout is the change's.
-   --flat-counters: the parent's MXU walk is the flat tile walk that the
-   box hierarchy replaced (wave_kernel.cu at commit caa87e5); its counters
-   are written into a copy of its source (FLAT_PATCH, each edit checked to
-   apply as often as it should), which is built a second time and takes
-   its own turns beside the parent (parent, counted parent, change,
-   change, counted parent, parent).
+   .gitignore lists): the parent's csrc/wave_kernel.cu and csrc/mesh_hit.cu,
+   built with the parent's own nvcc flags into build/ab/, against the
+   change's in turns parent, change, change, parent on every launch above,
+   outputs equal bit for bit; the parent's work counters (STAT 0-10, the
+   same layout in both); for mesh_closest_hit the kernel alone (profiler)
+   and what a trace calls (events: on a parent without
+   mesh_closest_hit_rays, pack_rays and mesh_closest_hit), and, where the
+   parent's kernel walks the tiles
+   flat (PR 6's launch takes a tile count), that kernel launched with no
+   tiles (nt = 0: reading the rays and writing the outputs, its floor);
+   then the frames of phases 3-7 through `render`.  The parent's wave
+   library is called through the change's wrapper with the change's
+   arguments; where its launch takes a tiles table (PR 6's layout: after
+   the roots) that table is put back, the change's tnodes columns 0-7
+   (padded box, first face, face count), which its flat walk reads, and
+   the arguments it does not take are dropped (those before the stream).
+   The parent's mesh_closest_hit(_rays) is its own ops/mesh_hit.py on its
+   own library, with the change's arguments that it takes.
 
 A launch's time is the mean of 20 by CUDA events (the queue filled first)
-and of 5 by the profiler (kernel only); a splat's the mean of 20 by CUDA
-events; a frame's the best of 3 (the hybrid frame: of 2).  Prints the
-card, one line per figure and one JSON object with every figure as the
+and of 5 by the profiler (kernel only); a frame's the best of 2.  Prints
+the card, one line per figure and one JSON object with every figure as the
 last line (also written to --out, default build/chip_ab.json).
 """
 import ctypes
-import dataclasses
 import importlib.util
+import inspect
 import json
-import re
 import subprocess
 import sys
 import time
@@ -64,105 +70,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 W, H = 800, 600
-
-# (old, new, occurrences): edits of wave_kernel.cu at commit caa87e5 that
-# count, in its flat MXU walk, what the hierarchy's walk counts (the same
-# STAT_* indices); the instance loop and tile test are the same text in
-# its closest-hit and any-hit functions
-FLAT_PATCH = [
-    ("  STAT_ROOT = 11,        // root-box slab tests (MXU variants)\n"
-     "  NSTAT_MXU = 12\n};",
-     "  STAT_ROOT = 11,\n  STAT_GROUPS = 12,\n  STAT_LEAVES = 13,\n"
-     "  STAT_CYC_ROOT = 14,\n  STAT_CYC_WALK = 15,\n  STAT_CYC_PAIR = 16,\n"
-     "  STAT_CYC_BOUNCES = 17,\n  STAT_WALK_ITERS = 18,\n"
-     "  STAT_WALK_LANES = 19,\n  STAT_PAIR_ITERS = 20,\n"
-     "  STAT_PAIR_LANES = 21,\n  STAT_ROOT_IN = 22,\n  NSTAT_MXU = 23\n};",
-     1),
-    ("// fused.py::_mesh_closest_mxu for one ray",
-     "__device__ __forceinline__ void warp_step(unsigned long long* cnt,\n"
-     "                                          int it) {\n"
-     "  const unsigned m = __activemask();\n"
-     "  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {\n"
-     "    cnt[it] += 1;\n    cnt[it + 1] += __popc(m);\n  }\n}\n\n"
-     "// fused.py::_mesh_closest_mxu for one ray", 1),
-    ("    to_local(I, o, d, lo, l);\n    float ild[3];\n    inv_dir(l, ild);\n"
-     "    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }\n",
-     "    const long long c0_ = cnt ? clock64() : 0;\n"
-     "    to_local(I, o, d, lo, l);\n    float ild[3];\n    inv_dir(l, ild);\n"
-     "    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_ROOT] += 1; }\n", 2),
-    ("    if (!slab(A.roots + ROOT_W * k, lo, ild, h.t)) continue;\n",
-     "    const bool in_ = slab(A.roots + ROOT_W * k, lo, ild, h.t);\n"
-     "    if (cnt) cnt[STAT_CYC_ROOT] += clock64() - c0_;\n"
-     "    if (cnt) cnt[STAT_ROOT_IN] += in_;\n"
-     "    if (!in_) continue;\n"
-     "    const long long c1_ = cnt ? clock64() : 0;\n"
-     "    long long cpair_ = 0;\n", 1),
-    ("    if (!slab(A.roots + ROOT_W * k, lo, ild, cap)) continue;\n",
-     "    const bool in_ = slab(A.roots + ROOT_W * k, lo, ild, cap);\n"
-     "    if (cnt) cnt[STAT_CYC_ROOT] += clock64() - c0_;\n"
-     "    if (cnt) cnt[STAT_ROOT_IN] += in_;\n"
-     "    if (!in_) continue;\n"
-     "    const long long c1_ = cnt ? clock64() : 0;\n"
-     "    long long cpair_ = 0;\n", 1),
-    ("      const float* T = A.tiles + MXU_TILE_W * j;\n"
-     "      if (cnt) cnt[STAT_TILES] += 1;\n",
-     "      const float* T = A.tiles + MXU_TILE_W * j;\n"
-     "      if (cnt) cnt[STAT_TILES] += 1;\n"
-     "      if (cnt) warp_step(cnt, STAT_WALK_ITERS);\n", 2),
-    ("nf = (int)ld(T + 15);\n      if (cnt) cnt[STAT_TRI_CLOSEST] += nf;\n"
-     "      for (int f = f0; f < f0 + nf; ++f) {\n",
-     "nf = (int)ld(T + 15);\n      if (cnt) cnt[STAT_TRI_CLOSEST] += nf;\n"
-     "      const long long p0_ = cnt ? clock64() : 0;\n"
-     "      for (int f = f0; f < f0 + nf; ++f) {\n"
-     "        if (cnt) warp_step(cnt, STAT_PAIR_ITERS);\n", 1),
-    ("        bsa = sa; bsb = sb; bsc = sc; bdn = dn;\n      }\n    }\n"
-     "    if (best < 0) continue;\n",
-     "        bsa = sa; bsb = sb; bsc = sc; bdn = dn;\n      }\n"
-     "      if (cnt) cpair_ += clock64() - p0_;\n    }\n"
-     "    if (cnt) {\n      cnt[STAT_CYC_PAIR] += cpair_;\n"
-     "      cnt[STAT_CYC_WALK] += clock64() - c1_ - cpair_;\n    }\n"
-     "    if (best < 0) continue;\n", 1),
-    ("      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);\n"
-     "      for (int f = f0; f < f0 + nf; ++f) {\n"
-     "        if (cnt) cnt[STAT_TRI_SHADOW] += 1;\n",
-     "      const int f0 = (int)ld(T + 14), nf = (int)ld(T + 15);\n"
-     "      const long long p0_ = cnt ? clock64() : 0;\n"
-     "      for (int f = f0; f < f0 + nf; ++f) {\n"
-     "        if (cnt) warp_step(cnt, STAT_PAIR_ITERS);\n"
-     "        if (cnt) cnt[STAT_TRI_SHADOW] += 1;\n", 1),
-    ("        if (plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)\n"
-     "            && t > 1e-14f && t < cap)\n          return true;\n"
-     "      }\n    }\n  }\n  return false;\n}",
-     "        if (plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)\n"
-     "            && t > 1e-14f && t < cap) {\n"
-     "          if (cnt) {\n            cpair_ += clock64() - p0_;\n"
-     "            cnt[STAT_CYC_PAIR] += cpair_;\n"
-     "            cnt[STAT_CYC_WALK] += clock64() - c1_ - cpair_;\n"
-     "          }\n          return true;\n        }\n      }\n"
-     "      if (cnt) cpair_ += clock64() - p0_;\n    }\n"
-     "    if (cnt) {\n      cnt[STAT_CYC_PAIR] += cpair_;\n"
-     "      cnt[STAT_CYC_WALK] += clock64() - c1_ - cpair_;\n    }\n"
-     "  }\n  return false;\n}", 1),
-    ("  int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-     "  if (i >= A.n) return;\n  const int n = A.n;\n",
-     "  int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-     "  long long k0_ = 0;\n  if constexpr (MXU) {\n"
-     "    if (A.stats) k0_ = clock64();\n  }\n"
-     "  if (i >= A.n) return;\n  const int n = A.n;\n", 1),
-    ("  for (int b = 0; b < A.nbounce && alive; ++b) {\n",
-     "  long long cb_ = 0;\n  if constexpr (MXU) {\n"
-     "    if (cnt) cb_ = clock64();\n  }\n"
-     "  for (int b = 0; b < A.nbounce && alive; ++b) {\n", 1),
-    ("    rtype = take_r ? RT_REFLECT : RT_REFRACT;\n  }\n",
-     "    rtype = take_r ? RT_REFLECT : RT_REFRACT;\n  }\n"
-     "  if constexpr (MXU) {\n"
-     "    if (cnt) cnt_[STAT_CYC_BOUNCES] += clock64() - cb_;\n  }\n", 1),
-    ("      if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);\n}\n",
-     "      if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);\n"
-     "  if constexpr (MXU) {\n    if (cnt)\n"
-     "      atomicMax(A.stats + NSTAT_MXU + blockIdx.x,\n"
-     "                (unsigned long long)(clock64() - k0_));\n  }\n}\n", 1),
-]
+PARENT_TILES_ARG = 17      # the parent's (PR 6's) tiles pointer, after roots
 
 
 def fail(msg):
@@ -175,84 +83,64 @@ def check(ok, msg):
         fail(msg)
 
 
-def flat_counters_source(src: str) -> str:
-    for k, (old, new, count) in enumerate(FLAT_PATCH):
-        check(src.count(old) == count,
-              f"edit {k} of FLAT_PATCH does not apply to the parent's "
-              "source (it is written for the flat walk of commit caa87e5)")
-        src = src.replace(old, new)
-    return src
-
-
-class ParentLib:
+class Lib:
     """The parent's wave library behind the change's `_build.load` call:
-    the change's launch arguments past the parent's count dropped, the
-    stream (the last) kept."""
+    its tiles pointer put back where its launch takes one, and the
+    change's arguments past its count dropped but the stream (the last)."""
 
-    def __init__(self, lib, nargs):
-        self.lib, self.nargs = lib, nargs
+    def __init__(self, lib, nargs, tiles=None):
+        self.lib, self.nargs, self.tiles = lib, nargs, tiles
 
     def rtf_wave_launch(self, *args):
+        if self.tiles is not None:
+            args = (args[:PARENT_TILES_ARG] + (self.tiles(),)
+                    + args[PARENT_TILES_ARG:])
         return self.lib.rtf_wave_launch(*args[:self.nargs - 1], args[-1])
 
     def rtf_error_string(self, code):
         return self.lib.rtf_error_string(code)
 
 
-def parent_tables(scene, tab, dev):
-    """The change's tables for the parent's kernel: on the MXU tables with
-    ops/mxu_pack.py's padded tile rows [T, 16] in `tiles`."""
-    if not tab.mxu:
-        return tab
-    import torch
-    from rtf_tpu_torch.ops.mxu_pack import mesh_mxu_pack
-    from rtf_tpu_torch.render.scene_tables import _pad_boxes
-    tiles = _pad_boxes(mesh_mxu_pack(scene.mesh)["tiles"])
-    return dataclasses.replace(tab, tiles=torch.as_tensor(tiles, device=dev))
-
-
-def build_parent(parent, flat, nvcc):
-    """The parent's wave library, and with `flat` its counted copy, built
-    with the parent's own flags into build/ab/: {tag: ParentLib}, logs."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", parent / "rtf_tpu_torch" / "_build.py")
-    pb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pb)
-    csrc = parent / "rtf_tpu_torch" / "csrc"
-    out = ROOT / "build" / "ab"
+def nvcc_all(jobs, out):
+    """Build {tag: (source, flags)} into out/lib{tag}.so, one nvcc each,
+    all started together: {tag: ctypes library}, {tag: log}."""
     out.mkdir(parents=True, exist_ok=True)
-    sources = {"parent": csrc / "wave_kernel.cu"}
-    if flat:
-        sources["parent_counters"] = out / "wave_kernel_counters.cu"
-        sources["parent_counters"].write_text(
-            flat_counters_source(sources["parent"].read_text()))
+    from rtf_tpu_torch import _build
     procs = {tag: subprocess.Popen(
-        [nvcc, *pb.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc), "-o",
-         str(out / f"lib{tag}.so"), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for tag, src in sources.items()}
+        [_build.nvcc(), *flags, "-Xptxas", "-v", "-I", str(src.parent),
+         "-o", str(out / f"lib{tag}.so"), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for tag, (src, flags) in jobs.items()}
     libs, logs = {}, {}
-    argtypes = pb.KERNELS["wave"][2]
     for tag, proc in procs.items():
         logs[tag] = proc.communicate()[0]
-        check(proc.returncode == 0,
-              f"nvcc failed for the {tag}:\n{logs[tag]}")
-        dll = ctypes.CDLL(str(out / f"lib{tag}.so"))
-        dll.rtf_wave_launch.argtypes = argtypes
-        dll.rtf_wave_launch.restype = ctypes.c_int
-        dll.rtf_error_string.argtypes = [ctypes.c_int]
-        dll.rtf_error_string.restype = ctypes.c_char_p
-        libs[tag] = ParentLib(dll, len(argtypes))
+        check(proc.returncode == 0, f"nvcc failed for {tag}:\n{logs[tag]}")
+        libs[tag] = ctypes.CDLL(str(out / f"lib{tag}.so"))
     return libs, logs
 
 
+def bind(dll, fn, argtypes):
+    getattr(dll, fn).argtypes = argtypes
+    getattr(dll, fn).restype = ctypes.c_int
+    dll.rtf_error_string.argtypes = [ctypes.c_int]
+    dll.rtf_error_string.restype = ctypes.c_char_p
+    return dll
+
+
+def load_module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod        # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main(argv):
-    flat = "--flat-counters" in argv
     out_path = Path(argv[argv.index("--out") + 1]) if "--out" in argv \
         else ROOT / "build" / "chip_ab.json"
     rest = [a for k, a in enumerate(argv) if not a.startswith("--")
             and (k == 0 or argv[k - 1] != "--out")]
     parent = Path(rest[0]).resolve() if rest else None
-    check(not flat or parent, "--flat-counters needs PARENT_DIR")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -263,11 +151,13 @@ def main(argv):
 
     import chip_smoke as CS
     from rtf_tpu_torch import _build
-    from rtf_tpu_torch.render import integrator as I_
+    from rtf_tpu_torch.ops import mesh_hit as M_
     from rtf_tpu_torch.render import wave as W_
-    from rtf_tpu_torch.render.camera import pixel_order, primary_rays_ch
+    from rtf_tpu_torch.render.camera import (
+        pixel_order, primary_rays, primary_rays_ch)
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.gi import child_wave_args, primary_gi_from
+    from rtf_tpu_torch.render.integrator import render_wave
     from rtf_tpu_torch.render.renderer import render
     from rtf_tpu_torch.render.scene_tables import scene_tables
     from rtf_tpu_torch.scene.build import build_scene
@@ -278,13 +168,19 @@ def main(argv):
     print(f"[chip_ab] torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
 
-    # ---- build: the change's libraries and the parent's wave library
+    # ---- build: the change's libraries and the parent's
     t0 = time.perf_counter()
     logs = _build.build()
-    libs = {}
+    jobs = {}
+    pb = None
     if parent is not None:
-        libs, plogs = build_parent(parent, flat, _build.nvcc())
-        logs.update(plogs)
+        pb = load_module("parent_build",
+                         parent / "rtf_tpu_torch" / "_build.py")
+        csrc = parent / "rtf_tpu_torch" / "csrc"
+        jobs["parent"] = (csrc / "wave_kernel.cu", pb.NVCC_FLAGS)
+        jobs["parent_mesh_hit"] = (csrc / "mesh_hit.cu", pb.NVCC_FLAGS)
+    dlls, plogs = nvcc_all(jobs, ROOT / "build" / "ab")
+    logs.update(plogs)
     print(f"[chip_ab] built in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -293,18 +189,59 @@ def main(argv):
                 print(f"[build] {name}: {line.strip()}", flush=True)
     change_load = _build.load
     change_load("wave")
+    change_load("mesh_hit")
+    libs = {"change": {}, "device memory": {}}
+    PM = None
+    flat_mesh = False    # the parent's mesh kernel walks its tiles flat
+    if parent is not None:
+        pw = pb.KERNELS["wave"][2]
+        # PR 6's launch: a tiles pointer after the roots, no scene staging
+        put_tiles = "tiles" in (parent / "rtf_tpu_torch" / "csrc"
+                                / "wave_kernel.cu").read_text().split(
+                                    "int rtf_wave_launch")[1].split("{")[0]
+        libs["parent"] = {
+            "wave": Lib(bind(dlls["parent"], "rtf_wave_launch", pw), len(pw),
+                        (lambda: ctypes.c_void_p(cur["tiles"].data_ptr()
+                                                 if cur["tiles"].numel()
+                                                 else 0))
+                        if put_tiles else None),
+            "mesh_hit": bind(dlls["parent_mesh_hit"], "rtf_mesh_hit_launch",
+                             pb.KERNELS["mesh_hit"][2])}
+        PM = load_module("parent_mesh_hit",
+                         parent / "rtf_tpu_torch" / "ops" / "mesh_hit.py")
+        flat_mesh = "tree" not in inspect.signature(
+            PM.mesh_closest_hit).parameters
 
-    tabs = {}      # the tables of each side, by name (see use)
-    cur = {}       # the tables that the launches read
+    tabs = {}      # each side's tables, by launch group
+    cur = {}       # the tables the launches read now
+    change_mesh_hit = M_.mesh_closest_hit_rays
+
+    change_scene_staged = W_.scene_staged
+
+    def parent_mesh_hit(lo, ld, t_init, tris, aabb, face0=0, stats=None,
+                        **k):
+        """What a trace calls on the parent: its mesh_closest_hit_rays, or
+        pack_rays and its mesh_closest_hit, cut to the rays."""
+        if hasattr(PM, "mesh_closest_hit_rays"):
+            return PM.mesh_closest_hit_rays(lo, ld, t_init, tris, aabb, face0,
+                                            stats, **k)
+        rays8, _ = PM.pack_rays(lo, ld, t_init)
+        return tuple(x[:lo.shape[0]] for x in PM.mesh_closest_hit(
+            rays8, tris, aabb, face0, stats, **({} if flat_mesh else k)))
 
     def use(tag):
-        """Route `wave`'s launches to the parent's or the change's library
-        and tables."""
-        side = "change" if tag == "change" else "parent"
-        cur.update(tabs.get(side, tabs["change"]))
-        _build.load = (change_load if tag == "change" else
-                       (lambda name="wave", _l=libs[tag]:
-                        _l if name == "wave" else change_load(name)))
+        """Route the launches to a side's libraries and tables; "device
+        memory": the change with its scene tables in device memory."""
+        side = "parent" if tag == "parent" else "change"
+        cur.clear()
+        cur.update(tabs[side])
+        got = libs[tag]
+        _build.load = (lambda name="wave": got[name] if name in got
+                       else change_load(name))
+        M_.mesh_closest_hit_rays = (parent_mesh_hit if tag == "parent"
+                                    else change_mesh_hit)
+        W_.scene_staged = ((lambda tables: False) if tag == "device memory"
+                           else change_scene_staged)
 
     def events_ms(fn, reps=20):
         for _ in range(3):
@@ -319,7 +256,7 @@ def main(argv):
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def profiled_ms(fn, reps=5):
+    def profiled_ms(fn, key, reps=5):
         """The kernel's device time per launch over the records the
         profiler delivered: late in a process it delivers fewer than reps,
         at times none (then NaN; the events time stands)."""
@@ -332,8 +269,7 @@ def main(argv):
                 fn()
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and "wave_kernel" in ev.key]
+               if ev.device_type == DeviceType.CUDA and key in ev.key]
         count = sum(ev.count for ev in evs)
         if count < reps:
             print(f"[chip_ab] profiler: {count} of {reps} launches recorded",
@@ -341,7 +277,7 @@ def main(argv):
         return (sum(ev.self_device_time_total for ev in evs) / count / 1e3
                 if count else float("nan"))
 
-    def frame_s(fn, reps):
+    def frame_s(fn, reps=2):
         fn()
         best = float("inf")
         for _ in range(reps):
@@ -352,204 +288,290 @@ def main(argv):
             best = min(best, time.perf_counter() - t0_)
         return best
 
-    def rays(scene):
-        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
-        return primary_rays_ch(scene, order % W, order // W, torch.tensor(0))
+    def rays_ch(scene):
+        w, h = scene.width, scene.height
+        order = torch.as_tensor(pixel_order(w, h), device=dev).to(torch.int64)
+        return primary_rays_ch(scene, order % w, order // w, torch.tensor(0))
 
     def flat_out(out):
-        """Every output of a wave (radiance, hit, z, rows) as one vector."""
-        parts = [out[0].reshape(-1), out[1].reshape(-1).float(),
-                 out[2].reshape(-1)]
-        if len(out) > 3:
-            parts += [] if out[3] is None else [out[3].reshape(-1)]
-            parts += [r.reshape(-1) for q in out[4] for r in q]
+        """Every output (a wave's radiance, hit, z, rows; a closest hit's
+        t, face, front, ba, bb) as one float vector."""
+        parts = []
+        for x in out:
+            if isinstance(x, list):
+                parts += [r.reshape(-1) for q in x for r in q]
+            elif x is not None:
+                parts.append(x.reshape(-1).float())
         return torch.cat(parts)
-
-    def walk(fn, n):
-        """One launch of fn with the counters on: the MXU walk's counts and
-        figures, and that launch's time (CUDA events, mean of 5)."""
-        stats = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
-        fn(stats=stats)
-        st = stats.tolist()
-        work = dict(zip(CS.STATS, st))
-        return {"work": work, "walk": CS.walk_figures(work, st[W_.NSTAT:]),
-                "ms_counters_on": events_ms(lambda: fn(stats=stats), reps=5)}
 
     def fmt(xs):
         return ", ".join(f"{x:.4f}" for x in xs)
 
     result = {"card": card, "device": torch.cuda.get_device_name(0),
-              "staging": {}, "splat": {}, "launches": {}, "frames": {}}
+              "counters": {}, "scene_smem": {}, "launches": {},
+              "mesh_closest_hit": {}, "frames": {}}
 
-    # ---- the launches
-    cfg = RenderConfig(min_samples=64, max_samples=64, bounces=4,
-                       shadow_min=1, shadow_max=1, gi_mode="none")
-    hyb = RenderConfig(min_samples=8, max_samples=8, bounces=4,
-                       shadow_min=4, shadow_max=16, gi_mode="photon",
-                       hemisphere_samples=30)
-    main_scene = build_scene(box_scene(W, H, with_mesh=True), device=dev)
-    mxu_scene = build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5),
-                            device=dev)
-    hyb_scene = build_scene(CS.textured_desc(box_scene, W, H, mesh_subdiv=5),
-                            device=dev)
-    tabs["change"] = {k: scene_tables(s) for k, s in (
-        ("main", main_scene), ("mxu", mxu_scene), ("hyb", hyb_scene))}
-    if parent is not None:
-        tabs["parent"] = {k: parent_tables(s, tabs["change"][k], dev)
-                          for k, s in (("main", main_scene),
-                                       ("mxu", mxu_scene),
-                                       ("hyb", hyb_scene))}
-    use("change")
-    alive = torch.ones(W * H, dtype=torch.bool, device=dev)
-    gi_vol = CS.box_volume(hyb_scene, 0, dev)
-    caustic_vol = CS.box_volume(hyb_scene, 1, dev)
-    gf = primary_gi_from(gi_vol, caustic_vol)
-    o_m, d_m = rays(main_scene)
-    o_x, d_x = rays(mxu_scene)
-    o_h, d_h = rays(hyb_scene)
-    _, hit0, _, surf, _ = W_.wave(hyb, cur["hyb"], o_h, d_h, alive, 11,
-                                  surf_out=True, gi_from=gf)
-    u = torch.rand((2, W * H), generator=torch.Generator(
-        device=dev).manual_seed(5), device=dev)
-    cargs, ckw = child_wave_args(hyb, surf, hit0, alive, 11, 0, u[0], u[1])
-    ckw["gi_from"] = 0
-    n_child = cargs[0].shape[1]
-    mxu_launches = {
-        "mxu": (lambda **k: W_.wave(cfg, cur["mxu"], o_x, d_x, alive, 11,
-                                    **k), W * H),
-        "hybrid_mxu primary": (lambda **k: W_.wave(
-            hyb, cur["hyb"], o_h, d_h, alive, 11, surf_out=True, gi_from=gf,
-            **k), W * H),
-        "hybrid_mxu child": (lambda **k: W_.wave(
-            hyb, cur["hyb"], *cargs, **ckw, **k), n_child),
+    # ---- the scenes, tables and launches
+    main_cfg = RenderConfig(min_samples=64, max_samples=64, bounces=4,
+                            shadow_min=1, shadow_max=1, gi_mode="none")
+    gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
+                          shadow_min=1, shadow_max=1, gi_mode="hemisphere",
+                          hemisphere_samples=4, queue_factor=1.0)
+    hyb_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=4,
+                           shadow_min=4, shadow_max=16, gi_mode="photon",
+                           hemisphere_samples=30)
+    wf_cfg = RenderConfig()
+    scenes = {
+        "main": build_scene(box_scene(W, H, with_mesh=True), device=dev),
+        "textured": build_scene(CS.textured_desc(box_scene, W, H),
+                                device=dev),
+        "gi": build_scene(box_scene(400, 300, with_mesh=True), device=dev),
+        "hybrid": build_scene(CS.textured_desc(box_scene, W, H), device=dev),
+        "mxu": build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5),
+                           device=dev),
+        "hybrid_mxu": build_scene(CS.textured_desc(box_scene, W, H,
+                                                   mesh_subdiv=5),
+                                  device=dev),
+        "wavefront": build_scene(box_scene(W, H, with_mesh=True,
+                                           light_size=1.0), device=dev),
     }
-
-    # ---- 1. the change's MXU launches, roots and groups staged or not
-    smem = W_.SMEM_BYTES
-    for name, (fn, n) in mxu_launches.items():
-        rec = {k: {"ms": [], "ms_profiler": []}
-               for k in ("staged", "device memory")}
-        outs = {}
-        try:
-            for k in ("staged", "device memory", "device memory",
-                      "staged") * 2:
-                W_.SMEM_BYTES = smem if k == "staged" else 0
-                check(W_.smem_staged(cur["hyb" if "hybrid" in name
-                                         else "mxu"]) == (k == "staged"),
-                      f"{name}: not {k}")
-                outs.setdefault(k, flat_out(fn()))
-                rec[k]["ms"].append(events_ms(fn))
-                rec[k]["ms_profiler"].append(profiled_ms(fn))
-        finally:
-            W_.SMEM_BYTES = smem
-        check(torch.equal(outs["staged"], outs["device memory"]),
-              f"{name}: the outputs depend on the staging")
-        for k, v in rec.items():
-            print(f"[chip_ab] staging {name} {k}: {fmt(v['ms'])} ms "
-                  f"(events), {fmt(v['ms_profiler'])} ms (profiler)",
-                  flush=True)
-        result["staging"][name] = rec
-
-    # ---- 2. the wavefront's splat against index_add, on one frame's calls
-    wf_scene = build_scene(box_scene(W, H, with_mesh=True, light_size=1.0),
-                           device=dev)
-    wf_tab = scene_tables(wf_scene)
-    change_splat = I_._splat
-    calls = []
-
-    def recorded(image, pixel, values, mask=None):
-        calls.append((image.clone(), pixel.clone(), values.clone(),
-                      None if mask is None else mask.clone()))
-        return change_splat(image, pixel, values, mask)
-
-    def atomic_splat(image, pixel, values, mask=None):
-        if mask is not None:
-            values = torch.where(mask[:, None], values, 0.0)
-        return image.index_add(0, pixel, values)
-    render(wf_scene, RenderConfig(), tables=wf_tab, device=dev)   # warm-up
-    I_._splat = recorded
-    try:
-        render(wf_scene, RenderConfig(), tables=wf_tab, device=dev)
-    finally:
-        I_._splat = change_splat
-    check(len(calls) > 0, "the wavefront frame made no splat call")
-    per = {"sorted": [], "index_add": []}
-    for args in calls:
-        a, b = change_splat(*args), change_splat(*args)
-        check(torch.equal(a, b), "the sorted splat differs between calls")
-        ref = atomic_splat(*args)
-        check(torch.allclose(a, ref, rtol=1e-5, atol=1e-6),
-              "the sorted splat disagrees with index_add")
-        ms = {}
-        for tag in ("sorted", "index_add", "index_add", "sorted"):
-            f = change_splat if tag == "sorted" else atomic_splat
-            ms.setdefault(tag, []).append(events_ms(lambda: f(*args)))
-        for tag, v in ms.items():
-            per[tag].append(sum(v) / len(v))
-    lanes = [int(c[1].numel()) for c in calls]
-    result["splat"] = {
-        "calls_per_frame": len(calls), "lanes": lanes,
-        **{f"{tag}_ms_per_call": sum(v) / len(v) for tag, v in per.items()},
-        **{f"{tag}_ms_per_frame": sum(v) for tag, v in per.items()}}
-    sp = result["splat"]
-    print(f"[chip_ab] splat: {len(calls)} calls a frame, {min(lanes)}-"
-          f"{max(lanes)} lanes; " + "; ".join(
-              f"{tag} {sp[tag + '_ms_per_call']:.4f} ms a call, "
-              f"{sp[tag + '_ms_per_frame']:.4f} ms a frame"
-              for tag in per) + " (CUDA events)", flush=True)
-    del calls
-
-    # ---- 3. the parent's wave kernel against the change's
+    tabs["change"] = {k: scene_tables(s) for k, s in scenes.items()}
     if parent is not None:
-        # the parent's own counters only where its layout is the change's
-        nstat = re.search(r"^NSTAT = (\d+)", (
-            parent / "rtf_tpu_torch" / "render" / "wave.py").read_text(),
-            re.M)
-        counted = "parent_counters" if flat else (
-            "parent" if nstat and int(nstat[1]) == W_.NSTAT else None)
-        order_tags = (["parent", "parent_counters", "change", "change",
-                       "parent_counters", "parent"] if flat else
-                      ["parent", "change", "change", "parent"])
-        launches = {**mxu_launches, "main": (
-            lambda **k: W_.wave(cfg, cur["main"], o_m, d_m, alive, 11, **k),
-            W * H)}
-        for name, (fn, n) in launches.items():
-            rec = {t: {"ms": [], "ms_profiler": []} for t in set(order_tags)}
+        # the parent's immediates walk reads [T, 8] tile rows: box, first
+        # face, face count
+        tabs["parent"] = dict(tabs["change"])
+        for k, tab in tabs["change"].items():
+            if not tab.mxu and not hasattr(tab, "tiles"):
+                tabs["parent"]["tiles/" + k] = tab.tnodes[:, 0:8].contiguous()
+    vols = {k: (CS.box_volume(scenes[k], 0, dev),
+                CS.box_volume(scenes[k], 1, dev))
+            for k in ("hybrid", "hybrid_mxu")}
+
+    def cur_tab(key):
+        """The current side's tables of `key`, and the parent's tiles."""
+        cur["tiles"] = cur.get("tiles/" + key, torch.zeros(0, device=dev))
+        return cur[key]
+
+    launches = {}     # name: (fn(**kw), lanes, group, rows in, rows out)
+    alive = {}
+    for key, cfg in (("main", main_cfg), ("textured", main_cfg),
+                     ("mxu", main_cfg)):
+        o3, d3 = rays_ch(scenes[key])
+        al = torch.ones(o3.shape[1], dtype=torch.bool, device=dev)
+        launches[key] = (
+            lambda _c=cfg, _k=key, _o=o3, _d=d3, _a=al, **kw:
+            W_.wave(_c, cur_tab(_k), _o, _d, _a, 11, **kw),
+            o3.shape[1], key, 7, 5)
+    for key, cfg, vol in (("gi", gi_cfg, False), ("hybrid", hyb_cfg, True),
+                          ("hybrid_mxu", hyb_cfg, True)):
+        gv, cv = vols[key] if vol else (None, None)
+        gf = primary_gi_from(gv, cv)
+        o3, d3 = rays_ch(scenes[key])
+        n = o3.shape[1]
+        al = torch.ones(n, dtype=torch.bool, device=dev)
+        use("change")
+        _, hit0, _, surf, _ = W_.wave(cfg, cur_tab(key), o3, d3, al, 11,
+                                      surf_out=True, gi_from=gf)
+        u = torch.rand((2, n), generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        cargs, ckw = child_wave_args(cfg, surf, hit0, al, 11, 0, u[0], u[1])
+        ckw["gi_from"] = 0 if gv is not None else None
+        launches[f"{key} primary"] = (
+            lambda _c=cfg, _k=key, _o=o3, _d=d3, _a=al, _g=gf, **kw:
+            W_.wave(_c, cur_tab(_k), _o, _d, _a, 11, surf_out=True,
+                    gi_from=_g, **kw),
+            n, key, 7, W_.out_rows(cfg.bounces + 1, True, gf))
+        launches[f"{key} child"] = (
+            lambda _c=cfg, _k=key, _a=cargs, _kw=ckw, **kw:
+            W_.wave(_c, cur_tab(_k), *_a, **_kw, **kw),
+            n, key, 14, W_.out_rows(ckw["bounces"] + 1, False,
+                                     ckw["gi_from"]))
+    imm = [k for k, v in launches.items() if not tabs["change"][v[2]].mxu]
+
+    # the mesh kernel's inputs: one wavefront wave's first three traces
+    wscene = scenes["wavefront"]
+    per_shade = (1 + wf_cfg.shadow_min + wf_cfg.shadow_max) \
+        * wscene.num_mesh_inst
+    order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+    o, d = primary_rays(wscene, order % W, order // W, torch.tensor(0))
+    ids = torch.arange(W * H, device=dev)
+    captured, calls = {}, [0]
+
+    def capture(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
+        if calls[0] in (0, 1, per_shade):
+            captured[calls[0]] = ((lo, ld, t_init, tris, aabb, face0), k)
+        calls[0] += 1
+        return change_mesh_hit(lo, ld, t_init, tris, aabb, face0, stats, **k)
+    use("change")
+    M_.mesh_closest_hit_rays = capture
+    try:
+        render_wave(wscene, wf_cfg, cur_tab("wavefront"), o, d, ids,
+                    torch.ones(W * H, dtype=torch.bool, device=dev),
+                    torch.Generator(device=dev).manual_seed(3), W * H,
+                    inv_pixel=ids)
+    finally:
+        M_.mesh_closest_hit_rays = change_mesh_hit
+    mesh = {label: captured[key] for key, label in (
+        (0, "mesh primary"), (1, "mesh shadow"), (per_shade, "mesh bounce 1"))}
+
+    # ---- 1. counters
+    use("change")
+    for name, (fn, n, key, rin, rout) in launches.items():
+        stats = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
+        fn(stats=stats)
+        st = stats.tolist()
+        work = dict(zip(CS.STATS, st))
+        rec = {"work": work, "walk": CS.walk_figures(work, st[W_.NSTAT:]),
+               "ms_counters_on": events_ms(lambda: fn(stats=stats), reps=5),
+               "bound": CS.bound(cur_tab(key), work, n, rin, rout)}
+        result["counters"][name] = {"change": rec}
+        print(f"[chip_ab] counters {name} change: work {json.dumps(work)}; "
+              f"{json.dumps(rec['walk'])}; counters on "
+              f"{rec['ms_counters_on']:.4f} ms; bound "
+              f"{rec['bound']['bound_ms']:.5f} ms by "
+              f"{rec['bound']['bound_by']}", flush=True)
+    for name, (a, k) in mesh.items():
+        stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
+        change_mesh_hit(*a, **{**k, "stats": stats})
+        result["counters"][name] = {"change": dict(zip(
+            ("slab_tests", "pairs", "root_tests", "walks", "group_tests",
+             "tile_tests", "leaf_tests"), stats.tolist()))}
+        print(f"[chip_ab] counters {name} change: "
+              f"{json.dumps(result['counters'][name]['change'])}",
+              flush=True)
+
+    # ---- 2. the small scene tables in shared memory or device memory
+    for name in imm:
+        fn = launches[name][0]
+        check(W_.scene_staged(cur_tab(launches[name][2])),
+              f"{name}: the scene tables are not staged")
+        rec = {t: {"ms": [], "ms_profiler": []}
+               for t in ("change", "device memory")}
+        outs = {}
+        for tag in ("change", "device memory", "device memory",
+                    "change") * 2:
+            use(tag)
+            outs.setdefault(tag, flat_out(fn()))
+            rec[tag]["ms"].append(events_ms(fn))
+            rec[tag]["ms_profiler"].append(profiled_ms(fn, "wave_kernel"))
+        use("change")
+        check(torch.equal(outs["change"], outs["device memory"]),
+              f"{name}: staging the scene tables changes the outputs")
+        for tag, v in rec.items():
+            print(f"[chip_ab] scene tables {name} "
+                  f"{'shared memory' if tag == 'change' else tag}: "
+                  f"{fmt(v['ms'])} ms (events), {fmt(v['ms_profiler'])} ms "
+                  "(profiler)", flush=True)
+        result["scene_smem"][name] = rec
+
+    # ---- 3. the parent against the change
+    if parent is not None:
+        turns = ("parent", "change", "change", "parent")
+        for name, (fn, n, key, _, _) in launches.items():
+            rec = {t: {"ms": [], "ms_profiler": []} for t in turns}
             outs = {}
-            for tag in order_tags:
+            for tag in turns:
                 use(tag)
                 outs.setdefault(tag, flat_out(fn()))
                 rec[tag]["ms"].append(events_ms(fn))
-                rec[tag]["ms_profiler"].append(profiled_ms(fn))
-            for tag in outs:
-                check(torch.equal(outs[tag], outs["parent"]),
-                      f"{name}: the {tag}'s outputs differ from the parent's")
-            if name != "main":
-                for tag in filter(None, (counted, "change")):
-                    use(tag)
-                    rec[tag].update(walk(fn, n))
-                    print(f"[chip_ab] {name} {tag}: work "
-                          f"{json.dumps(rec[tag]['work'])}; "
-                          f"{json.dumps(rec[tag]['walk'])}", flush=True)
+                rec[tag]["ms_profiler"].append(profiled_ms(fn,
+                                                           "wave_kernel"))
+            check(torch.equal(outs["change"], outs["parent"]),
+                  f"{name}: the change's outputs differ from the parent's")
+            use("parent")
+            stats = torch.zeros(W_.NSTAT, dtype=torch.int64, device=dev)
+            fn(stats=stats)
+            torch.cuda.synchronize()
+            pst = dict(zip(CS.STATS[:11], stats.tolist()[:11]))
+            result["counters"][name]["parent"] = {"work": pst}
             use("change")
-            for tag in rec:
+            for tag in ("parent", "change"):
                 print(f"[chip_ab] {name} {tag}: {fmt(rec[tag]['ms'])} ms "
                       f"(events), {fmt(rec[tag]['ms_profiler'])} ms "
                       "(profiler)", flush=True)
+            print(f"[chip_ab] counters {name} parent: work "
+                  f"{json.dumps(pst)}", flush=True)
             result["launches"][name] = rec
 
-        frames = {
-            "mxu main": (lambda: render(mxu_scene, cfg, tables=cur["mxu"],
-                                        device=dev), 3),
-            "mxu hybrid": (lambda: render(
-                hyb_scene, hyb, tables=cur["hyb"], gi_vol=gi_vol,
-                caustic_vol=caustic_vol, device=dev), 2),
-        }
-        for name, (fn, reps) in frames.items():
-            rec = {}
-            for tag in ("parent", "change", "change", "parent"):
+        for name, (a, k) in mesh.items():
+            rec = {t: {"ms_kernel_profiler": [], "ms_trace_call": []}
+                   for t in turns}
+            outs = {}
+            for tag in turns:
                 use(tag)
-                rec.setdefault(tag, []).append(frame_s(fn, reps))
+
+                def call(_a=a, _k=k):
+                    return M_.mesh_closest_hit_rays(*_a, **_k)
+                outs.setdefault(tag, flat_out(call()))
+                rec[tag]["ms_trace_call"].append(events_ms(call))
+                rec[tag]["ms_kernel_profiler"].append(
+                    profiled_ms(call, "mesh_hit_kernel"))
+            use("change")
+            check(torch.equal(outs["change"], outs["parent"]),
+                  f"{name}: the change's outputs differ from the parent's")
+            use("parent")
+            stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
+            parent_mesh_hit(*a, stats=stats, **k)
+            use("change")
+            result["counters"][name]["parent"] = dict(zip(
+                ("slab_tests", "pairs"), stats.tolist()[:2]))
+            result["mesh_closest_hit"][name] = rec
+            for tag in ("parent", "change"):
+                print(f"[chip_ab] {name} {tag}: kernel "
+                      f"{fmt(rec[tag]['ms_kernel_profiler'])} ms (profiler);"
+                      f" as a trace calls it {fmt(rec[tag]['ms_trace_call'])}"
+                      " ms (events)", flush=True)
+            print(f"[chip_ab] counters {name} parent: "
+                  f"{json.dumps(result['counters'][name]['parent'])}",
+                  flush=True)
+            if not flat_mesh:
+                continue
+            # the parent's kernel over no tiles (rays packed once): its
+            # floor
+            lib = libs["parent"]["mesh_hit"]
+            rays8, n = PM.pack_rays(*a[0:3])
+            tris, aabb, face0 = a[3:6]
+            outb = [torch.empty(n, device=dev) for _ in range(5)]
+            outb[1] = torch.empty(n, dtype=torch.int32, device=dev)
+
+            def floor(_r=rays8, _t=tris, _b=aabb, _f=face0, _o=outb, _n=n):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.rtf_mesh_hit_launch(
+                    ctypes.c_void_p(_r.data_ptr()), _n,
+                    ctypes.c_void_p(_t.data_ptr()), _t.stride(0), 0,
+                    ctypes.c_void_p(_b.data_ptr()), int(_f),
+                    *(ctypes.c_void_p(x.data_ptr()) for x in _o),
+                    ctypes.c_void_p(0), ctypes.c_void_p(stream))
+                check(rc == 0, f"the parent's mesh kernel failed ({rc})")
+            rec["parent_nt0"] = {"ms": events_ms(floor),
+                                 "ms_profiler": profiled_ms(
+                                     floor, "mesh_hit_kernel")}
+            print(f"[chip_ab] {name} parent with nt = 0: "
+                  f"{rec['parent_nt0']['ms']:.4f} ms (events), "
+                  f"{rec['parent_nt0']['ms_profiler']:.4f} ms (profiler); "
+                  f"{n} rays", flush=True)
+
+        frames = {
+            "main": lambda: render(scenes["main"], main_cfg,
+                                   tables=cur_tab("main"), device=dev),
+            "textured": lambda: render(scenes["textured"], main_cfg,
+                                       tables=cur_tab("textured"),
+                                       device=dev),
+            "gi": lambda: render(scenes["gi"], gi_cfg, tables=cur_tab("gi"),
+                                 device=dev),
+            "hybrid": lambda: render(
+                scenes["hybrid"], hyb_cfg, tables=cur_tab("hybrid"),
+                gi_vol=vols["hybrid"][0], caustic_vol=vols["hybrid"][1],
+                device=dev),
+            "wavefront": lambda: render(scenes["wavefront"], wf_cfg,
+                                        tables=cur_tab("wavefront"),
+                                        device=dev),
+        }
+        for name, fn in frames.items():
+            rec = {}
+            for tag in turns:
+                use(tag)
+                rec.setdefault(tag, []).append(frame_s(fn))
             use("change")
             print(f"[chip_ab] frame {name}: " + "; ".join(
                 f"{t} {fmt(v)} s" for t, v in rec.items()), flush=True)

@@ -28,8 +28,12 @@ those phases only (for iterating on one path):
             scene at 800x600, 64 spp, 4 bounces, hard shadows) through
             `render` on the card: one warm-up frame, best of 3, each frame
             counted (64 launches of the untextured variant); then the
-            kernel's time per launch (CUDA events), the plain version's
-            time per wave, and the kernel's work counts for its bound;
+            kernel against its plain version at bounces 0 and 4 at full
+            width (exact), the kernel's time per launch (CUDA events,
+            profiler), the plain version's time per wave, and the kernel's
+            counters (work for its bound; the walk's slab tests per level,
+            face tests, SIMT efficiency, lane cycles by part, each block's
+            cycles);
 4. textured the same for the textured box (file textures on the walls'
             and the ball's kd, a checker on the mirror's ks, a file
             environment map) at 800x600, 64 spp, 4 bounces: 64 launches
@@ -56,14 +60,15 @@ those phases only (for iterating on one path):
             the kernel against its plain version on one wave's own inputs
             (the 480,000 primary rays of the 800x600 box, a batch of its
             shadow rays, the first bounce's compacted queue with dead
-            lanes; faces equal, t, front, ba, bb within rtol 1e-6), then
+            lanes; exact), then
             RenderConfig() (4 -> 8 spp, 4 bounces, the 'both' split, soft
             shadows 4 -> 16) on box_scene(800, 600, light_size=1.0) through
             `render`: one warm-up frame, best of 3, each frame's launches
             counted (per shade_lanes 1 + 4 + 16 traces, 5 shade_lanes a
             wave, 8 waves: 840); one wave profiled; the kernel's time per
-            launch (CUDA events, profiler), work counts and bound, and the
-            plain version's; a 160x120 frame with the kernel against the
+            launch (CUDA events, profiler), work counts (slab tests per
+            level of its box hierarchy, pairs) and bound, and the plain
+            version's; a 160x120 frame with the kernel against the
             same frame with the plain version put in the kernel's place
             (exact: the splat sums each pixel's lanes in lane order), and a
             wavefront GI frame (400x300, 4 spp, 2 bounces, 4 hemisphere
@@ -74,7 +79,7 @@ those phases only (for iterating on one path):
             untextured MXU variant: phase 3's checks and figures (kernel
             against plain at bounce 0 and 4 at full width, exact; 64
             launches a frame, best of 3, profile, events, work counters
-            and bound), the MXU walk's counters (slab tests of each level,
+            and bound), the walk's counters (slab tests of each level,
             pairs, SIMT efficiency of the walk and of the pair loops, the
             bounce loop's cycles by part, each block's cycles) with the
             bound on these counts, a 160x120 frame at mesh_subdiv=6
@@ -92,13 +97,14 @@ those phases only (for iterating on one path):
             variant with GI rows and, on every child wave, the lane
             permutation of render/gi.py::gi_mesh_perm; phase 6's checks
             and figures (every kernel-against-plain case exact), and per
-            launch kind the MXU walk's counters as in phase 8.
+            launch kind the walk's counters as in phase 8.
 
-Tolerances: at bounce 0 the hit masks are equal, radiance within atol
-2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding difference
-may flip a Russian-roulette choice, so at most 1% of lanes may lie outside
-atol 2e-4 and the mean radiance agrees within 1%.  Dead lanes give
-exactly zero radiance and no hit.
+Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
+atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
+difference may flip a Russian-roulette choice, so at most 1% of lanes may
+lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-9
+hold every kernel to its plain version bit for bit (max abs error 0.0),
+the GI rows included.  Dead lanes give exactly zero radiance and no hit.
 
 The GI rows follow the same rule: rows of bounce 0 (the surface rows,
 the bounce-0 query) within atol 2e-4 + rtol 1e-4 on every lane, query rows
@@ -142,7 +148,7 @@ STATS = ["rays", "hits", "shadow", "tiles", "tri_closest", "tri_shadow",
          "prim_shadow", "inst", "tex_file", "tex_checker", "env", "root",
          "groups", "leaves", "cyc_root", "cyc_walk", "cyc_pair",
          "cyc_bounces", "walk_iters", "walk_lanes", "pair_iters",
-         "pair_lanes", "root_in"]
+         "pair_lanes", "root_in", "cyc_prim", "cyc_shadow", "cyc_later"]
 def fail(msg):
     print(f"[chip_smoke] FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -296,15 +302,16 @@ def bound(tables, st, n, rows_in, rows_out):
     (each input once: rows_in floats in and rows_out out per ray, the
     tables and the atlas's texels at 12 bytes) over the HBM rate.  Also
     the bound with four 16-byte texel reads per file-texture sample
-    instead of the atlas once.  On the MXU tables a face test is a
-    Plücker pair, and each instance transform adds o x d and a root-box
-    slab test."""
+    instead of the atlas once.  The walk's slab tests are this run's
+    (root, group, tile and leaf boxes); on the MXU tables a face test is a
+    Plücker pair, and each root-box test adds o x d."""
     ns, np_ = tables.spheres.shape[0], tables.planes.shape[0]
     face_ops = OPS["pair"] if tables.mxu else OPS["tri"]
-    slabs = st["tiles"] + st.get("groups", 0) + st.get("leaves", 0)
+    slabs = st["tiles"] + st["groups"] + st["leaves"]
     flops = (st["rays"] * (ns * OPS["sphere"] + np_ * OPS["plane"])
              + st["inst"] * OPS["inst"] + slabs * OPS["slab"]
-             + st["root"] * (OPS["slab"] + OPS["cross"])
+             + st["root"] * (OPS["slab"]
+                             + (OPS["cross"] if tables.mxu else 0))
              + (st["tri_closest"] + st["tri_shadow"]) * face_ops
              + st["prim_shadow"] * OPS["plane"]
              + st["hits"] * OPS["shade"] + st["shadow"] * OPS["shadow"]
@@ -313,8 +320,7 @@ def bound(tables, st, n, rows_in, rows_out):
              + st["env"] * OPS["env"])
     table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
         "spheres", "planes", "mesh_insts", "roots", "faces", "materials",
-        "lights", "texmaps", "textures") + (
-            ("groups", "tnodes", "leaves") if tables.mxu else ("tiles",)))
+        "lights", "texmaps", "textures", "groups", "tnodes", "leaves"))
     texels = tables.atlas.shape[0] if tables.has_file_tex else 0
     nbytes = n * rows_in * 4 + n * rows_out * 4 + table_bytes + texels * 12
     nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
@@ -327,13 +333,16 @@ def bound(tables, st, n, rows_in, rows_out):
 
 
 def walk_figures(st, blocks):
-    """What the MXU counters say about one launch: per walk (a root-box
-    test that passed) the slab tests of each level below the root and the
-    pairs, the SIMT efficiency of the walk and of the pair loops (active
-    lanes over 32 per warp-iteration), the bounce loop's cycles by part
-    (lane cycles: a lane waiting on its warp's other lanes counts where it
-    waits), and the blocks' cycles (each block's longest lane): max, sum,
-    mean."""
+    """What the wave kernel's counters say about one launch: per walk (a
+    root-box test that passed) the slab tests of each level below the root
+    and the face tests (pairs), the SIMT efficiency of the walk and of the
+    face loops (active lanes over 32 per warp-iteration), the bounce loop's
+    cycles by part (lane cycles: a lane waiting on its warp's other lanes
+    counts where it waits): sphere and plane tests, instance transform and
+    root box, walk, face tests and the rest (shading and shadow-ray set-up),
+    which add up to 1, and beside them the share inside shadow rays and
+    the share from bounce 1 on; and the blocks' cycles (each block's
+    longest lane): max, sum, mean."""
     cyc = max(st["cyc_bounces"], 1)
     walks = max(st["root_in"], 1)
     out = {
@@ -344,13 +353,15 @@ def walk_figures(st, blocks):
         "simt_walk": st["walk_lanes"] / max(32 * st["walk_iters"], 1),
         "simt_pairs": st["pair_lanes"] / max(32 * st["pair_iters"], 1),
         "cycles_share": {k: st["cyc_" + k] / cyc
-                         for k in ("root", "walk", "pair")},
+                         for k in ("prim", "root", "walk", "pair")},
         "block_cycles_max": max(blocks) if blocks else 0,
         "block_cycles_sum": sum(blocks),
         "block_cycles_mean": sum(blocks) / max(len(blocks), 1),
     }
     out["per_walk"]["pairs"] = out["pairs"] / walks
     out["cycles_share"]["rest"] = 1.0 - sum(out["cycles_share"].values())
+    out["cycles_share"].update(shadow=st["cyc_shadow"] / cyc,
+                               later_bounces=st["cyc_later"] / cyc)
     return out
 
 
@@ -630,7 +641,7 @@ def main(argv):
 
     def work(fn, n):
         """The kernel's counters over one call of fn (n lanes), and each
-        block's cycles (the MXU variants; zeros elsewhere)."""
+        block's cycles."""
         stats = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
         fn(stats=stats)
         st = stats.tolist()
@@ -638,9 +649,9 @@ def main(argv):
 
     def report_walk(tag, tables, fn, n, rows_in, rows_out):
         """Run fn (one launch of n lanes) with the counters on: print the
-        MXU walk's counters and figures, the launch's time with the
-        counters on (CUDA events), and the bound on this run's counts.
-        Returns (work counts, figures)."""
+        walk's counters and figures, the launch's time with the counters on
+        (CUDA events), and the bound on this run's counts.  Returns (work
+        counts, figures)."""
         st, blocks = work(fn, n)
         fig = walk_figures(st, blocks)
         buf = torch.zeros(W_.stats_size(n), dtype=torch.int64, device=dev)
@@ -649,15 +660,17 @@ def main(argv):
         fig["bound_ms"] = bd["bound_ms"]
         cs = fig["cycles_share"]
         pw = fig["per_walk"]
-        print(f"[{tag}] MXU walk: root {st['root']} slab tests "
+        print(f"[{tag}] walk: root {st['root']} slab tests "
               f"({st['root_in']} pass), groups {st['groups']}, tiles "
               f"{st['tiles']}, leaves {st['leaves']}, pairs {fig['pairs']}"
               f" (per walk {pw['groups']:.2f}, {pw['tiles']:.2f}, "
               f"{pw['leaves']:.2f}, {pw['pairs']:.2f}); SIMT efficiency walk "
               f"{fig['simt_walk']:.4f}, pairs {fig['simt_pairs']:.4f}; "
-              f"bounce-loop cycles {st['cyc_bounces']}: root "
-              f"{cs['root']:.4f}, walk {cs['walk']:.4f}, pairs "
-              f"{cs['pair']:.4f}, rest {cs['rest']:.4f}; block cycles max "
+              f"bounce-loop cycles {st['cyc_bounces']}: spheres and planes "
+              f"{cs['prim']:.4f}, root {cs['root']:.4f}, walk "
+              f"{cs['walk']:.4f}, face tests {cs['pair']:.4f}, rest "
+              f"{cs['rest']:.4f} (shadow rays {cs['shadow']:.4f}, bounces "
+              f">= 1 {cs['later_bounces']:.4f}); block cycles max "
               f"{fig['block_cycles_max']}, sum {fig['block_cycles_sum']}, "
               f"mean {fig['block_cycles_mean']:.1f} over {len(blocks)} "
               f"blocks (a launch with the counters on: "
@@ -681,8 +694,8 @@ def main(argv):
                           *both(cfg.with_(bounces=0), tables, o3, d3, 11), 0)
         err4, share4 = compare(f"{tag} b{BOUNCES} {W}x{H}",
                                *both(cfg, tables, o3, d3, 11), BOUNCES)
-        check(not tables.mxu or err0 == err4 == 0.0,
-              f"{tag}: the MXU walk is not exact ({err0}, {err4})")
+        check(err0 == err4 == 0.0,
+              f"{tag}: the kernel is not exact ({err0}, {err4})")
 
         render(scene, cfg, device=dev, tables=tables)     # warm-up frame
         frame_s, res = float("inf"), None
@@ -722,20 +735,14 @@ def main(argv):
         def launch(**kw):
             return W_.wave(cfg, tables, o3, d3, alive, 11, **kw)
         kern_ms = events_ms(launch)
-        walk = None
-        if tables.mxu:
-            st, walk = report_walk(tag, tables, launch, n, 7, 5)
-        else:
-            st, _ = work(launch, n)
+        st, walk = report_walk(tag, tables, launch, n, 7, 5)
         # 7 floats in and 5 out per ray (the atlas's float4 padding is the
         # kernel's choice, not the function's)
         bd = bound(tables, st, n, 7, 5)
-        launch_prof_ms = profiled_ms(launch) if tables.mxu else None
+        launch_prof_ms = profiled_ms(launch)
         print(f"[{tag}] kernel {kern_ms:.4f} ms/launch at {W}x{H} (mean of "
-              f"20, CUDA events"
-              + (f"; {launch_prof_ms:.4f} ms by the profiler, kernel only"
-                 if tables.mxu else "")
-              + f"); work {json.dumps(st)}; "
+              f"20, CUDA events; {launch_prof_ms:.4f} ms by the profiler, "
+              f"kernel only); work {json.dumps(st)}; "
               f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
               f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
               f"{bd['bytes_ms']:.4f}); with four texel reads per sample, "
@@ -760,9 +767,7 @@ def main(argv):
             "bound_by": bd["bound_by"],
             "bound_ms_texel_reads": bd["bound_ms_texel_reads"],
             "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
-            "work": st,
-            **({"walk": walk, "ms_profiler_launch": launch_prof_ms}
-               if tables.mxu else {})}
+            "work": st, "walk": walk, "ms_profiler_launch": launch_prof_ms}
 
     def drive_gi(tag, desc, gcfg, counter, volumes=False):
         """Render one GI path through `render`, every frame counted in
@@ -868,17 +873,13 @@ def main(argv):
             pms = (time.perf_counter() - t0) * 1e3
             ms = events_ms(fn)
             ms_prof = profiled_ms(fn)
-            walk = None
-            if tables.mxu:
-                st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
-                                       rows_in, rows_out)
-            else:
-                st, _ = work(fn, n)
+            st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
+                                   rows_in, rows_out)
             bd = bound(tables, st, n, rows_in, rows_out)
             kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
                                 max_abs_err=errs[-1], work=st,
                                 rows_in=rows_in, rows_out=rows_out, **bd,
-                                **({"walk": walk} if walk else {}))
+                                walk=walk)
             print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
                   f"events), {ms_prof:.4f} ms (profiler, kernel only), "
                   f"plain {pms:.2f} ms; rows {rows_in} in, "
@@ -904,8 +905,7 @@ def main(argv):
         err_gi, share_gi = compare(f"{tag} gi_wave {w}x{h}", plain, kern,
                                    alive, gcfg.bounces)
         errs.append(err_gi)
-        check(not tables.mxu or max(errs) == 0.0,
-              f"{tag}: the MXU walk is not exact ({errs})")
+        check(max(errs) == 0.0, f"{tag}: the kernel is not exact ({errs})")
         print(f"[{tag}] plain GI sample wave ({1 + s_hemi} plain waves and "
               f"their host work) {plain_gi:.2f} ms", flush=True)
         print(f"[{tag}] phase passed", flush=True)
@@ -962,7 +962,7 @@ def main(argv):
         # closest-hit trace (480,000 rays), its first shadow trace, and the
         # first bounce's closest-hit trace (the compacted queue)
         captured, calls = {}, [0]
-        kernel_fn = M_.mesh_closest_hit
+        kernel_fn = M_.mesh_closest_hit_rays
         order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
         o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
         ids = torch.arange(W * H, device=dev)
@@ -975,44 +975,47 @@ def main(argv):
                 torch.Generator(device=dev).manual_seed(3), W * H,
                 inv_pixel=ids)
 
-        def capture(rays8, tris, aabb, face0=0, stats=None):
+        def capture(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
             if calls[0] in (0, 1, per_shade):
-                captured[calls[0]] = (rays8, tris, aabb, face0)
+                captured[calls[0]] = ((lo, ld, t_init, tris, aabb, face0), k)
             calls[0] += 1
-            return kernel_fn(rays8, tris, aabb, face0, stats)
-        M_.mesh_closest_hit = capture
+            return kernel_fn(lo, ld, t_init, tris, aabb, face0, stats, **k)
+
+        def plain_fn(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
+            """The plain version on a trace's rays (packed for it)."""
+            rays8, _ = M_.pack_rays(lo, ld, t_init)
+            return tuple(x[:lo.shape[0]] for x in M_.mesh_closest_hit_plain(
+                rays8, tris, aabb, face0))
+        M_.mesh_closest_hit_rays = capture
         try:
             one_wave()
         finally:
-            M_.mesh_closest_hit = kernel_fn
+            M_.mesh_closest_hit_rays = kernel_fn
         stamp("captured one wave's kernel inputs")
         kinds, err = {}, 0.0
         for key, label in ((0, "primary"), (1, "shadow"),
                            (per_shade, "bounce 1")):
-            rays8, tris, aabb, face0 = captured[key]
-            kern = M_.mesh_closest_hit(rays8, tris, aabb, face0)
-            plain = M_.mesh_closest_hit_plain(rays8, tris, aabb, face0)
+            args, kw = captured[key]
+            lo = args[0]
+            kern = M_.mesh_closest_hit_rays(*args, **kw)
+            plain = plain_fn(*args)
             torch.cuda.synchronize()
-            live = rays8[:, 0] < 1e6           # not a dead-lane sentinel
+            live = lo[:, 0] < 1e6              # not a dead-lane sentinel
             hit = kern[1] >= 0
             check(torch.equal(kern[1], plain[1]),
                   f"mesh {label}: faces differ on "
                   f"{int((kern[1] != plain[1]).sum())} rays")
-            e = 0.0
-            for name, k, p in zip(("t", "front", "ba", "bb"),
-                                  (kern[0], kern[2], kern[3], kern[4]),
-                                  (plain[0], plain[2], plain[3], plain[4])):
-                diff = (k - p).abs()
-                check(bool((diff <= 1e-6 * p.abs()).all()),
-                      f"mesh {label}: {name} beyond rtol 1e-6 "
-                      f"(max abs {float(diff.max()):.3e})")
-                e = max(e, float(diff.max()))
+            e = max(float((k - p).abs().max())
+                    for k, p in zip(kern[0:1] + kern[2:],
+                                    plain[0:1] + plain[2:]))
+            check(e == 0.0, f"mesh {label}: max abs err {e} against the "
+                  "plain version")
             err = max(err, e)
             print(f"[wavefront] mesh_closest_hit vs plain, {label}: "
-                  f"{rays8.shape[0]} rays ({int(live.sum())} live, "
+                  f"{lo.shape[0]} rays ({int(live.sum())} live, "
                   f"{int(hit.sum())} hit the ball), faces and hit masks "
                   f"equal, max_abs_err={e:.3e}", flush=True)
-            kinds[label] = dict(rays=rays8.shape[0], live=int(live.sum()),
+            kinds[label] = dict(rays=lo.shape[0], live=int(live.sum()),
                                 hits=int(hit.sum()), max_abs_err=e)
             del kern, plain
         stamp("kernel against plain")
@@ -1067,34 +1070,46 @@ def main(argv):
         # time per launch of each input kind: CUDA events with the queue
         # filled first, the plain version; work counts and the bound (the
         # profiler's kernel time is the wave's average above)
+        tree = scene.mesh.hit_tree
+        tree_bytes = sum(getattr(tree, k).numel() * 4 for k in (
+            "faces", "roots", "groups", "tnodes", "leaves"))
         for key, label in ((0, "primary"), (1, "shadow"),
                            (per_shade, "bounce 1")):
-            rays8, tris, aabb, face0 = captured[key]
+            args, kw = captured[key]
+            lo = args[0]
 
             def launch(stats=None):
-                return M_.mesh_closest_hit(rays8, tris, aabb, face0, stats)
+                return M_.mesh_closest_hit_rays(*args, stats=stats, **kw)
             ms = events_ms(launch)
-            pms = host_ms(lambda: M_.mesh_closest_hit_plain(
-                rays8, tris, aabb, face0), 2)
+            pms = host_ms(lambda: plain_fn(*args), 2)
             stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
             launch(stats)
-            slabs, pairs = stats.tolist()
-            n = rays8.shape[0]
+            (slabs, pairs, roots, walks, groups, tiles,
+             leaves) = stats.tolist()
+            n = lo.shape[0]
             flops = slabs * OPS["slab"] + pairs * OPS["tri"]
-            # each input once: 32 B per ray, table rows 0-11 and the boxes;
-            # each output once: 20 B per ray
-            nbytes = n * 32 + 12 * tris.shape[1] * 4 + aabb.numel() * 4 \
-                + n * 20
+            # each input once: 28 B per ray (o, d, t_init), the slot's face
+            # rows and hierarchy; each output once: 20 B per ray
+            nbytes = n * 28 + tree_bytes + n * 20
             bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+            per_walk = {k: v / max(walks, 1) for k, v in (
+                ("groups", groups), ("tiles", tiles), ("leaves", leaves),
+                ("pairs", pairs))}
             kinds[label].update(
                 ms=ms, plain_ms=pms, slab_tests=slabs,
-                pairs=pairs, flops=flops, bytes=nbytes,
+                pairs=pairs, root_tests=roots, walks=walks,
+                group_tests=groups, tile_tests=tiles, leaf_tests=leaves,
+                per_walk=per_walk, flops=flops, bytes=nbytes,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             print(f"[wavefront] mesh_closest_hit {label}: {ms:.4f} ms (mean "
                   f"of 20, CUDA events), plain {pms:.2f} ms; {slabs} slab "
-                  f"tests, {pairs} ray-face pairs "
-                  f"({pairs / n:.1f} per ray); {flops:.4e} FP32 ops, "
+                  f"tests ({roots} "
+                  f"root, {walks} walks; groups, tiles, leaves, pairs per "
+                  f"walk "
+                  + ", ".join(f"{v:.2f}" for v in per_walk.values())
+                  + f"), {pairs} ray-face pairs "
+                  f"({pairs / n:.2f} per ray); {flops:.4e} FP32 ops, "
                   f"{nbytes} bytes; bound {max(bytes_ms, ops_ms):.5f} ms "
                   f"(ops {ops_ms:.5f}, bytes {bytes_ms:.5f})", flush=True)
         stamp("timed the kernel and the plain version")
@@ -1109,13 +1124,11 @@ def main(argv):
         fk = render(small, scfg, seed=5, device=dev, tables=stab)
         check(M_.launches == 2 * per_wave, "the small frame ran the kernel")
         M_.launches = 0
-        M_.mesh_closest_hit = (
-            lambda rays8, tris, aabb, face0=0, stats=None:
-            M_.mesh_closest_hit_plain(rays8, tris, aabb, face0))
+        M_.mesh_closest_hit_rays = plain_fn
         try:
             fp = render(small, scfg, seed=5, device=dev, tables=stab)
         finally:
-            M_.mesh_closest_hit = kernel_fn
+            M_.mesh_closest_hit_rays = kernel_fn
         check(M_.launches == 0, "the plain frame launched the kernel")
         check(np.array_equal(fk.sample_count, fp.sample_count)
               and np.array_equal(fk.z >= 1e29, fp.z >= 1e29),
@@ -1276,7 +1289,8 @@ def main(argv):
         col0, fpad, ar0, nt, _ = mesh.slot_pack[0]
         rays8, _ = M_.pack_rays(lo, ld, t_init)
         mh = M_.mesh_closest_hit(rays8, mesh.tri_packed[:, col0:col0 + fpad],
-                                 mesh.tile_aabb[ar0:ar0 + nt], col0)
+                                 mesh.tile_aabb[ar0:ar0 + nt], col0,
+                                 tree=mesh.hit_tree, slot=0)
         torch.cuda.synchronize()
         mh_hit = mh[1][:W * H] >= 0
         check(torch.equal(mh_hit, kern[1][:W * H] >= 0),

@@ -26,8 +26,7 @@ BUILD_DIR = ROOT.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # per library: its source, its launch function and that function's argtypes
 KERNELS = {
     "wave": ("wave_kernel.cu", "rtf_wave_launch", [
@@ -35,7 +34,7 @@ KERNELS = {
         _P, _I,                  # stats, n
         _I, _I, _I,              # seed, blk0, nbounce
         _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
-        _P, _P, _P, _P, _P, _I,  # roots, tiles, faces, mats, lights, nl
+        _P, _P, _P, _P, _I,      # roots, faces, mats, lights, nl
         _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
         _I, _I, _I,              # env_tm, env_l2, textured
         _F, _F, _F,              # env rgb
@@ -43,10 +42,14 @@ KERNELS = {
         _I, _I, _I, _I, _I,      # shadow max/min, need_uv, has_gloss, mxu
         _P, _I, _P, _P,          # groups, ng, tnodes, leaves
         _I, _I,                  # roots and groups staged, block cycles
+        _I,                      # scene tables staged
         _P]),                    # stream
     "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
-        _P, _I,                  # rays8, n
-        _P, _L, _I, _P, _I,      # tris, row stride, tiles, aabb, face0
+        _P, _P, _I, _P, _I, _I,  # origins, directions, their row stride,
+                                 # t_init, its stride, n
+        _P, _I, _I,              # the slot's face rows, their count, staged
+        _P, _P, _P, _P,          # the slot's root, groups, tnodes, leaves
+        _I, _I,                  # the slot's first face row, face0
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
         _P, _P]),                # stats, stream
     "mesh_hit_mxu": ("mesh_hit_mxu.cu", "rtf_mesh_hit_mxu_launch", [

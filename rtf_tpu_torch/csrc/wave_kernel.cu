@@ -16,34 +16,37 @@
 // rtf_tpu runs on the same kernels with its MXU tables (fused.py::
 // _mesh_closest_mxu, _mesh_anyhit_mxu; fused_seg.py's hit and shade kernels
 // with has_mesh_tables), takes the Plücker pair test (plucker.cuh) over
-// ops/mxu_pack.py's face rows in place of the projected-barycentric test:
-// wave_kernel<*, *, true>.  rtf_tpu tests a ray block against a whole
-// 128-face tile in one matrix product; one thread per ray wants fewer
-// tests instead, so the walk goes down a box hierarchy per mesh instance:
-// the instance's padded root box, then its groups of 8 tiles in the
-// near-to-far order of the lane's own local direction's octant, within an
-// entered group its tiles, within an entered tile its 16-face leaves (each
-// level near to far), within an entered leaf its faces.  Every slab test
-// is capped by the lane's current best t.  The winner is the least t, then
-// the least key = rank * 128 + column (the tile's rank in the octant's
-// visit order, the face's column in its tile), strictly below the best t
-// from before the instance: exactly what the plain _mesh_closest_mxu
-// computes (render/wave.py) and what a strict-< walk of the tiles in
-// octant order finds, so the visit order changes only how early a lane
-// stops, never the winner.  The boxes are padded, so a face at t <= cap
-// lies inside every box on its path with a slab entry < t: an exactly
+// ops/mxu_pack.py's face rows: wave_kernel<*, *, true>; the immediates
+// variants wave_kernel<*, *, false> take the projected-barycentric test
+// (box_walk.cuh::tri) over the packed rows of ops/pack.py.  rtf_tpu tests
+// a ray block against a whole 128-face tile in one matrix product (MXU) or
+// against every baked face (immediates); one thread per ray wants fewer
+// tests instead, so every variant walks one box hierarchy per mesh
+// instance (box_walk.cuh::walk, shared with csrc/mesh_hit.cu): the
+// instance's padded root box, then its groups of 8 tiles in the near-to-far
+// order of the lane's own local direction's octant, within an entered
+// group its tiles, within an entered tile its 16-face leaves (each level
+// near to far), within an entered leaf its faces.  Every slab test is
+// capped by the lane's current best t.  The winner is the least t, then
+// the least key (MXU: rank * 128 + column, the tile's rank in the octant's
+// visit order; immediates: the face's packed row), strictly below the best
+// t from before the instance: exactly what the plain _mesh_closest_mxu and
+// _mesh_closest compute (render/wave.py) and what a strict-< loop over the
+// faces in key order finds, so the visit order changes only how early a
+// lane stops, never the winner.  The boxes are padded, so a face at t <=
+// cap lies inside every box on its path with a slab entry < t: an exactly
 // tied face is still visited.  The levels that every entering ray reads
 // (roots and groups) are staged in shared memory once per block where
 // they fit in 48 KB (render/wave.py::smem_staged), else read from device
 // memory by the same walk; tiles, leaves and faces stay in device memory
 // (staging the tiles too was slower, PERF.md section 6).  The winner's
 // normal, material, front and uv come from its shade row once per
-// instance: normal = nc + ba (na - nc) + bb (nb - nc), front =
-// d . n <= 0 with the geometric normal, uv = uv_c + ba (uv_a - uv_c) + bb
-// (uv_b - uv_c).  rtf_tpu streams tables over 24 MiB tile by tile from HBM
-// only because of VMEM; here one table in device memory serves every size.
-// The four immediates variants wave_kernel<*, *, false> keep the code they
-// had.
+// instance, from the barycentrics its test gave (MXU: normal = nc + ba
+// (na - nc) + bb (nb - nc), uv = uv_c + ba (uv_a - uv_c) + bb (uv_b -
+// uv_c); immediates: na ba + nb bb + nc bc, the same for uv), front =
+// d . n <= 0 with the geometric normal.  rtf_tpu streams tables over 24
+// MiB tile by tile from HBM only because of VMEM; here one table in device
+// memory serves every size.
 // The second template flag is GI (render/gi.py): a child wave passes 14 ray
 // rows instead of 7, with its throughput, absorption and ray type
 // (has_state), and a launch may ask for the GI rows: with surf_out the
@@ -54,7 +57,7 @@
 // had before GI.
 // It computes what render/wave.py::wave_plain computes, with the same
 // operations in the same order: closest hit with uv (spheres, planes, then
-// mesh faces in packed Morton order with a strict t < best), kd/ks as the
+// the mesh's least t, then least key), kd/ks as the
 // material colour times its texture map (checker, or in the textured
 // variant a bilinear file texture), Blinn direct light with hard or
 // adaptive disk soft shadows, Beer absorption, the environment on a miss
@@ -65,20 +68,24 @@
 // What bounds it on an H100: operations, not bytes.  A wave reads 28 B and
 // writes 20 B per ray, but traces 1-5 closest-hit rays and as many shadow
 // rays per ray, each against every primitive and the mesh faces of the
-// tiles its segment enters: FP32 arithmetic and divergent control flow.
+// leaves its segment enters: FP32 arithmetic and divergent control flow.
 // A texture sample adds about 40 operations and four 16-byte texel loads
 // that hit L2 (the atlas is a few MB): the textured wave is bound by
 // operations too.
 // What the design does about it:
 //   * the TPU kernel's [nblk,16,8,128] packing, baked immediates, block
 //     reach boxes and pl.when culls are gone; the scene is a few small
-//     tables (render/scene_tables.py) read through the read-only cache, and
-//     every warp reads the same face rows at the same time (broadcast);
-//   * each thread culls the 128-face tiles with its own slab test capped by
-//     its own best t.  The tile boxes are padded on the host (1e-4 * (1 +
-//     the box's largest |coordinate|)), so a slab entry rounded a hair past
-//     a triangle's own t cannot cull it: the cull is conservative and the
-//     winner is the one the unculled loop would find;
+//     tables (render/scene_tables.py); the spheres, planes, mesh instances
+//     and lights that every lane reads per bounce are staged in shared
+//     memory once per block where they fit (render/wave.py::scene_staged;
+//     2-7% faster than the read-only cache in interleaved pairs, PERF.md
+//     section 6), else read from device memory by the same code;
+//   * each thread walks the mesh's box hierarchy with its own slab tests
+//     capped by its own best t (above), so it tests the faces of the
+//     16-face leaves its segment enters; the boxes are padded on the host
+//     (1e-4 * (1 + the box's largest |coordinate|)), so a slab entry
+//     rounded a hair past a triangle's own t cannot cull it: the culls are
+//     conservative and the winner is the one the unculled loop would find;
 //   * shadow rays stop at the first occluder; a thread stops when its ray
 //     dies, which gives per lane what the TPU's block-wide while loop gives
 //     (dead lanes contribute exactly zero there);
@@ -89,6 +96,8 @@
 //     float4 texel loads and the bilinear weights in FP32, in the plain
 //     version's order; no texture objects, whose hardware filter keeps its
 //     weights in 9-bit fixed point.  A missed lane samples nothing.
+// Work counters (stats, STAT_* below) come from a separate instantiation
+// of each variant (COUNT), so a launch without them runs no counting code.
 // Built with --fmad=false and without --use_fast_math: IEEE division,
 // sqrtf, expf, powf, sinf, cosf and asinf, and no contraction into FMAs,
 // so the kernel rounds like the plain version's one-op-at-a-time
@@ -102,6 +111,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "box_walk.cuh"
 #include "plucker.cuh"
 
 namespace {
@@ -109,18 +119,14 @@ namespace {
 constexpr float BIG = 1.0e30f;
 constexpr float SENTINEL = 1.0e7f;
 constexpr float ZERO = 1e-3f;      // reference bias epsilon
-constexpr float DZ_EPS = 1e-7f;    // reference |dn| cutoff
 constexpr float PI_F = 3.141592653589793f;
 constexpr float HALF_PI_F = 1.5707963267948966f;
 constexpr float TWO_PI_F = 6.283185307179586f;
 constexpr float INV_2PI_F = 0.15915494309189535f;   // 0.5 / pi
 constexpr float INV_PI_F = 0.3183098861837907f;
 constexpr int RT_REFLECT = 1, RT_REFRACT = 2;
-constexpr int INST_W = 24, TILE_W = 8, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
+constexpr int INST_W = 24, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
 constexpr int TEXMAP_W = 10, TEX_W = 10;
-constexpr int ROOT_W = 8;                     // MXU root boxes
-constexpr int NODE_W = 24, LEAF_W = 8;        // MXU groups/tnodes, leaves
-constexpr int MXU_TILE = 128, LEAF_FACES = 16, TILE_LEAVES = 8;
 constexpr float TEX_FILE = 0.0f;
 constexpr int THREADS = 128;
 
@@ -129,32 +135,34 @@ enum Stat {
   STAT_RAYS = 0,         // closest-hit rays traced
   STAT_HITS = 1,         // rays that hit and were shaded
   STAT_SHADOW = 2,       // shadow rays traced
-  STAT_TILES = 3,        // tile slab tests
-  STAT_TRI_CLOSEST = 4,  // triangle tests (MXU: pair tests), closest hit
-  STAT_TRI_SHADOW = 5,   // triangle tests (MXU: pair tests), shadow rays
+  STAT_TILES = boxwalk::TILES,  // tile slab tests
+  STAT_TRI_CLOSEST = 4,  // face tests (MXU: pair tests), closest hit
+  STAT_TRI_SHADOW = 5,   // face tests (MXU: pair tests), shadow rays
   STAT_PRIM_SHADOW = 6,  // sphere/plane tests, shadow rays
   STAT_INST = 7,         // mesh-instance ray transforms
   STAT_TEX_FILE = 8,     // bilinear file-texture samples (kd, ks, env)
   STAT_TEX_CHECKER = 9,  // checker samples
   STAT_ENV = 10,         // environment-map uv computations
-  NSTAT = 11,            // the counters of the immediates variants
-  // MXU variants: work (STAT_TILES counts tile slab tests there), then
-  // clock64() cycles summed over lanes, then warp-iterations and their
-  // active lanes (__popc(__activemask()), counted once per warp)
+  // the walk's work, then clock64() cycles summed over lanes, then
+  // warp-iterations and their active lanes (__popc(__activemask()),
+  // counted once per warp)
   STAT_ROOT = 11,        // root-box slab tests
-  STAT_GROUPS = 12,      // group slab tests
-  STAT_LEAVES = 13,      // leaf slab tests
+  STAT_GROUPS = boxwalk::GROUPS,  // group slab tests
+  STAT_LEAVES = boxwalk::LEAVES,  // leaf slab tests
   STAT_CYC_ROOT = 14,    // cycles: instance transform and root-box test
   STAT_CYC_WALK = 15,    // cycles: group, tile and leaf walk
-  STAT_CYC_PAIR = 16,    // cycles: pair loops
+  STAT_CYC_PAIR = 16,    // cycles: face (pair) loops
   STAT_CYC_BOUNCES = 17, // cycles: the whole bounce loop
-  STAT_WALK_ITERS = 18,  // warp-iterations of the walk's slab tests
-  STAT_WALK_LANES = 19,
-  STAT_PAIR_ITERS = 20,  // warp-iterations of the pair loops
-  STAT_PAIR_LANES = 21,
+  STAT_WALK_ITERS = boxwalk::WALK_ITERS,  // warp-iterations of the walk's
+  STAT_WALK_LANES = boxwalk::WALK_LANES,  // slab tests, active lanes
+  STAT_PAIR_ITERS = boxwalk::PAIR_ITERS,  // the same of the face loops
+  STAT_PAIR_LANES = boxwalk::PAIR_LANES,
   STAT_ROOT_IN = 22,     // root-box tests passed (lanes that walk)
-  NSTAT_MXU = 23         // with stats_blocks each block's cycles (its
-                         // longest lane) follow at 23 + block
+  STAT_CYC_PRIM = 23,    // cycles: sphere and plane tests
+  STAT_CYC_SHADOW = 24,  // cycles: shadow rays (includes their tests)
+  STAT_CYC_LATER = 25,   // cycles: the bounce loop from bounce 1 on
+  NSTAT = 26             // with stats_blocks each block's cycles (its
+                         // longest lane) follow at 26 + block
 };
 
 struct Args {
@@ -170,14 +178,14 @@ struct Args {
   const float* spheres; int ns;
   const float* planes; int np;
   const float* insts; int ni;
-  const float* roots;  // [ni, 8] padded root boxes, group range (MXU)
-  const float* tiles;
-  const float* faces;
-  const float* groups; int ng;   // MXU: [ng, 24] groups of 8 tiles
-  const float* tnodes;           // MXU: [T, 24] the walk's tile rows
-  const float* leaves;           // MXU: [T * 8, 8] 16-face leaves
-  int staged;          // MXU: roots and groups in shared memory
-  int stats_blocks;    // MXU: per-block cycles after the counters
+  const float* roots;  // [ni, 8] padded root boxes, group range
+  const float* faces;  // [T * 128, 40]
+  const float* groups; int ng;   // [ng, 24] groups of 8 tiles
+  const float* tnodes;           // [T, 24] the walk's tile rows
+  const float* leaves;           // [T * 8, 8] 16-face leaves
+  int staged;          // roots and groups in shared memory
+  int scene_staged;    // spheres, planes, instances, lights too
+  int stats_blocks;    // per-block cycles after the counters
   const float* mats;
   const float* lights; int nl;
   const float* texmaps;
@@ -199,6 +207,10 @@ struct Hit {
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+// the small tables every lane reads per bounce (spheres, planes, mesh
+// instances, lights): shared memory where the launch staged them (`stage`),
+// else device memory; generic loads serve both
+__device__ __forceinline__ float scene_ld(const float* p) { return *p; }
 
 __device__ __forceinline__ float rand01(uint32_t seed, uint32_t idx) {
   uint32_t x = (idx * 2654435761u) ^ seed;
@@ -241,16 +253,16 @@ __device__ __forceinline__ float asinp(float x) {
 __device__ __forceinline__ void mat3(const float* m, float x, float y,
                                      float z, float& rx, float& ry,
                                      float& rz) {
-  rx = ld(m + 0) * x + ld(m + 1) * y + ld(m + 2) * z;
-  ry = ld(m + 3) * x + ld(m + 4) * y + ld(m + 5) * z;
-  rz = ld(m + 6) * x + ld(m + 7) * y + ld(m + 8) * z;
+  rx = scene_ld(m + 0) * x + scene_ld(m + 1) * y + scene_ld(m + 2) * z;
+  ry = scene_ld(m + 3) * x + scene_ld(m + 4) * y + scene_ld(m + 5) * z;
+  rz = scene_ld(m + 6) * x + scene_ld(m + 7) * y + scene_ld(m + 8) * z;
 }
 
 __device__ __forceinline__ void to_local(const float* row, const float o[3],
                                          const float d[3], float lo[3],
                                          float ldir[3]) {
-  mat3(row, o[0] - ld(row + 9), o[1] - ld(row + 10), o[2] - ld(row + 11),
-       lo[0], lo[1], lo[2]);
+  mat3(row, o[0] - scene_ld(row + 9), o[1] - scene_ld(row + 10),
+       o[2] - scene_ld(row + 11), lo[0], lo[1], lo[2]);
   mat3(row, d[0], d[1], d[2], ldir[0], ldir[1], ldir[2]);
 }
 
@@ -291,126 +303,69 @@ __device__ __forceinline__ bool plane(const float lo[3], const float l[3],
   return nz_ok && hx >= -1.0f && hx <= 1.0f && hy >= -1.0f && hy <= 1.0f;
 }
 
-__device__ __forceinline__ void inv_dir(const float l[3], float r[3]) {
-  for (int a = 0; a < 3; ++a)
-    r[a] = fabsf(l[a]) < 1e-30f ? (l[a] < 0.0f ? -1e30f : 1e30f)
-                                : 1.0f / l[a];
-}
+// ---- the mesh: one walk (box_walk.cuh) for the immediates and the MXU
+// tables
 
-// per-thread slab test of [0, cap) against a (padded) tile box
-__device__ __forceinline__ bool slab(const float* T, const float lo[3],
-                                     const float ild[3], float cap) {
-  float tmin = 0.0f, tmax = BIG;
-  for (int a = 0; a < 3; ++a) {
-    float t0 = (ld(T + a) - lo[a]) * ild[a];
-    float t1 = (ld(T + 3 + a) - lo[a]) * ild[a];
-    tmin = fmaxf(tmin, fminf(t0, t1));
-    tmax = fminf(tmax, fmaxf(t0, t1));
-  }
-  return tmax >= tmin && tmin < cap;
-}
-
-// projected-barycentric triangle test (pallas_mesh.py layout rows 0-11);
-// returns the validity without the t cap
-__device__ __forceinline__ bool tri(const float* F, const float lo[3],
-                                    const float l[3], float& t, float& dn,
-                                    float& ba, float& bb, float& bc) {
-  const float4* F4 = reinterpret_cast<const float4*>(F);
-  float4 r0 = __ldg(F4), r1 = __ldg(F4 + 1), r2 = __ldg(F4 + 2);
-  dn = l[0] * r0.x + l[1] * r0.y + l[2] * r0.z;
-  float pn = lo[0] * r0.x + lo[1] * r0.y + lo[2] * r0.z - r0.w;
-  bool bad = fabsf(dn) < DZ_EPS;
-  t = -pn / (bad ? DZ_EPS : dn);
-  float hx = lo[0] + t * l[0];
-  float hy = lo[1] + t * l[1];
-  float hz = lo[2] + t * l[2];
-  float pu = r2.z > 0.5f ? hy : hx;
-  float pv = r2.w > 0.5f ? hy : hz;
-  ba = r1.x + r1.y * pu + r1.z * pv;
-  bb = r1.w + r2.x * pu + r2.y * pv;
-  bc = 1.0f - ba - bb;
-  return !bad && t > ZERO && ba >= 0.0f && bb >= 0.0f && bc >= 0.0f;
-}
-
-// ---- the MXU walk
-
-// the hierarchy's upper levels for this launch: the block's shared-memory
-// copies where they were staged, else the tables in device memory (generic
-// loads serve both)
-struct Tree {
-  const float* roots;
-  const float* groups;
-};
-
-__device__ __forceinline__ Tree tree(const Args& A) {
+// the hierarchy's levels for this launch: the block's shared-memory copies
+// of the roots and groups where they were staged, else the tables in
+// device memory (generic loads serve both)
+__device__ __forceinline__ boxwalk::Levels levels(const Args& A) {
   extern __shared__ float4 smem4[];
   const float* sm = reinterpret_cast<const float*>(smem4);
-  return Tree{A.staged ? sm : A.roots,
-              A.staged ? sm + ROOT_W * A.ni : A.groups};
+  return boxwalk::Levels{A.staged ? sm : A.roots,
+                         A.staged ? sm + boxwalk::ROOT_W * A.ni : A.groups,
+                         A.tnodes, A.leaves};
 }
 
-// copy the roots and groups into shared memory: every thread of the
-// block, one barrier (16-byte rows)
-__device__ __forceinline__ void stage_tree(const Args& A) {
+// the small tables that every lane reads per bounce: spheres, planes,
+// mesh instances, lights (scene_ld)
+struct Scene {
+  const float* spheres;
+  const float* planes;
+  const float* insts;
+  const float* lights;
+};
+
+// copy the launch's staged tables into shared memory, every thread of the
+// block behind one barrier (16-byte rows): the roots and groups
+// (A.staged), then the small scene tables (A.scene_staged; the counterpart
+// of the TPU kernel's baked immediates).  Returns where the scene tables
+// are: in shared memory, or where they were staged not, in device memory.
+__device__ __forceinline__ Scene stage(const Args& A) {
   extern __shared__ float4 smem4[];
-  if (!A.staged) return;   // the same for the whole launch
-  const int nr = 2 * A.ni, n4 = nr + 6 * A.ng;
-  for (int q = threadIdx.x; q < n4; q += blockDim.x)
-    smem4[q] = __ldg(q < nr ? reinterpret_cast<const float4*>(A.roots) + q
-                            : reinterpret_cast<const float4*>(A.groups)
-                                  + (q - nr));
-  __syncthreads();
-}
-
-// slab test of [0, cap) against the box lo = (x0, y0, z0), hi = (x1, y1,
-// z1), with the arithmetic of `slab`
-__device__ __forceinline__ bool slab6(float x0, float y0, float z0,
-                                      float x1, float y1, float z1,
-                                      const float lo[3], const float ild[3],
-                                      float cap) {
-  const float b0[3] = {x0, y0, z0}, b1[3] = {x1, y1, z1};
-  float tmin = 0.0f, tmax = BIG;
-  for (int a = 0; a < 3; ++a) {
-    float t0 = (b0[a] - lo[a]) * ild[a];
-    float t1 = (b1[a] - lo[a]) * ild[a];
-    tmin = fmaxf(tmin, fminf(t0, t1));
-    tmax = fminf(tmax, fmaxf(t0, t1));
+  const int nr = A.staged ? 2 * A.ni : 0;
+  const int nt = nr + (A.staged ? 6 * A.ng : 0);
+  const int ns = 6 * A.ns, np = ns + 6 * A.np, ni = np + 6 * A.ni;
+  const int n4 = nt + (A.scene_staged ? ni + 4 * A.nl : 0);
+  if (n4 > 0) {   // the same for the whole launch
+    for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+      const int r = q - nt;
+      const float* src = q < nr ? A.roots + 4 * q
+          : q < nt ? A.groups + 4 * (q - nr)
+          : r < ns ? A.spheres + 4 * r
+          : r < np ? A.planes + 4 * (r - ns)
+          : r < ni ? A.insts + 4 * (r - np)
+          : A.lights + 4 * (r - ni);
+      smem4[q] = __ldg(reinterpret_cast<const float4*>(src));
+    }
+    __syncthreads();
   }
-  return tmax >= tmin && tmin < cap;
-}
-
-// the same on a row whose columns 0-5 hold the box (shared or device
-// memory)
-__device__ __forceinline__ bool slab_row(const float* B, const float lo[3],
-                                         const float ild[3], float cap) {
-  return slab6(B[0], B[1], B[2], B[3], B[4], B[5], lo, ild, cap);
-}
-
-// one warp-iteration of a loop of the walk: counted once per warp, by its
-// first active lane, with the number of active lanes
-__device__ __forceinline__ void warp_step(unsigned long long* cnt, int it) {
-  const unsigned m = __activemask();
-  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-    cnt[it] += 1;
-    cnt[it + 1] += __popc(m);
-  }
-}
-
-__device__ __forceinline__ int octant(const float l[3]) {
-  return (l[0] >= 0.0f ? 4 : 0) + (l[1] >= 0.0f ? 2 : 0)
-      + (l[2] >= 0.0f ? 1 : 0);
+  if (!A.scene_staged) return Scene{A.spheres, A.planes, A.insts, A.lights};
+  const float* f = reinterpret_cast<const float*>(smem4 + nt);
+  return Scene{f, f + 4 * ns, f + 4 * np, f + 4 * ni};
 }
 
 // one mesh instance in the lane's local frame: the root box; returns false
 // where the segment [0, cap) misses it
 __device__ __forceinline__ bool enter_instance(
-    const Args& A, const Tree& R, int k, const float o[3], const float d[3],
-    float cap, float lo[3], float l[3], float ild[3],
+    const Scene& S, const boxwalk::Levels& L, int k, const float o[3],
+    const float d[3], float cap, float lo[3], float l[3], float ild[3],
     unsigned long long* cnt) {
   const long long c0 = cnt ? clock64() : 0;
-  to_local(A.insts + INST_W * k, o, d, lo, l);
-  inv_dir(l, ild);
-  const bool in = slab_row(R.roots + ROOT_W * k, lo, ild, cap);
+  to_local(S.insts + INST_W * k, o, d, lo, l);
+  boxwalk::inv_dir(l, ild);
+  const bool in = boxwalk::slab_row(L.roots + boxwalk::ROOT_W * k, lo, ild,
+                                    cap);
   if (cnt) {
     cnt[STAT_INST] += 1;
     cnt[STAT_ROOT] += 1;
@@ -420,144 +375,114 @@ __device__ __forceinline__ bool enter_instance(
   return in;
 }
 
-// the faces of the instance's root that a lane's segment may meet: its
-// groups (the slot's order for the lane's octant), their tiles, their
-// leaves, near to far, each behind a slab test capped by cap(); calls
-// face(f, key0) per face of an entered leaf, key0 + f the face's key, and
-// stops when it returns true.  The pair loops' cycles go to *cpair.
-template <typename Cap, typename Face>
-__device__ __forceinline__ bool walk(const Args& A, const Tree& R, int k,
-                                     const float lo[3], const float l[3],
-                                     const float ild[3], Cap cap, Face face,
-                                     unsigned long long* cnt,
-                                     long long* cpair) {
-  const int oct = octant(l);
-  const float* root = R.roots + ROOT_W * k;
-  const int g0 = (int)root[6], ng = (int)root[7];
-  for (int s = 0; s < ng; ++s) {
-    const float* G = R.groups + NODE_W * (int)R.groups[NODE_W * (g0 + s)
-                                                       + 8 + oct];
-    if (cnt) {
-      cnt[STAT_GROUPS] += 1;
-      warp_step(cnt, STAT_WALK_ITERS);
-    }
-    if (!slab_row(G, lo, ild, cap())) continue;
-    const int j0 = (int)G[6], nj = (int)G[7];
-    const uint32_t tord = (uint32_t)G[16 + oct];
-    for (int q = 0; q < nj; ++q) {
-      const int j = j0 + (int)((tord >> (3 * q)) & 7u);
-      const float* T = A.tnodes + NODE_W * j;
-      if (cnt) {
-        cnt[STAT_TILES] += 1;
-        warp_step(cnt, STAT_WALK_ITERS);
-      }
-      if (!slab_row(T, lo, ild, cap())) continue;
-      const int nl = ((int)T[7] + LEAF_FACES - 1) / LEAF_FACES;
-      const int key0 = (int)T[8 + oct] * MXU_TILE - (int)T[6];
-      const uint32_t lord = (uint32_t)T[16 + oct];
-      for (int r = 0; r < nl; ++r) {
-        const float4* L = reinterpret_cast<const float4*>(
-            A.leaves + LEAF_W * (TILE_LEAVES * j
-                                 + (int)((lord >> (3 * r)) & 7u)));
-        const float4 b0 = __ldg(L), b1 = __ldg(L + 1);
-        if (cnt) {
-          cnt[STAT_LEAVES] += 1;
-          warp_step(cnt, STAT_WALK_ITERS);
-        }
-        if (!slab6(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, lo, ild, cap()))
-          continue;
-        const int fa = (int)b1.z, fb = fa + (int)b1.w;
-        const long long p0 = cnt ? clock64() : 0;
-        bool stop = false;
-        for (int f = fa; f < fb && !stop; ++f) {
-          if (cnt) warp_step(cnt, STAT_PAIR_ITERS);
-          stop = face(f, key0);
-        }
-        if (cnt) *cpair += clock64() - p0;
-        if (stop) return true;
-      }
-    }
-  }
-  return false;
+// the face test of either table: on the MXU tables the Plücker pair of
+// face row f (plucker.cuh; s0-s2 = sa, sb, sc), on the immediates the
+// projected-barycentric test (box_walk.cuh; s0-s2 = ba, bb, bc); validity
+// without a t cap
+template <bool MXU>
+__device__ __forceinline__ bool face_test(const Args& A, int f,
+                                          const float lo[3],
+                                          const float l[3], const float c[3],
+                                          float& t, float& s0, float& s1,
+                                          float& s2, float& dn) {
+  const float* F = A.faces + FACE_W * f;
+  if constexpr (MXU)
+    return plucker::pair(reinterpret_cast<const float4*>(F), true, l, c, lo,
+                         t, s0, s1, s2, dn);
+  return boxwalk::tri(F, true, lo, l, t, dn, s0, s1, s2);
 }
 
-// fused.py::_mesh_closest_mxu for one ray: per instance the least t below
-// the best so far, then the least key; the winner is resolved from its
-// shade row once per instance
-__device__ void mesh_closest_mxu(const Args& A, const float o[3],
-                                 const float d[3], Hit& h,
-                                 unsigned long long* cnt) {
-  const Tree R = tree(A);
+// fused.py::_closest_hit's mesh part (_mesh_closest, _mesh_closest_mxu)
+// for one ray: per instance the least t below the best so far, then the
+// least key; the winner's normal, material, front and uv are read from its
+// shade row once per instance.  Immediates rows: 12-20 vertex normals
+// a/b/c, 21-29 uvw a/b/c, 30 material; MXU rows: 22 nc, 25 na - nc, 28
+// nb - nc, 31 material, 32 uv_c, 34 uv_a - uv_c, 36 uv_b - uv_c.
+template <bool MXU>
+__device__ void mesh_closest(const Args& A, const Scene& S, const float o[3],
+                             const float d[3], Hit& h,
+                             unsigned long long* cnt) {
+  const boxwalk::Levels L = levels(A);
   float lo[3], l[3], ild[3];
   for (int k = 0; k < A.ni; ++k) {
-    if (!enter_instance(A, R, k, o, d, h.t, lo, l, ild, cnt)) continue;
+    if (!enter_instance(S, L, k, o, d, h.t, lo, l, ild, cnt)) continue;
     const long long c0 = cnt ? clock64() : 0;
     long long cpair = 0;
-    float c[3];
-    plucker::cross_od(lo, l, c);
+    float c[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (MXU) plucker::cross_od(lo, l, c);
     // bkey -1: the best t is from before this instance, so a tie loses
     int best = -1, bkey = -1;
-    float bsa = 0.0f, bsb = 0.0f, bsc = 0.0f, bdn = 0.0f;
-    walk(A, R, k, lo, l, ild, [&]() { return h.t; },
-         [&](int f, int key0) {
-           if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
-           const float4* F4 =
-               reinterpret_cast<const float4*>(A.faces + FACE_W * f);
-           float t, sa, sb, sc, dn;
-           if (!plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn))
-             return false;
-           const int key = key0 + f;
-           if (t < h.t || (t == h.t && key < bkey)) {
-             h.t = t;
-             best = f;
-             bkey = key;
-             bsa = sa; bsb = sb; bsc = sc; bdn = dn;
-           }
-           return false;
-         }, cnt, &cpair);
+    float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, bdn = 0.0f;
+    boxwalk::walk<false, 1>(L, k, lo, l, ild, [&]() { return h.t; },
+                  [&](int f, int key0) {
+                    if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
+                    float t, s0, s1, s2, dn;
+                    if (!face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn))
+                      return false;
+                    const int key = key0 + f;
+                    if (t < h.t || (t == h.t && key < bkey)) {
+                      h.t = t;
+                      best = f;
+                      bkey = key;
+                      b0 = s0; b1 = s1; b2 = s2; bdn = dn;
+                    }
+                    return false;
+                  }, cnt, &cpair);
     if (cnt) {
       cnt[STAT_CYC_PAIR] += cpair;
       cnt[STAT_CYC_WALK] += clock64() - c0 - cpair;
     }
     if (best < 0) continue;
-    const float* I = A.insts + INST_W * k;
+    const float* I = S.insts + INST_W * k;
     const float* F = A.faces + FACE_W * best;
-    float ba, bb;
-    plucker::bary(bsa, bsb, bsc, ba, bb);
-    const float lnx = ld(F + 22) + ba * ld(F + 25) + bb * ld(F + 28);
-    const float lny = ld(F + 23) + ba * ld(F + 26) + bb * ld(F + 29);
-    const float lnz = ld(F + 24) + ba * ld(F + 27) + bb * ld(F + 30);
-    mat3(I + 12, lnx, lny, lnz, h.nx, h.ny, h.nz);
-    h.mtl = (int)ld(F + 31);
-    h.front = bdn <= 0.0f;
-    if (A.need_uv) {
-      h.u = ld(F + 32) + ba * ld(F + 34) + bb * ld(F + 36);
-      h.v = ld(F + 33) + ba * ld(F + 35) + bb * ld(F + 37);
+    float lnx, lny, lnz;
+    if constexpr (MXU) {
+      float ba, bb;
+      plucker::bary(b0, b1, b2, ba, bb);
+      lnx = ld(F + 22) + ba * ld(F + 25) + bb * ld(F + 28);
+      lny = ld(F + 23) + ba * ld(F + 26) + bb * ld(F + 29);
+      lnz = ld(F + 24) + ba * ld(F + 27) + bb * ld(F + 30);
+      h.mtl = (int)ld(F + 31);
+      if (A.need_uv) {
+        h.u = ld(F + 32) + ba * ld(F + 34) + bb * ld(F + 36);
+        h.v = ld(F + 33) + ba * ld(F + 35) + bb * ld(F + 37);
+      }
+    } else {
+      lnx = ld(F + 12) * b0 + ld(F + 15) * b1 + ld(F + 18) * b2;
+      lny = ld(F + 13) * b0 + ld(F + 16) * b1 + ld(F + 19) * b2;
+      lnz = ld(F + 14) * b0 + ld(F + 17) * b1 + ld(F + 20) * b2;
+      h.mtl = (int)ld(F + 30);
+      if (A.need_uv) {
+        h.u = ld(F + 21) * b0 + ld(F + 24) * b1 + ld(F + 27) * b2;
+        h.v = ld(F + 22) * b0 + ld(F + 25) * b1 + ld(F + 28) * b2;
+      }
     }
+    mat3(I + 12, lnx, lny, lnz, h.nx, h.ny, h.nz);
+    h.front = bdn <= 0.0f;
   }
 }
 
-// fused.py::_mesh_anyhit_mxu for one shadow ray: some face with
-// 1e-14 < t < cap, over the same hierarchy
-__device__ bool mesh_anyhit_mxu(const Args& A, const float o[3],
-                                const float d[3], float cap,
-                                unsigned long long* cnt) {
-  const Tree R = tree(A);
+// fused.py::_mesh_anyhit(_mxu) for one shadow ray: some face with
+// 1e-14 < t < cap, over the same hierarchy (the first found in the walk's
+// order: a boolean, the same in any order)
+template <bool MXU>
+__device__ bool mesh_anyhit(const Args& A, const Scene& S, const float o[3],
+                            const float d[3], float cap,
+                            unsigned long long* cnt) {
+  const boxwalk::Levels L = levels(A);
   float lo[3], l[3], ild[3];
   for (int k = 0; k < A.ni; ++k) {
-    if (!enter_instance(A, R, k, o, d, cap, lo, l, ild, cnt)) continue;
+    if (!enter_instance(S, L, k, o, d, cap, lo, l, ild, cnt)) continue;
     const long long c0 = cnt ? clock64() : 0;
     long long cpair = 0;
-    float c[3];
-    plucker::cross_od(lo, l, c);
-    const bool hit = walk(
-        A, R, k, lo, l, ild, [&]() { return cap; },
+    float c[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (MXU) plucker::cross_od(lo, l, c);
+    const bool hit = boxwalk::walk<true, 1>(
+        L, k, lo, l, ild, [&]() { return cap; },
         [&](int f, int) {
           if (cnt) cnt[STAT_TRI_SHADOW] += 1;
-          const float4* F4 =
-              reinterpret_cast<const float4*>(A.faces + FACE_W * f);
-          float t, sa, sb, sc, dn;
-          return plucker::pair(F4, true, l, c, lo, t, sa, sb, sc, dn)
+          float t, s0, s1, s2, dn;
+          return face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn)
               && t > 1e-14f && t < cap;
         }, cnt, &cpair);
     if (cnt) {
@@ -571,7 +496,7 @@ __device__ bool mesh_anyhit_mxu(const Args& A, const float o[3],
 
 // fused.py::_closest_hit: primitives first, then the mesh
 template <bool MXU>
-__device__ void closest_hit(const Args& A, const float o[3],
+__device__ void closest_hit(const Args& A, const Scene& S, const float o[3],
                             const float d[3], Hit& h,
                             unsigned long long* cnt) {
   h.t = BIG;
@@ -580,9 +505,10 @@ __device__ void closest_hit(const Args& A, const float o[3],
   h.front = false;
   h.u = h.v = 0.5f;
   float lo[3], l[3];
+  const long long cp0 = cnt ? clock64() : 0;
   for (int i = 0; i < A.ns; ++i) {
-    const float* S = A.spheres + INST_W * i;
-    to_local(S, o, d, lo, l);
+    const float* Sp = S.spheres + INST_W * i;
+    to_local(Sp, o, d, lo, l);
     float t1, t2;
     bool has = sphere(lo, l, t1, t2);
     bool back = has && t1 > ZERO && t2 < ZERO && t1 < h.t;
@@ -593,8 +519,8 @@ __device__ void closest_hit(const Args& A, const float o[3],
       float hy = lo[1] + ts * l[1];
       float hz = lo[2] + ts * l[2];
       h.t = ts;
-      mat3(S + 12, hx, hy, hz, h.nx, h.ny, h.nz);
-      h.mtl = (int)ld(S + 21);
+      mat3(Sp + 12, hx, hy, hz, h.nx, h.ny, h.nz);
+      h.mtl = (int)scene_ld(Sp + 21);
       h.front = frontal;
       if (A.need_uv) {
         h.u = 0.5f - atan2p(hx, hy) * INV_2PI_F;
@@ -603,16 +529,16 @@ __device__ void closest_hit(const Args& A, const float o[3],
     }
   }
   for (int i = 0; i < A.np; ++i) {
-    const float* P = A.planes + INST_W * i;
+    const float* P = S.planes + INST_W * i;
     to_local(P, o, d, lo, l);
     float tp, hx, hy;
     bool in = plane(lo, l, tp, hx, hy);
     if (in && tp >= ZERO && tp < h.t) {
       h.t = tp;
-      h.nx = ld(P + 14);
-      h.ny = ld(P + 17);
-      h.nz = ld(P + 20);
-      h.mtl = (int)ld(P + 21);
+      h.nx = scene_ld(P + 14);
+      h.ny = scene_ld(P + 17);
+      h.nz = scene_ld(P + 20);
+      h.mtl = (int)scene_ld(P + 21);
       h.front = l[2] <= 0.0f;
       if (A.need_uv) {
         h.u = (hx + 1.0f) * 0.5f;
@@ -620,49 +546,19 @@ __device__ void closest_hit(const Args& A, const float o[3],
       }
     }
   }
-  if constexpr (MXU) mesh_closest_mxu(A, o, d, h, cnt);
-  for (int k = 0; !MXU && k < A.ni; ++k) {
-    const float* I = A.insts + INST_W * k;
-    to_local(I, o, d, lo, l);
-    float ild[3];
-    inv_dir(l, ild);
-    int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
-    if (cnt) { cnt[STAT_INST] += 1; cnt[STAT_TILES] += nt; }
-    for (int j = t0; j < t0 + nt; ++j) {
-      const float* T = A.tiles + TILE_W * j;
-      if (!slab(T, lo, ild, h.t)) continue;
-      int f0 = (int)ld(T + 6), nf = (int)ld(T + 7);
-      if (cnt) cnt[STAT_TRI_CLOSEST] += nf;
-      for (int f = f0; f < f0 + nf; ++f) {
-        const float* F = A.faces + FACE_W * f;
-        float t, dn, ba, bb, bc;
-        if (!tri(F, lo, l, t, dn, ba, bb, bc) || !(t < h.t)) continue;
-        float lnx = ld(F + 12) * ba + ld(F + 15) * bb + ld(F + 18) * bc;
-        float lny = ld(F + 13) * ba + ld(F + 16) * bb + ld(F + 19) * bc;
-        float lnz = ld(F + 14) * ba + ld(F + 17) * bb + ld(F + 20) * bc;
-        h.t = t;
-        mat3(I + 12, lnx, lny, lnz, h.nx, h.ny, h.nz);
-        h.mtl = (int)ld(F + 30);
-        h.front = dn <= 0.0f;
-        if (A.need_uv) {
-          h.u = ld(F + 21) * ba + ld(F + 24) * bb + ld(F + 27) * bc;
-          h.v = ld(F + 22) * ba + ld(F + 25) * bb + ld(F + 28) * bc;
-        }
-      }
-    }
-  }
+  if (cnt) cnt[STAT_CYC_PRIM] += clock64() - cp0;
+  mesh_closest<MXU>(A, S, o, d, h, cnt);
   norm3(h.nx, h.ny, h.nz);
 }
 
-// shadow ray: any occluder with 1e-14 < t < cap (GenLight::Shadow)
-template <bool MXU>
-__device__ bool occluded(const Args& A, const float o[3], const float d[3],
-                         float cap, unsigned long long* cnt) {
+// the spheres and planes of a shadow ray
+__device__ bool prim_occluded(const Args& A, const Scene& S, const float o[3],
+                              const float d[3], float cap,
+                              unsigned long long* cnt) {
   float lo[3], l[3];
-  if (cnt) cnt[STAT_SHADOW] += 1;
   for (int i = 0; i < A.ns; ++i) {
     if (cnt) cnt[STAT_PRIM_SHADOW] += 1;
-    to_local(A.spheres + INST_W * i, o, d, lo, l);
+    to_local(S.spheres + INST_W * i, o, d, lo, l);
     float t1, t2;
     bool has = sphere(lo, l, t1, t2);
     float ts = t2 > ZERO ? t2 : t1;
@@ -670,36 +566,29 @@ __device__ bool occluded(const Args& A, const float o[3], const float d[3],
   }
   for (int i = 0; i < A.np; ++i) {
     if (cnt) cnt[STAT_PRIM_SHADOW] += 1;
-    to_local(A.planes + INST_W * i, o, d, lo, l);
+    to_local(S.planes + INST_W * i, o, d, lo, l);
     float tp, hx, hy;
     bool in = plane(lo, l, tp, hx, hy);
     if (in && tp >= ZERO && tp > 1e-14f && tp < cap) return true;
   }
-  if constexpr (MXU) {
-    if (mesh_anyhit_mxu(A, o, d, cap, cnt)) return true;
-  }
-  for (int k = 0; !MXU && k < A.ni; ++k) {
-    const float* I = A.insts + INST_W * k;
-    to_local(I, o, d, lo, l);
-    float ild[3];
-    inv_dir(l, ild);
-    int t0 = (int)ld(I + 22), nt = (int)ld(I + 23);
-    if (cnt) cnt[STAT_INST] += 1;
-    for (int j = t0; j < t0 + nt; ++j) {
-      const float* T = A.tiles + TILE_W * j;
-      if (cnt) cnt[STAT_TILES] += 1;
-      if (!slab(T, lo, ild, cap)) continue;
-      int f0 = (int)ld(T + 6), nf = (int)ld(T + 7);
-      for (int f = f0; f < f0 + nf; ++f) {
-        if (cnt) cnt[STAT_TRI_SHADOW] += 1;
-        float t, dn, ba, bb, bc;
-        if (tri(A.faces + FACE_W * f, lo, l, t, dn, ba, bb, bc)
-            && t > 1e-14f && t < cap)
-          return true;
-      }
-    }
-  }
   return false;
+}
+
+// shadow ray: any occluder with 1e-14 < t < cap (GenLight::Shadow)
+template <bool MXU>
+__device__ bool occluded(const Args& A, const Scene& S, const float o[3],
+                         const float d[3], float cap,
+                         unsigned long long* cnt) {
+  if (!cnt)
+    return prim_occluded(A, S, o, d, cap, cnt)
+        || mesh_anyhit<MXU>(A, S, o, d, cap, cnt);
+  const long long c0 = clock64();
+  cnt[STAT_SHADOW] += 1;
+  const bool prim = prim_occluded(A, S, o, d, cap, cnt);
+  cnt[STAT_CYC_PRIM] += clock64() - c0;
+  const bool occ = prim || mesh_anyhit<MXU>(A, S, o, d, cap, cnt);
+  cnt[STAT_CYC_SHADOW] += clock64() - c0;
+  return occ;
 }
 
 // ops/texture.py::sample_texmap_ch for one lane with a map (tm >= 0): the
@@ -829,15 +718,15 @@ __device__ __forceinline__ void write_rows(const Args& A, int i, int b,
   }
 }
 
-template <bool TEXTURED, bool GI, bool MXU>
-__global__ void __launch_bounds__(THREADS)
+// (THREADS, 1): at most THREADS threads a block, and no occupancy target,
+// so ptxas gives each variant the registers it needs (126-199, no spill)
+// instead of spilling to fit 64-80 (PERF.md section 6, PR 7)
+template <bool TEXTURED, bool GI, bool MXU, bool COUNT>
+__global__ void __launch_bounds__(THREADS, 1)
 wave_kernel(const Args A) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  long long k0 = 0;
-  if constexpr (MXU) {
-    if (A.stats && A.stats_blocks) k0 = clock64();
-    stage_tree(A);   // before any lane leaves: the block's one barrier
-  }
+  const long long k0 = COUNT && A.stats_blocks ? clock64() : 0;
+  const Scene S = stage(A);   // before any lane leaves: the one barrier
   if (i >= A.n) return;
   const int n = A.n;
   float o[3], d[3];
@@ -857,22 +746,22 @@ wave_kernel(const Args A) {
   }
   int rows_done = 0;  // bounces whose GI rows are written (GI only)
   float acc[3] = {0.0f, 0.0f, 0.0f}, hit0 = 0.0f, z0 = BIG;
-  constexpr int NS = MXU ? NSTAT_MXU : NSTAT;
-  unsigned long long cnt_[NS] = {};
-  unsigned long long* cnt = A.stats ? cnt_ : nullptr;
+  // the counters: a separate instantiation (COUNT), so a launch without
+  // them has no counting branches and no local-memory array
+  unsigned long long cnt_[NSTAT] = {};
+  unsigned long long* const cnt = COUNT ? cnt_ : nullptr;
   const uint32_t idx = (uint32_t)(i & 1023);
   const uint32_t seed0 = A.seed + (A.blk0 + (uint32_t)(i >> 10)) * 7919u;
   const bool need_uv = A.need_uv != 0;
 
-  long long cb = 0;
-  if constexpr (MXU) {
-    if (cnt) cb = clock64();
-  }
+  const long long cb = cnt ? clock64() : 0;
+  long long cb1 = 0;   // the clock at bounce 1's start
   for (int b = 0; b < A.nbounce && alive; ++b) {
     const uint32_t seed = seed0 + (uint32_t)b * 101u;
+    if (cnt && b == 1) cb1 = clock64();
     if (cnt) cnt[STAT_RAYS] += 1;
     Hit h;
-    closest_hit<MXU>(A, o, d, h, cnt);
+    closest_hit<MXU>(A, S, o, d, h, cnt);
     const bool hit = h.t < BIG;
     float rad[3] = {0.0f, 0.0f, 0.0f};
     if (!hit) {
@@ -916,24 +805,24 @@ wave_kernel(const Args A) {
     for (int c = 0; c < 3; ++c) rad[c] = ld(M + 17 + c);
 
     for (int li = 0; li < A.nl; ++li) {
-      const float* L = A.lights + LIGHT_W * li;
-      const int kind = (int)ld(L);
+      const float* L = S.lights + LIGHT_W * li;
+      const int kind = (int)scene_ld(L);
       if (kind == 0) {  // ambient
         if (h.front)
           for (int c = 0; c < 3; ++c)
-            rad[c] = rad[c] + kd[c] * ld(L + 1 + c) * A.coef;
+            rad[c] = rad[c] + kd[c] * scene_ld(L + 1 + c) * A.coef;
         continue;
       }
       float lx, ly, lz, tmax, inv_r2 = 1.0f;
       if (kind == 1) {  // direct
-        lx = -ld(L + 4) + 0.0f;
-        ly = -ld(L + 5) + 0.0f;
-        lz = -ld(L + 6) + 0.0f;
+        lx = -scene_ld(L + 4) + 0.0f;
+        ly = -scene_ld(L + 5) + 0.0f;
+        lz = -scene_ld(L + 6) + 0.0f;
         tmax = BIG;
       } else {          // point
-        lx = ld(L + 7) - p[0];
-        ly = ld(L + 8) - p[1];
-        lz = ld(L + 9) - p[2];
+        lx = scene_ld(L + 7) - p[0];
+        ly = scene_ld(L + 8) - p[1];
+        lz = scene_ld(L + 9) - p[2];
         tmax = 1.0f;
         if (A.inverse_square)
           inv_r2 = 1.0f / fmaxf(lx * lx + ly * ly + lz * lz, 1e-30f);
@@ -947,7 +836,7 @@ wave_kernel(const Args A) {
       const float spec = powf(cos_nh, gloss);
 
       int nmin = 1, nmax = 1;
-      const float size = ld(L + 10);
+      const float size = scene_ld(L + 10);
       if (kind == 2 && size > 0.0f) {
         nmax = A.shadow_max > 1 ? A.shadow_max : 1;
         nmin = A.shadow_min > 1 ? A.shadow_min : 1;
@@ -971,7 +860,7 @@ wave_kernel(const Args A) {
       if (!soft) {
         float so[3];
         offset_origin(p, nrm, sd, so);
-        vis = occluded<MXU>(A, so, sd, tmax, cnt) ? 0.0f : 1.0f;
+        vis = occluded<MXU>(A, S, so, sd, tmax, cnt) ? 0.0f : 1.0f;
       } else {
         float sums[2] = {0.0f, 0.0f};   // first nmin samples, the rest
         for (int si = 0; si < nmax; ++si) {
@@ -989,7 +878,8 @@ wave_kernel(const Args A) {
             td[a] = sd[a] + (v1[a] * r * ca + v2[a] * r * sa);
           float so[3];
           offset_origin(p, nrm, td, so);
-          float lit = occluded<MXU>(A, so, td, tmax, cnt) ? 0.0f : 1.0f;
+          float lit = occluded<MXU>(A, S, so, td, tmax, cnt) ? 0.0f
+                                                            : 1.0f;
           sums[si < nmin ? 0 : 1] = sums[si < nmin ? 0 : 1] + lit;
         }
         bool pen = nmax > nmin && sums[0] > 0.0f && sums[0] < (float)nmin;
@@ -998,7 +888,7 @@ wave_kernel(const Args A) {
       }
       if (h.front)
         for (int c = 0; c < 3; ++c) {
-          float lit_c = (kd[c] + ks[c] * spec) * ld(L + 1 + c) * A.coef
+          float lit_c = (kd[c] + ks[c] * spec) * scene_ld(L + 1 + c) * A.coef
               * inv_r2 * cos_nl;
           rad[c] = rad[c] + lit_c * vis;
         }
@@ -1084,8 +974,10 @@ wave_kernel(const Args A) {
     }
     rtype = take_r ? RT_REFLECT : RT_REFRACT;
   }
-  if constexpr (MXU) {
-    if (cnt) cnt_[STAT_CYC_BOUNCES] += clock64() - cb;
+  if (cnt) {
+    const long long ce = clock64();
+    cnt_[STAT_CYC_BOUNCES] += ce - cb;
+    if (cb1) cnt_[STAT_CYC_LATER] += ce - cb1;
   }
 
   A.out[0 * n + i] = acc[0];
@@ -1100,20 +992,22 @@ wave_kernel(const Args A) {
       write_rows(A, i, b, nullptr, nullptr, nullptr, nullptr);
   }
   if (cnt)
-    for (int s = 0; s < NS; ++s)
+    for (int s = 0; s < NSTAT; ++s)
       if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);
-  if constexpr (MXU) {
-    if (cnt && A.stats_blocks)
-      atomicMax(A.stats + NSTAT_MXU + blockIdx.x,
-                (unsigned long long)(clock64() - k0));
-  }
+  if (cnt && A.stats_blocks)
+    atomicMax(A.stats + NSTAT + blockIdx.x,
+              (unsigned long long)(clock64() - k0));
 }
 
-// launch one variant with `smem` bytes of dynamic shared memory
+// launch one variant with `smem` bytes of dynamic shared memory, its
+// counting instantiation where the launch takes counters
 template <bool TEXTURED, bool GI, bool MXU>
 cudaError_t launch(int blocks, size_t smem, cudaStream_t st,
                    const Args& A) {
-  wave_kernel<TEXTURED, GI, MXU><<<blocks, THREADS, smem, st>>>(A);
+  if (A.stats)
+    wave_kernel<TEXTURED, GI, MXU, true><<<blocks, THREADS, smem, st>>>(A);
+  else
+    wave_kernel<TEXTURED, GI, MXU, false><<<blocks, THREADS, smem, st>>>(A);
   return cudaGetLastError();
 }
 
@@ -1126,7 +1020,7 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                     int seed, int blk0, int nbounce,
                     const float* spheres, int ns, const float* planes,
                     int np, const float* insts, int ni, const float* roots,
-                    const float* tiles, const float* faces, const float* mats,
+                    const float* faces, const float* mats,
                     const float* lights, int nl, const float* texmaps,
                     const float* textures, const float* atlas, int atlas_w,
                     int env_tm, int env_l2, int textured, float env_r,
@@ -1135,7 +1029,8 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                     int shadow_max, int shadow_min, int need_uv,
                     int has_gloss, int mxu, const float* groups, int ng,
                     const float* tnodes, const float* leaves,
-                    int staged, int stats_blocks, void* stream) {
+                    int staged, int stats_blocks, int scene_staged,
+                    void* stream) {
   if (n <= 0) return 0;
   Args A;
   A.rays = rays;
@@ -1152,7 +1047,6 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   A.planes = planes; A.np = np;
   A.insts = insts; A.ni = ni;
   A.roots = roots;
-  A.tiles = tiles;
   A.faces = faces;
   A.mats = mats;
   A.lights = lights; A.nl = nl;
@@ -1175,13 +1069,17 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   A.groups = groups; A.ng = ng;
   A.tnodes = tnodes;
   A.leaves = leaves;
-  A.staged = mxu && staged;
+  A.staged = staged;
+  A.scene_staged = scene_staged;
   A.stats_blocks = stats_blocks;
   int blocks = (n + THREADS - 1) / THREADS;
   const bool gi = has_state || surf_out || gi_from >= 0;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem =
-      A.staged ? sizeof(float) * (ROOT_W * ni + NODE_W * ng) : 0;
+      (A.staged ? sizeof(float) * (boxwalk::ROOT_W * ni
+                                   + boxwalk::NODE_W * ng) : 0)
+      + (A.scene_staged ? sizeof(float) * (INST_W * (ns + np + ni)
+                                           + LIGHT_W * nl) : 0);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (mxu) {
@@ -1194,13 +1092,13 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
     else
       e = launch<false, false, true>(blocks, smem, st, A);
   } else if (textured && gi) {
-    e = launch<true, true, false>(blocks, 0, st, A);
+    e = launch<true, true, false>(blocks, smem, st, A);
   } else if (textured) {
-    e = launch<true, false, false>(blocks, 0, st, A);
+    e = launch<true, false, false>(blocks, smem, st, A);
   } else if (gi) {
-    e = launch<false, true, false>(blocks, 0, st, A);
+    e = launch<false, true, false>(blocks, smem, st, A);
   } else {
-    e = launch<false, false, false>(blocks, 0, st, A);
+    e = launch<false, false, false>(blocks, smem, st, A);
   }
   return (int)e;
 }

@@ -13,14 +13,20 @@ wins, the Pallas kernel's lane-reduction rule.
 
 `mesh_closest_hit_plain` tests every face, [rays, 128] per tile, with no
 culling; `mesh_closest_hit` launches csrc/mesh_hit.cu for CUDA tensors,
-which culls tiles per ray, and runs the plain version for CPU tensors.
+which walks the slot's box hierarchy (`MeshTree`, built with the scene)
+per ray, and runs the plain version for CPU tensors;
+`mesh_closest_hit_rays` does the same on rays that are not packed (what
+ops/trace.py calls).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from rtf_tpu_torch.ops.mxu_pack import packed_hierarchy, walk_tables
 from rtf_tpu_torch.ops.pack import DZ_EPS, TRI_LANES, ZERO
 
 RAY_BLOCK = 512        # rays per Pallas program: pack_rays pads to it
@@ -29,7 +35,57 @@ _CHUNK = 1 << 20       # ray x face elements per plain step
 # kernel launches made by `mesh_closest_hit` (the plain version never
 # counts)
 launches = 0
-NSTAT = 2              # kernel work counters: slab tests, ray-face pairs
+# kernel work counters: slab tests (all levels), ray-face pairs, root-box
+# tests, rays that entered the root, group, tile and leaf slab tests
+NSTAT = 7
+# shared memory of a launch (bytes): the slot's face rows up to this, in
+# blocks where a ray walks; larger slots read them from device memory
+SMEM_BYTES = 48 * 1024
+
+
+@dataclass
+class MeshTree:
+    """What csrc/mesh_hit.cu reads of a scene's packed triangle table:
+    faces [F_pad, 12], its rows 0-11 face-major (three 16-byte rows a
+    face), and per slot the box hierarchy over its packed columns
+    (ops/mxu_pack.py's packed_hierarchy and walk_tables, boxes padded):
+    roots [S, 8], groups [G, 24], tnodes [T, 24] (tile j is the scene's
+    tile_aabb row j), leaves [T * 8, 8]; zero padding columns are empty
+    leaves.  face_base, face_rows: per slot its first column and its
+    column count."""
+    faces: torch.Tensor
+    roots: torch.Tensor
+    groups: torch.Tensor
+    tnodes: torch.Tensor
+    leaves: torch.Tensor
+    face_base: tuple
+    face_rows: tuple
+
+
+def mesh_tree(tri_packed, slot_pack, slot_faces, device) -> MeshTree:
+    """The MeshTree of a packed table (ops/pack.py layout, [40, sum F_pad],
+    each slot's columns at slot_pack's col0) on `device`: each slot's
+    faces (slot_faces' count, in packed order) boxed by their rows
+    32-37."""
+    table = tri_packed.cpu().numpy() if isinstance(tri_packed, torch.Tensor) \
+        else np.asarray(tri_packed)
+    boxes = []
+    for (col0, _, _, _, _), (f0, f1) in zip(slot_pack, slot_faces):
+        cols = table[:, col0:col0 + f1 - f0]
+        boxes.append((cols[32:35].T, cols[35:38].T))
+    pack = packed_hierarchy(boxes)
+    for (col0, fpad, ar0, nt, _), s in zip(slot_pack, pack["slots"]):
+        assert pack["slots"][s][0:2] == (ar0, nt) and col0 == ar0 * TRI_LANES
+    groups, tnodes, leaves, roots = walk_tables(pack)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
+    return MeshTree(faces=t(table[0:12].T),
+                    roots=t(np.stack([roots[s] for s in sorted(roots)])),
+                    groups=t(groups), tnodes=t(tnodes), leaves=t(leaves),
+                    face_base=tuple(int(p[0]) for p in slot_pack),
+                    face_rows=tuple(int(p[1]) for p in slot_pack))
 
 
 def pack_rays(o: torch.Tensor, d: torch.Tensor, t_init: torch.Tensor):
@@ -112,41 +168,74 @@ def mesh_closest_hit_plain(rays8: torch.Tensor, tris: torch.Tensor,
 
 
 def mesh_closest_hit(rays8: torch.Tensor, tris: torch.Tensor,
-                     aabb: torch.Tensor, face0: int = 0, stats=None):
-    """rays8 [N, 8] float32 (`pack_rays`), tris [>= 12, F_pad] float32 with
-    unit column stride (a column slice of the scene table is fine), aabb
-    [F_pad / 128, 8].  Returns (t, face int32, front 0/1, ba, bb), each
-    [N].  Launches csrc/mesh_hit.cu for CUDA tensors (counted in
-    `launches`; a build or launch failure raises), or runs
-    `mesh_closest_hit_plain` for CPU tensors.
+                     aabb: torch.Tensor, face0: int = 0, stats=None,
+                     tree: MeshTree = None, slot: int = 0):
+    """rays8 [N, 8] float32 (`pack_rays`), tris [>= 12, F_pad] float32 (a
+    column slice of the scene table is fine) and aabb [F_pad / 128, 8]:
+    slot `slot`'s columns and tile boxes; tree: the scene's MeshTree
+    (scene.mesh.hit_tree), which the kernel reads in their place.
+    Returns (t, face int32, front 0/1, ba, bb), each [N].  Launches
+    csrc/mesh_hit.cu for CUDA tensors (counted in `launches`; a build or
+    launch failure raises), or runs `mesh_closest_hit_plain` for CPU
+    tensors (which reads tris and not the tree).
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
-    slab tests and ray-face pairs to."""
-    global launches
+    work counts to."""
     if rays8.device.type == "cpu":
         return mesh_closest_hit_plain(rays8, tris, aabb, face0)
-    if rays8.device.type != "cuda":
-        raise ValueError(f"mesh_closest_hit: unsupported device "
-                         f"{rays8.device}")
-    n = rays8.shape[0]
-    nt = tris.shape[1] // TRI_LANES
-    dev = rays8.device
-    for name, x in (("rays8", rays8), ("tris", tris), ("aabb", aabb)):
-        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2:
-            raise ValueError(f"mesh_closest_hit: {name} must be a 2-D "
-                             f"float32 tensor on {dev}")
-    if rays8.shape[1] != 8 or not rays8.is_contiguous() \
-            or rays8.data_ptr() % 16:
-        raise ValueError("mesh_closest_hit: rays8 must be contiguous "
-                         "16-byte aligned [N, 8] rows")
-    if tris.shape[0] < 12 or tris.stride(1) != 1 \
-            or tris.shape[1] % TRI_LANES:
-        raise ValueError("mesh_closest_hit: tris must be [>= 12, F_pad] "
-                         "with unit column stride, F_pad a multiple of "
-                         f"{TRI_LANES}")
-    if tuple(aabb.shape) != (nt, 8) or not aabb.is_contiguous():
-        raise ValueError(f"mesh_closest_hit: aabb must be contiguous "
-                         f"[{nt}, 8]")
+    if rays8.dim() != 2 or rays8.shape[1] != 8 or rays8.stride(1) != 1:
+        raise ValueError("mesh_closest_hit: rays8 must be [N, 8] rows")
+    return _launch(rays8[:, 0:3], rays8[:, 3:6], rays8[:, 6], face0, stats,
+                   tree, slot)
+
+
+def mesh_closest_hit_rays(o: torch.Tensor, d: torch.Tensor,
+                          t_init: torch.Tensor, tris: torch.Tensor,
+                          aabb: torch.Tensor, face0: int = 0, stats=None,
+                          tree: MeshTree = None, slot: int = 0):
+    """`mesh_closest_hit` of local rays o, d [N, 3] and t_init [N] that are
+    not packed: the kernel reads them in place (a trace's pack_rays, four
+    ops, costs as much as the launch); on CPU tensors `pack_rays` and the
+    plain version.  Returns (t, face, front, ba, bb), each [N]."""
+    if o.device.type == "cpu":
+        rays8, _ = pack_rays(o, d, t_init)
+        return tuple(x[:o.shape[0]] for x in mesh_closest_hit_plain(
+            rays8, tris, aabb, face0))
+    return _launch(o, d, t_init, face0, stats, tree, slot)
+
+
+def _launch(o, d, t_init, face0, stats, tree, slot):
+    """csrc/mesh_hit.cu on CUDA rays o, d [N, 3] (rows of one stride, unit
+    column stride) and t_init [N]."""
+    global launches
+    if o.device.type != "cuda":
+        raise ValueError(f"mesh_closest_hit: unsupported device {o.device}")
+    n = o.shape[0]
+    dev = o.device
+    if tree is None:
+        raise ValueError("mesh_closest_hit: the kernel needs the scene's "
+                         "MeshTree (tree=scene.mesh.hit_tree)")
+    if not 0 <= slot < tree.roots.shape[0]:
+        raise ValueError(f"mesh_closest_hit: no slot {slot}")
+    for name, x in (("o", o), ("d", d), ("t_init", t_init)):
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(f"mesh_closest_hit: {name} must be float32 on "
+                             f"{dev}")
+    if tuple(o.shape) != (n, 3) or tuple(d.shape) != (n, 3) \
+            or o.stride() != d.stride() or o.stride(1) != 1 \
+            or tuple(t_init.shape) != (n,):
+        raise ValueError("mesh_closest_hit: o and d must be [N, 3] rows of "
+                         "one stride, unit column stride, and t_init [N]")
+    for name in ("faces", "roots", "groups", "tnodes", "leaves"):
+        x = getattr(tree, name)
+        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 \
+                or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"mesh_closest_hit: the tree's {name} must be "
+                             f"a contiguous 16-byte aligned 2-D float32 "
+                             f"tensor on {dev}")
+    if tree.faces.shape[1] != 12:
+        raise ValueError("mesh_closest_hit: the tree's faces must be "
+                         "[F_pad, 12]")
     if stats is not None and (stats.device != dev
                               or stats.dtype != torch.int64
                               or stats.numel() < NSTAT):
@@ -157,13 +246,17 @@ def mesh_closest_hit(rays8: torch.Tensor, tris: torch.Tensor,
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     front, ba, bb = (torch.empty_like(t) for _ in range(3))
+    base, rows = tree.face_base[slot], tree.face_rows[slot]
 
     def ptr(x):
         return ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rtf_mesh_hit_launch(
-            ptr(rays8), n, ptr(tris), tris.stride(0), nt, ptr(aabb),
+            ptr(o), ptr(d), o.stride(0), ptr(t_init), t_init.stride(0), n,
+            ptr(tree.faces[base:base + rows]), rows,
+            int(rows * 12 * 4 <= SMEM_BYTES), ptr(tree.roots[slot]),
+            ptr(tree.groups), ptr(tree.tnodes), ptr(tree.leaves), base,
             int(face0), ptr(t), ptr(face), ptr(front), ptr(ba), ptr(bb),
             ctypes.c_void_p(0) if stats is None else ptr(stats),
             ctypes.c_void_p(stream))

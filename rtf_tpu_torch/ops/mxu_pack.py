@@ -34,9 +34,13 @@ index at visit step k, octant o = 4 (dx >= 0) + 2 (dy >= 0) + (dz >= 0)),
 14 the tile's first face row, 15 its face count.
 
 On top of the tiles, the port keeps a box hierarchy per slot that the
-wave kernel walks one ray per thread (csrc/wave_kernel.cu); rtf_tpu's TPU
-tables are one level only because a tile is one matrix product.  The faces
-stay in Morton column order, so a face's (tile, column) key is unchanged.
+kernels walk one ray per thread (csrc/walk.cuh, shared by the wave
+kernel's variants and csrc/mesh_hit.cu); rtf_tpu's TPU tables are one
+level only because a tile is one matrix product.  The faces stay in
+Morton column order, so a face's (tile, column) key is unchanged.
+`packed_hierarchy` builds the same hierarchy over faces whose key is
+their packed row (the immediates tables, mesh_closest_hit's slot tables):
+there the tree rows 0-7 are the tile's own index in every octant.
 
     groups [NG, GROUP_W]  GROUP_TILES consecutive tiles of one slot: 0-5
         the group's box (the union of its tiles'), 6 its first tile, 7 its
@@ -55,6 +59,11 @@ stay in Morton column order, so a face's (tile, column) key is unchanged.
 
 Every order uses the tiles' key: the box centre along the octant's
 diagonal, empty boxes last, ties by index.
+
+The walk's tables (`walk_tables`) pad every box by TILE_PAD * (1 + the
+box's largest |coordinate|): the triangle vertices lie on the box faces,
+so a slab entry rounded a hair past a triangle's own t must not cull it,
+and a face at exactly the lane's best t keeps a slab entry below that t.
 """
 from __future__ import annotations
 
@@ -70,7 +79,9 @@ GROUP_TILES = 8       # tiles per group
 LEAF_FACES = 16       # faces per leaf
 TILE_LEAVES = MXU_TILE // LEAF_FACES
 GROUP_W, TREE_W, LEAF_W = 24, 16, 8
+NODE_W = 24           # the walk's tile rows: box, face range, tree row
 EMPTY_BOX = (1e30, 1e30, 1e30, -1e30, -1e30, -1e30)
+TILE_PAD = 1e-4
 
 
 def _octant_keys(ctr):
@@ -103,11 +114,33 @@ def _packed_orders(boxes):
     return np.sum(order << shift, axis=1).astype(np.float32)
 
 
-def _tree(tri_lo, tri_hi, f, tiles, row0, grow0):
+def _tile_rows(tri_lo, tri_hi, f, row0):
+    """The tile rows [nt, TILE_W] of one slot's f faces (vertex boxes
+    tri_lo, tri_hi [f, 3] in packed order), its first tile row0: boxes,
+    the octant visit orders and the face ranges; at least one tile."""
+    nt = max(1, (f + MXU_TILE - 1) // MXU_TILE)
+    tiles = np.zeros((nt, TILE_W), np.float32)
+    count = np.clip(f - MXU_TILE * np.arange(nt), 0, MXU_TILE)
+    pad = nt * MXU_TILE - f
+    lo = np.concatenate([tri_lo, np.full((pad, 3), np.inf, np.float32)])
+    hi = np.concatenate([tri_hi, np.full((pad, 3), -np.inf, np.float32)])
+    tiles[:, 0:3] = lo.reshape(nt, MXU_TILE, 3).min(1)
+    tiles[:, 3:6] = hi.reshape(nt, MXU_TILE, 3).max(1)
+    tiles[count == 0, 0:6] = EMPTY_BOX
+    tiles[:, 14] = (row0 + np.arange(nt)) * MXU_TILE
+    tiles[:, 15] = count
+    # near-to-far along each octant's diagonal, empty tiles last
+    tiles[:, 6:14] = np.argsort(_octant_keys(_centres(tiles[:, 0:6])),
+                                axis=0, kind="stable") + row0
+    return tiles
+
+
+def _tree(tri_lo, tri_hi, f, tiles, row0, grow0, packed=False):
     """The hierarchy of one slot (see the module docstring): groups rows,
     tree rows and leaf rows; tiles [nt, TILE_W] are the slot's tile rows
     (unpadded boxes and orders), row0 its first tile and grow0 its first
-    group."""
+    group.  packed: the key is the face row, so the tree rows 0-7 hold
+    the tile's own index instead of its octant ranks."""
     nt = tiles.shape[0]
     # leaves: LEAF_FACES consecutive columns of each tile
     pad = nt * MXU_TILE - f
@@ -127,6 +160,8 @@ def _tree(tri_lo, tri_hi, f, tiles, row0, grow0):
     order = tiles[:, 6:14].astype(np.int64) - row0
     for o in range(8):
         tree[order[:, o], o] = row0 + np.arange(nt)
+    if packed:
+        tree[:, 0:8] = (row0 + np.arange(nt))[:, None]
     tree[:, 8:16] = _packed_orders(
         leaves[:, 0:6].reshape(nt, TILE_LEAVES, 6))
     # groups: GROUP_TILES consecutive tiles, the last one short
@@ -182,7 +217,10 @@ def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
         n[degen] = 0.0
         na_d[degen] = 0.0
 
-        nt = max(1, (f + MXU_TILE - 1) // MXU_TILE)
+        tri_lo = np.minimum(np.minimum(a, b), c)
+        tri_hi = np.maximum(np.maximum(a, b), c)
+        tiles = _tile_rows(tri_lo, tri_hi, f, row0)
+        nt = tiles.shape[0]
         faces = np.zeros((nt * MXU_TILE, FACE_W), np.float32)
         faces[:f, 0:6], faces[:f, 6:12], faces[:f, 12:18] = w
         faces[:f, 18:21] = n
@@ -195,19 +233,6 @@ def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
         faces[:f, 32:34] = uvc
         faces[:f, 34:36] = uva - uvc
         faces[:f, 36:38] = uvb - uvc
-
-        tiles = np.zeros((nt, TILE_W), np.float32)
-        tri_lo = np.minimum(np.minimum(a, b), c)
-        tri_hi = np.maximum(np.maximum(a, b), c)
-        for j in range(nt):
-            lo, hi = j * MXU_TILE, min(f, (j + 1) * MXU_TILE)
-            tiles[j, 0:6] = EMPTY_BOX if hi <= lo else np.concatenate(
-                [tri_lo[lo:hi].min(0), tri_hi[lo:hi].max(0)])
-            tiles[j, 14] = (row0 + j) * MXU_TILE
-            tiles[j, 15] = max(hi - lo, 0)
-        # near-to-far along each octant's diagonal, empty tiles last
-        tiles[:, 6:14] = np.argsort(_octant_keys(_centres(tiles[:, 0:6])),
-                                    axis=0, kind="stable") + row0
         slots[slot] = (row0, nt, tuple(float(x) for x in tri_lo.min(0)),
                        tuple(float(x) for x in tri_hi.max(0)))
         face_parts.append(faces)
@@ -221,6 +246,71 @@ def mxu_pack(tri_a, tri_b, tri_c, tri_na, tri_nb, tri_nc, tri_mtl, attr_t,
                 tiles=np.concatenate(tile_parts), slots=slots,
                 groups=groups, tree=tree, leaves=leaves,
                 slot_groups=slot_groups)
+
+
+def packed_hierarchy(boxes):
+    """The box hierarchy over faces whose key is their packed row: boxes
+    is a list, per slot, of its faces' vertex boxes (lo [f, 3], hi [f, 3])
+    in packed order; slot s takes whole tiles from row0 on, its faces rows
+    row0 * 128 + column, padding rows after them.  Returns dict(tiles
+    [NT, 16], slots {s: (first tile, tile count, lo3, hi3)}, groups, tree,
+    leaves, slot_groups) as `mxu_pack` does, boxes unpadded; lo3/hi3 of a
+    slot without faces are 0."""
+    tile_parts, tree_parts, slots, slot_groups = [], [], {}, {}
+    row0 = grow0 = 0
+    for slot, (lo, hi) in enumerate(boxes):
+        f = lo.shape[0]
+        tiles = _tile_rows(lo, hi, f, row0)
+        nt = tiles.shape[0]
+        tile_parts.append(tiles)
+        tree_parts.append(_tree(lo, hi, f, tiles, row0, grow0, packed=True))
+        bounds = (lo.min(0), hi.max(0)) if f else (np.zeros(3),) * 2
+        slots[slot] = (row0, nt, *(tuple(float(x) for x in v)
+                                   for v in bounds))
+        slot_groups[slot] = (grow0, tree_parts[-1][0].shape[0])
+        row0 += nt
+        grow0 += slot_groups[slot][1]
+    groups, tree, leaves = (np.concatenate(x) for x in zip(*tree_parts))
+    return dict(tiles=np.concatenate(tile_parts), slots=slots,
+                groups=groups, tree=tree, leaves=leaves,
+                slot_groups=slot_groups)
+
+
+def _pad_box(lo, hi):
+    pad = TILE_PAD * (1.0 + max(np.abs(lo).max(), np.abs(hi).max()))
+    return lo - pad, hi + pad
+
+
+def _pad_boxes(rows):
+    """_pad_box on the box columns 0-5 of every non-empty row (empty boxes
+    stay empty), in place: the same float32 operations, row by row."""
+    full = rows[:, 0] <= rows[:, 3]
+    pad = TILE_PAD * (1.0 + np.abs(rows[full, 0:6]).max(1, keepdims=True))
+    rows[full, 0:3] -= pad
+    rows[full, 3:6] += pad
+    return rows
+
+
+def walk_tables(pack):
+    """The tables the kernels' walk reads, boxes padded, from a pack
+    (`mxu_pack` or `packed_hierarchy`): groups [G, 24], tnodes [T, 24] (0-5
+    the padded box, 6 first face row, 7 face count, 8-23 the tree row) and
+    leaves [T * 8, 8]; and per slot its root row [8]: the padded bounds
+    of its faces, its first group and group count."""
+    tiles = pack["tiles"]
+    tnodes = np.zeros((tiles.shape[0], NODE_W), np.float32)
+    tnodes[:, 0:6] = _pad_boxes(tiles[:, 0:6].copy())
+    tnodes[:, 6:8] = tiles[:, 14:16]
+    tnodes[:, 8:24] = pack["tree"]
+    roots = {}
+    for slot, (_, _, lo, hi) in pack["slots"].items():
+        row = np.zeros(8, np.float32)
+        row[0:3], row[3:6] = _pad_box(np.asarray(lo, np.float32),
+                                      np.asarray(hi, np.float32))
+        row[6:8] = pack["slot_groups"][slot]
+        roots[slot] = row
+    return (_pad_boxes(pack["groups"].copy()), tnodes,
+            _pad_boxes(pack["leaves"].copy()), roots)
 
 
 def mesh_mxu_pack(mesh):

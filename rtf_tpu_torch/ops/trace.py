@@ -4,9 +4,9 @@
 Spheres and planes: one broadcast intersection of the whole wavefront
 against every instance of the group ([N rays, I instances]), then a min-t
 reduction over instances.  Meshes: per mesh instance, the rays go to the
-instance's local space and through ops/mesh_hit.py::mesh_closest_hit over
-the instance's slot of the packed triangle table (the CUDA kernel on the
-card, its plain version on the CPU).  Hit attributes are reconstructed
+instance's local space and through ops/mesh_hit.py::mesh_closest_hit_rays
+over the instance's slot of the packed triangle table (the CUDA kernel on
+the card, its plain version on the CPU).  Hit attributes are reconstructed
 once, for the winning primitive only.
 """
 from __future__ import annotations
@@ -97,10 +97,10 @@ def _mesh_instances(scene, o, d, hit: Hit) -> Hit:
         lo, ld = _to_local(scene.mesh_inst.itm[i], scene.mesh_inst.pos[i],
                            o, d)
         col0, fpad, ar0, nt, _ = mesh.slot_pack[slot]
-        rays8, _ = mesh_hit.pack_rays(lo, ld, hit.t)
-        tp, face_p, fr_p, ba_p, bb_p = mesh_hit.mesh_closest_hit(
-            rays8, mesh.tri_packed[:, col0:col0 + fpad],
-            mesh.tile_aabb[ar0:ar0 + nt], face0=col0)
+        tp, face_p, fr_p, ba_p, bb_p = mesh_hit.mesh_closest_hit_rays(
+            lo, ld, hit.t, mesh.tri_packed[:, col0:col0 + fpad],
+            mesh.tile_aabb[ar0:ar0 + nt], face0=col0, tree=mesh.hit_tree,
+            slot=slot)
         got = face_p[:nr] >= 0
         # packed (Morton) id -> arena face id
         face_a = perm[torch.clamp(face_p[:nr].to(torch.int64), 0,

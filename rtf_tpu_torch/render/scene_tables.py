@@ -18,26 +18,24 @@ Row layouts (float32; integer fields are stored as exact floats):
   instances [K, 24]  0-8 itm (world->local, row-major), 9-11 pos,
                      12-20 nrm (local->world normals, row-major), 21 mtl;
                      mesh instances: 22 first tile, 23 tile count
-  roots     [I, 8]   on the MXU tables, per mesh instance its slot's root
-                     box, 0-2 lo, 3-5 hi (padded, see below), 6 the slot's
-                     first group, 7 its group count
-  tiles     [T, 8]   0-2 AABB lo, 3-5 AABB hi (padded, see below),
-                     6 first face, 7 face count; empty on the MXU tables,
-                     whose tiles are the tnodes rows
-  faces     [F, 40]  the packed per-face rows of ops/pack.py, Morton order;
-                     on the MXU tables [T * 128, 40], ops/mxu_pack.py's
-                     Plücker and shade rows
-  groups    [G, 24]  on the MXU tables, ops/mxu_pack.py's groups of 8
-                     tiles: 0-5 the padded box, 6 first tile, 7 tile
-                     count, 8-15 the slot's group visit orders, 16-23 the
-                     packed orders of the group's tiles
-  tnodes    [T, 24]  on the MXU tables, per tile (ops/mxu_pack.py's tile
-                     rows, whose visit orders become ranks): 0-5 the
-                     padded box, 6 first face row, 7 face count, 8-15 its
-                     rank in each octant's visit order, 16-23 the packed
-                     orders of its leaves
-  leaves    [T*8, 8] on the MXU tables, 16-face leaves: 0-5 the padded box,
-                     6 first face row, 7 face count
+  roots     [I, 8]   per mesh instance its slot's root box, 0-2 lo, 3-5 hi
+                     (padded), 6 the slot's first group, 7 its group count
+  faces     [T * 128, 40]  per 128-face tile; the immediates: the packed
+                     per-face rows of ops/pack.py, Morton order, padding
+                     and degenerate columns dropped, each slot padded with
+                     zero rows (which never hit) to whole tiles; on the MXU
+                     tables ops/mxu_pack.py's Plücker and shade rows
+  groups    [G, 24]  ops/mxu_pack.py's groups of 8 tiles: 0-5 the padded
+                     box, 6 first tile, 7 tile count, 8-15 the slot's group
+                     visit orders, 16-23 the packed orders of the group's
+                     tiles
+  tnodes    [T, 24]  per tile: 0-5 the padded box, 6 first face row, 7 face
+                     count, 8-15 its key base in each octant (on the MXU
+                     tables its rank in the octant's visit order, on the
+                     immediates its own index: a face's key is then its
+                     packed row), 16-23 the packed orders of its leaves
+  leaves    [T*8, 8] 16-face leaves: 0-5 the padded box, 6 first face row,
+                     7 face count
   materials [M, 24]  0-2 kd, 3-5 ks, 6 gloss, 7-9 refl, 10-12 refr, 13 ior,
                      14-16 absorb, 17-19 emission, 20 refl gloss,
                      21 refr gloss, 22/23 kd/ks texmap id (-1: none)
@@ -59,7 +57,8 @@ serves every size up to MXU_STREAM_MAX_FACES.
 Checker and file textures take the same path: a material's kd/ks texmap
 id picks a texmaps row, whose texture row says which sampler runs.
 
-The root, group, tile and leaf boxes are padded by 1e-4 * (1 + the largest
+The root, group, tile and leaf boxes (ops/mxu_pack.py::walk_tables builds
+them for both tables) are padded by 1e-4 * (1 + the largest
 |coordinate| of the box): the triangle vertices lie on the box faces, so a
 slab entry rounded a hair past a triangle's own t must not cull it, and a
 face at exactly the lane's best t keeps a slab entry below that t.
@@ -71,8 +70,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rtf_tpu_torch.ops.mxu_pack import mesh_mxu_pack
-from rtf_tpu_torch.ops.pack import TRI_LANES
+from rtf_tpu_torch.ops.mxu_pack import (  # noqa: F401 (TILE_PAD)
+    MXU_TILE, NODE_W, TILE_PAD, mesh_mxu_pack, packed_hierarchy,
+    walk_tables)
 from rtf_tpu_torch.ops.trace import MESH_ALGOS
 from rtf_tpu_torch.scene.build import (
     LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, Scene,
@@ -83,10 +83,8 @@ MAX_FACES = 512        # immediates budget; above it the MXU tables
 MXU_STREAM_MAX_FACES = 1 << 20  # rtf_tpu's fused gate (fused.py:61)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
-INST_W, TILE_W, FACE_W, MAT_W, LIGHT_W = 24, 8, 40, 24, 16
-NODE_W = 24            # MXU groups and tnodes rows
+INST_W, FACE_W, MAT_W, LIGHT_W = 24, 40, 24, 16
 TEXMAP_W, TEX_W = 10, 10
-TILE_PAD = 1e-4
 
 _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
          "point": LIGHT_POINT}
@@ -191,12 +189,11 @@ class WaveTables:
     spheres: torch.Tensor     # [S, 24]
     planes: torch.Tensor      # [P, 24]
     mesh_insts: torch.Tensor  # [I, 24]
-    roots: torch.Tensor       # [I, 8] on the MXU tables, else [0, 8]
-    tiles: torch.Tensor       # [T, 8], on the MXU tables [0, 8]
-    faces: torch.Tensor       # [F, 40], on the MXU tables [T * 128, 40]
-    groups: torch.Tensor      # [G, 24] on the MXU tables, else [0, 24]
-    tnodes: torch.Tensor      # [T, 24] on the MXU tables, else [0, 24]
-    leaves: torch.Tensor      # [T * 8, 8] on the MXU tables, else [0, 8]
+    roots: torch.Tensor       # [I, 8]
+    faces: torch.Tensor       # [T * 128, 40]
+    groups: torch.Tensor      # [G, 24]
+    tnodes: torch.Tensor      # [T, 24]
+    leaves: torch.Tensor      # [T * 8, 8]
     materials: torch.Tensor   # [M, 24]
     lights: torch.Tensor      # [L, 16]
     texmaps: torch.Tensor     # [Q, 10]
@@ -238,76 +235,46 @@ def _instances(group, n, extra=None) -> np.ndarray:
     return rows
 
 
-def _pad_box(lo, hi):
-    pad = TILE_PAD * (1.0 + max(np.abs(lo).max(), np.abs(hi).max()))
-    return lo - pad, hi + pad
-
-
-def _mesh_tables(scene: Scene):
-    """Tiles and faces per mesh instance, in packed (Morton) order with
-    padding and degenerate columns dropped (as scene_consts drops them)."""
-    tiles, faces, ranges = [], [], []
-    if scene.mesh is None or scene.num_mesh_inst == 0:
-        return (np.zeros((0, TILE_W), np.float32),
-                np.zeros((0, FACE_W), np.float32), np.zeros((0, 2)))
+def _imm_pack(scene: Scene):
+    """The immediates' faces and hierarchy: per slot its packed per-face
+    rows in packed (Morton) order with padding and degenerate columns
+    dropped (as scene_consts drops them), padded with zero rows to whole
+    128-face tiles ([T * 128, 40]), and ops/mxu_pack.py's packed_hierarchy
+    over their vertex boxes (rows 32-37)."""
     table = scene.mesh.tri_packed.cpu().numpy()
-    aabb_all = scene.mesh.tile_aabb.cpu().numpy()
-    slot_rows = {}
-    for slot in scene.mesh_inst_slots:
-        if slot in slot_rows:
-            ranges.append(slot_rows[slot])
-            continue
-        col0, _, ar0, nt, _ = scene.mesh.slot_pack[slot]
-        tile0 = len(tiles)
-        for j in range(nt):
-            cols = table[:, col0 + j * TRI_LANES:col0 + (j + 1) * TRI_LANES]
-            keep = ~((cols[0] == 0) & (cols[1] == 0) & (cols[2] == 0))
-            lo, hi = _pad_box(aabb_all[ar0 + j, 0:3], aabb_all[ar0 + j, 3:6])
-            tiles.append(np.concatenate(
-                [lo, hi, [sum(len(f) for f in faces), int(keep.sum())]]))
-            faces.append(cols[:, keep].T)
-        slot_rows[slot] = (tile0, nt)
-        ranges.append(slot_rows[slot])
-    return (np.asarray(tiles, np.float32),
-            np.concatenate(faces).astype(np.float32),
-            np.asarray(ranges, np.float32))
+    faces, boxes = [], []
+    for col0, fpad, _, _, _ in scene.mesh.slot_pack:
+        cols = table[:, col0:col0 + fpad]
+        keep = ~((cols[0] == 0) & (cols[1] == 0) & (cols[2] == 0))
+        f = cols[:, keep].T
+        nt = max(1, (f.shape[0] + MXU_TILE - 1) // MXU_TILE)
+        faces.append(np.concatenate([f, np.zeros(
+            (nt * MXU_TILE - f.shape[0], FACE_W), np.float32)]))
+        boxes.append((f[:, 32:35], f[:, 35:38]))
+    return np.concatenate(faces).astype(np.float32), packed_hierarchy(boxes)
 
 
-def _pad_boxes(rows):
-    """_pad_box on the box columns 0-5 of every non-empty row (empty boxes
-    stay empty), in place: the same float32 operations, row by row."""
-    full = rows[:, 0] <= rows[:, 3]
-    pad = TILE_PAD * (1.0 + np.abs(rows[full, 0:6]).max(1, keepdims=True))
-    rows[full, 0:3] -= pad
-    rows[full, 3:6] += pad
-    return rows
-
-
-def _mxu_tables(scene: Scene):
-    """The MXU tables (ops/mxu_pack.py) with padded boxes, every slot in
-    slot order: faces, groups, tnodes, leaves; per instance its tile
-    range, its group range and its slot's bounds."""
-    pack = mesh_mxu_pack(scene.mesh)
-    tiles = _pad_boxes(pack["tiles"])
-    tnodes = np.zeros((tiles.shape[0], NODE_W), np.float32)
-    tnodes[:, 0:6] = tiles[:, 0:6]
-    tnodes[:, 6:8] = tiles[:, 14:16]
-    tnodes[:, 8:24] = pack["tree"]
+def _mesh_tables(scene: Scene, mxu: bool):
+    """faces, groups, tnodes, leaves, and per mesh instance its slot's tile
+    range and root row; on the MXU tables also its slot's unpadded
+    bounds."""
+    if scene.mesh is None or scene.num_mesh_inst == 0:
+        return (np.zeros((0, FACE_W), np.float32),
+                np.zeros((0, NODE_W), np.float32),
+                np.zeros((0, NODE_W), np.float32),
+                np.zeros((0, 8), np.float32), np.zeros((0, 2)),
+                np.zeros((0, 8), np.float32), ())
+    if mxu:
+        pack = mesh_mxu_pack(scene.mesh)
+        faces = pack["faces"]
+    else:
+        faces, pack = _imm_pack(scene)
+    groups, tnodes, leaves, roots = walk_tables(pack)
     slots = [pack["slots"][s] for s in scene.mesh_inst_slots]
     ranges = np.asarray([s[:2] for s in slots], np.float32)
-    groups = [pack["slot_groups"][s] for s in scene.mesh_inst_slots]
-    bounds = tuple((s[2], s[3]) for s in slots)
-    return (pack["faces"], _pad_boxes(pack["groups"]), tnodes,
-            _pad_boxes(pack["leaves"]), ranges, groups, bounds)
-
-
-def _roots(bounds, groups) -> np.ndarray:
-    rows = np.zeros((len(bounds), 8), np.float32)
-    for i, (lo, hi) in enumerate(bounds):
-        rows[i, 0:3], rows[i, 3:6] = _pad_box(np.asarray(lo, np.float32),
-                                              np.asarray(hi, np.float32))
-        rows[i, 6:8] = groups[i]
-    return rows
+    bounds = tuple((s[2], s[3]) for s in slots) if mxu else ()
+    return (faces, groups, tnodes, leaves, ranges,
+            np.stack([roots[s] for s in scene.mesh_inst_slots]), bounds)
 
 
 def _materials(scene: Scene) -> np.ndarray:
@@ -365,14 +332,8 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
     (default: the scene's own device)."""
     dev = scene.device if device is None else torch.device(device)
     mxu = mesh_mode(scene) == "mxu"
-    groups, tnodes = (np.zeros((0, NODE_W), np.float32) for _ in range(2))
-    leaves, root_groups = np.zeros((0, 8), np.float32), ()
-    if mxu:
-        (faces, groups, tnodes, leaves, ranges, root_groups,
-         bounds) = _mxu_tables(scene)
-        tiles = np.zeros((0, TILE_W), np.float32)
-    else:
-        (tiles, faces, ranges), bounds = _mesh_tables(scene), ()
+    (faces, groups, tnodes, leaves, ranges, roots,
+     bounds) = _mesh_tables(scene, mxu)
     mats = _materials(scene)
     texmaps, textures, atlas, atlas_w = _texture_tables(scene)
 
@@ -384,8 +345,7 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
         planes=t(_instances(scene.planes, scene.num_planes)),
         mesh_insts=t(_instances(scene.mesh_inst, scene.num_mesh_inst,
                                 ranges if len(ranges) else None)),
-        roots=t(_roots(bounds, root_groups)),
-        tiles=t(tiles), faces=t(faces), groups=t(groups), tnodes=t(tnodes),
+        roots=t(roots), faces=t(faces), groups=t(groups), tnodes=t(tnodes),
         leaves=t(leaves), materials=t(mats),
         lights=t(_lights(scene)),
         texmaps=t(texmaps), textures=t(textures), atlas=t(atlas),

@@ -63,24 +63,36 @@ launches = 0
 launches_textured = 0
 launches_mxu = 0
 launches_textured_mxu = 0
-NSTAT = 23            # work counters of the kernel (csrc/wave_kernel.cu)
+NSTAT = 26            # work counters of the kernel (csrc/wave_kernel.cu)
 THREADS = 128         # the kernel's block size
-# shared memory of an MXU launch (bytes): the roots and groups up to this,
-# else none (they stay in device memory); at most the 48 KB a launch gets
-# without raising its limit
+# shared memory of a launch (bytes): the walk's roots and groups, and the
+# small scene tables, up to this, else they stay in device memory; at most
+# the 48 KB a launch gets without raising its limit
 SMEM_BYTES = 48 * 1024
 
 
 def smem_staged(tables: WaveTables) -> bool:
-    """Whether an MXU launch stages the walk's roots and groups in shared
-    memory (the kernel sizes its shared memory from them)."""
-    return tables.mxu and 4 * (tables.roots.numel()
-                                + tables.groups.numel()) <= SMEM_BYTES
+    """Whether a launch stages the walk's roots and groups in shared memory
+    (the kernel sizes its shared memory from them): where there is a mesh
+    instance and they fit in SMEM_BYTES."""
+    return tables.roots.numel() > 0 and 4 * (
+        tables.roots.numel() + tables.groups.numel()) <= SMEM_BYTES
+
+
+def scene_staged(tables: WaveTables) -> bool:
+    """Whether a launch stages the small scene tables that every lane reads
+    per bounce (spheres, planes, mesh instances, lights) in shared memory:
+    where they fit in SMEM_BYTES beside the roots and groups it stages."""
+    small = sum(getattr(tables, k).numel() for k in (
+        "spheres", "planes", "mesh_insts", "lights"))
+    tree = tables.roots.numel() + tables.groups.numel() \
+        if smem_staged(tables) else 0
+    return 0 < small and 4 * (small + tree) <= SMEM_BYTES
 
 
 def stats_size(n: int) -> int:
-    """Entries of a stats tensor that also takes, on the MXU variants, each
-    block's cycles (see `wave`)."""
+    """Entries of a stats tensor that also takes each block's cycles (see
+    `wave`)."""
     return NSTAT + (n + THREADS - 1) // THREADS
 
 
@@ -250,7 +262,8 @@ class _Host:
         self.spheres = tables.spheres.tolist()
         self.planes = tables.planes.tolist()
         self.insts = tables.mesh_insts.tolist()
-        self.tiles = tables.tiles.tolist()
+        # each tile's face range (first row, count)
+        self.ranges = tables.tnodes[:, 6:8].tolist()
         self.lights = tables.lights.tolist()
         self.faces = tables.faces
         self.mats = tables.materials
@@ -273,8 +286,8 @@ def _face_slice(h: _Host, inst):
     t0, nt = int(inst[22]), int(inst[23])
     if nt == 0:
         return h.faces[:0]
-    f0 = int(h.tiles[t0][6])
-    f1 = int(h.tiles[t0 + nt - 1][6] + h.tiles[t0 + nt - 1][7])
+    f0 = int(h.ranges[t0][0])
+    f1 = int(h.ranges[t0 + nt - 1][0] + h.ranges[t0 + nt - 1][1])
     return h.faces[f0:f1]
 
 
@@ -898,7 +911,7 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
     work counts to (see csrc/wave_kernel.cu, STAT_*); with `stats_size(N)`
-    entries an MXU launch also writes each block's cycles after them."""
+    entries the launch also writes each block's cycles after them."""
     if o3.device.type == "cpu":
         return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0,
                           tput3, absorb3, rtype, surf_out, gi_from)
@@ -908,7 +921,7 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     lib = _build.load()
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
-    for name in ("spheres", "planes", "mesh_insts", "roots", "tiles",
+    for name in ("spheres", "planes", "mesh_insts", "roots",
                  "faces", "groups", "tnodes", "leaves", "materials",
                  "lights", "texmaps", "textures", "atlas"):
         x = getattr(tables, name)
@@ -916,7 +929,8 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
                 or not x.is_contiguous():
             raise ValueError(f"wave: table {name} must be contiguous "
                              f"float32 on {dev}")
-    for name in ("faces", "atlas", "roots", "groups", "tnodes", "leaves"):
+    for name in ("faces", "atlas", "roots", "groups", "tnodes", "leaves",
+                 "spheres", "planes", "mesh_insts", "lights"):
         if getattr(tables, name).data_ptr() % 16:
             raise ValueError(f"wave: the {name} table must be 16-byte "
                              "aligned (the kernel reads its rows as float4)")
@@ -946,7 +960,7 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ptr(tables.spheres), tables.spheres.shape[0],
             ptr(tables.planes), tables.planes.shape[0],
             ptr(tables.mesh_insts), tables.mesh_insts.shape[0],
-            ptr(tables.roots), ptr(tables.tiles), ptr(tables.faces),
+            ptr(tables.roots), ptr(tables.faces),
             ptr(tables.materials), ptr(tables.lights),
             tables.lights.shape[0],
             ptr(tables.texmaps), ptr(tables.textures), ptr(tables.atlas),
@@ -962,7 +976,7 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
             ptr(tables.groups), tables.groups.shape[0], ptr(tables.tnodes),
             ptr(tables.leaves), int(smem_staged(tables)),
             int(stats is not None and stats.numel() >= stats_size(n)),
-            ctypes.c_void_p(stream))
+            int(scene_staged(tables)), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "
                            f"{_build.error_string(rc)} ({rc})")

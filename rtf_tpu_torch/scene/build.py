@@ -4,7 +4,8 @@ The port of rtf_tpu/scene/build.py for the render path this package runs:
 the node hierarchy is flattened into per-instance world<->local
 transforms grouped by primitive type, materials become a table, and
 meshes become per-face SoA plus the Morton-packed triangle table of
-ops/pack.py.  There is no BVH (the wave kernel walks the packed tiles).
+ops/pack.py and, for csrc/mesh_hit.cu, a box hierarchy over each slot's
+packed columns (ops/mesh_hit.py::MeshTree).  There is no BVH.
 File textures are stacked into one row atlas, as rtf_tpu/scene/build.py does.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.core.transform import Transform
+from rtf_tpu_torch.ops.mesh_hit import MeshTree, mesh_tree
 from rtf_tpu_torch.ops.pack import pack_triangles
 from rtf_tpu_torch.scene.model import (
     MaterialDesc, MeshDesc, NodeDesc, SceneDesc, TexturedColorDesc,
@@ -76,6 +78,8 @@ class MeshArena:
     slot_faces: tuple = ()
     # per-slot (col0, fpad, aabb_row0, nt, (mesh_lo, mesh_hi))
     slot_pack: tuple = ()
+    # the box hierarchy that mesh_closest_hit's kernel walks
+    hit_tree: Optional[MeshTree] = None
 
 
 @dataclass
@@ -362,14 +366,16 @@ class _Builder:
         area_uv = 0.5 * np.abs(t1[:, 0] * t2[:, 1] - t1[:, 1] * t2[:, 0])
         attr_t[:, 9] = np.sqrt(area_uv / np.maximum(area_w, 1e-20))
 
+        packed = np.concatenate(packed_parts, axis=1)
         return MeshArena(
             **{"tri_" + k: self.t(v) for k, v in cat.items()},
             tri_mtl=self.t(np.concatenate(tri_mtl), I32),
-            tri_packed=self.t(np.concatenate(packed_parts, axis=1)),
+            tri_packed=self.t(packed),
             tri_perm=self.t(np.concatenate(perm_parts), I32),
             attr_n=self.t(attr_n), attr_t=self.t(attr_t),
             tile_aabb=self.t(np.concatenate(aabb_parts, axis=0)),
             slot_faces=tuple(slot_faces), slot_pack=tuple(slot_pack),
+            hit_tree=mesh_tree(packed, slot_pack, slot_faces, self.device),
         )
 
     def pack_materials(self) -> MaterialTable:

@@ -5,7 +5,9 @@ numpy arrays keyed by their tree path ("spheres.itm", "mesh.tri_packed",
 "bg_color", ...) and its static fields by name ("width", "light_kinds",
 "mesh.slot_pack", ...), and returns the port's `Scene`.  Nothing here
 imports JAX: the caller flattens the GpuScene.  Leaves the port has no
-field for (the BVH arena) are ignored.
+field for (the BVH arena) are ignored; the mesh's box hierarchy for
+csrc/mesh_hit.cu (MeshArena.hit_tree) is built here from the packed
+table.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rtf_tpu_torch.ops.mesh_hit import mesh_tree
 from rtf_tpu_torch.scene.build import (
     InstanceGroup, LightTable, MaterialTable, MeshArena, Scene, TexMapTable,
     TextureTable, resolve_device,
@@ -50,6 +53,10 @@ def scene_from_arrays(arrays: dict, statics: dict, device="cuda") -> Scene:
             elif key in statics:
                 sub[f.name] = statics[key]
         kw[name] = cls(**sub)
+    if kw["mesh"] is not None:
+        m = kw["mesh"]
+        kw["mesh"] = dataclasses.replace(m, hit_tree=mesh_tree(
+            m.tri_packed, m.slot_pack, m.slot_faces, dev))
     for f in dataclasses.fields(Scene):
         if f.name in kw or f.name == "device":
             continue

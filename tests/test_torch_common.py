@@ -101,23 +101,34 @@ def textured_desc(w=32, h=24, port=True, seed=0, mesh_subdiv=1,
     return desc
 
 
-def mxu_walk_desc(case, w=32, h=24):
-    """The port's box without its ball, plus 1280-face balls (the MXU
-    tables) for the edge cases of the kernel's hierarchical walk:
+def mxu_walk_desc(case, w=32, h=24, subdiv=3):
+    """The port's box without its ball, plus icosphere balls of `subdiv`
+    (3: 1280 faces, the MXU tables; 1: 80, the immediates) for the edge
+    cases of the kernels' hierarchical walk:
     "tie": one ball whose faces are each listed twice, after one tiny far
       face at the low corner that Morton order puts first, so each pair
       of copies is tied at equal t and one pair straddles every 128-face
       tile boundary (the stable Morton sort keeps copies adjacent);
     "twin": the ball in two slots at one transform (every hit tied across
       instances: the first instance keeps it);
-    "two": one ball instanced twice, the second rotated and moved."""
+    "two": one ball instanced twice, the second rotated and moved;
+    "degenerate": one ball with a zero-area copy (two equal vertices) of
+      every 7th face, which Morton order puts among the others and the
+      immediates tables drop."""
     from rtf_tpu_torch.core.transform import Transform
     from rtf_tpu_torch.scene.procedural import (
         _node, box_scene, icosphere_mesh)
     desc = box_scene(w, h, with_mesh=False)
     place = Transform().scale(3).translate([1, 4, 3])
-    ball = icosphere_mesh(3)
-    if case == "tie":
+    ball = icosphere_mesh(subdiv)
+    if case == "degenerate":
+        flat = ball.f[::7].copy()
+        flat[:, 2] = flat[:, 1]
+        ball.f = np.concatenate([ball.f, flat]).astype(np.int32)
+        ball.face_mtl = np.zeros(len(ball.f), np.int32)
+        ball.compute_normals()
+        nodes = [("ball", ball, place)]
+    elif case == "tie":
         nv = len(ball.v)
         ball.v = np.concatenate([ball.v, np.array(
             [[-1.5, -1.5, -1.5], [-1.49, -1.5, -1.5], [-1.5, -1.49, -1.5]],
@@ -128,7 +139,8 @@ def mxu_walk_desc(case, w=32, h=24):
         ball.compute_normals()
         nodes = [("ball", ball, place)]
     elif case == "twin":
-        nodes = [("ball", ball, place), ("twin", icosphere_mesh(3), place)]
+        nodes = [("ball", ball, place),
+                 ("twin", icosphere_mesh(subdiv), place)]
     else:
         nodes = [("ball", ball, place),
                  ("ball2", ball, Transform().scale(2.5).rotate([0, 0, 1], 40)

@@ -13,11 +13,14 @@ an environment map and a checker; tests/test_torch_common.py) run the
 kernel's textured variant, counted in `launches_textured`; the "mxu-"
 cases the 1280-face ball on the MXU tables (the MXU variants, counted in
 `launches_mxu` and `launches_textured_mxu`), and the dense Plücker closest
-hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The MXU
-walk's edge cases (ties across tiles and instances, two instances, the
-81,920-face ball, shared or device memory for the upper levels, the
-textured variant's GI rows) and the wavefront frame's determinism are
-exact: max abs error 0.0.  The GI rows
+hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The walk's
+edge cases on the MXU tables (ties across tiles and instances, two
+instances, the 81,920-face ball, shared or device memory for the upper
+levels, the textured variant's GI rows), the same on the immediates
+variants (all four: untextured and textured, with GI rows or not),
+mesh_closest_hit (csrc/mesh_hit.cu; ties across tiles, two instances,
+dead and padding lanes) and the wavefront frame's determinism are exact:
+max abs error 0.0.  The GI rows
 (surface and photon-query rows, render/wave.py::split_rows) of bounce 0
 agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
 of lanes with the mean within 1%."""
@@ -422,18 +425,23 @@ def test_wave_refuses_other_devices():
 
 
 def _mesh_inputs(case, dev):
-    """rays8, the slot's table columns and boxes as the wavefront hands
-    them to mesh_closest_hit: camera rays of the 64x48 box in the ball's
-    local space ("camera"; "dead": every other lane from the dead-lane
-    sentinel; "capped": a finite t_init that cuts the ball), or 4096
-    random rays aimed at it ("random")."""
+    """The arguments the wavefront hands mesh_closest_hit: rays8, the
+    slot's table columns and boxes, face0, and the MeshTree and slot as
+    keywords: camera rays of the 64x48 box in the ball's local space
+    ("camera"; "dead": every other lane from the dead-lane sentinel;
+    "capped": a finite t_init that cuts the ball; "tie": the 2,561-face
+    ball whose faces are listed twice; "two": the second of two instances
+    of one ball), or 4096 random rays aimed at it ("random"; "padding":
+    the first 1000 of them, padded to 1024, a quarter with t_init 0)."""
     from rtf_tpu_torch.ops.mesh_hit import pack_rays
     from rtf_tpu_torch.ops.trace import _to_local
     from rtf_tpu_torch.render.camera import pixel_order, primary_rays
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
-    scene = build_scene(box_scene(64, 48, mesh_subdiv=2), device=dev)
-    if case == "random":
+    desc = mxu_walk_desc(case, 64, 48) if case in ("tie", "two") \
+        else box_scene(64, 48, mesh_subdiv=2)
+    scene = build_scene(desc, device=dev)
+    if case in ("random", "padding"):
         g = torch.Generator(dev).manual_seed(7)
         o = torch.rand((4096, 3), generator=g, device=dev) * 40.0 - 20.0
         d = torch.rand((4096, 3), generator=g, device=dev) * 6.0 \
@@ -451,30 +459,143 @@ def _mesh_inputs(case, dev):
         t_init = 60.0 + 6.0 * torch.rand(
             o.shape[0], generator=torch.Generator(dev).manual_seed(3),
             device=dev)
-    lo, ld = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0], o, d)
+    k = 1 if case == "two" else 0
+    lo, ld = _to_local(scene.mesh_inst.itm[k], scene.mesh_inst.pos[k], o, d)
+    if case == "padding":
+        lo, ld, t_init = lo[:1000], ld[:1000], t_init[:1000].clone()
+        t_init[::4] = 0.0
     rays8, _ = pack_rays(lo, ld, t_init)
-    col0, fpad, ar0, nt, _ = scene.mesh.slot_pack[0]
-    return (rays8, scene.mesh.tri_packed[:, col0:col0 + fpad],
-            scene.mesh.tile_aabb[ar0:ar0 + nt], col0)
+    slot = int(scene.mesh_inst_slots[k])
+    col0, fpad, ar0, nt, _ = scene.mesh.slot_pack[slot]
+    return ((rays8, scene.mesh.tri_packed[:, col0:col0 + fpad],
+             scene.mesh.tile_aabb[ar0:ar0 + nt], col0),
+            dict(tree=scene.mesh.hit_tree, slot=slot))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["camera", "dead", "capped", "random"])
+@pytest.mark.parametrize("case", ["camera", "dead", "capped", "random",
+                                  "tie", "two", "padding", "unpacked"])
 def test_mesh_kernel_matches_plain(cuda_dev, case):
     """csrc/mesh_hit.cu against mesh_closest_hit_plain on the same inputs:
-    faces (and so hit masks) equal, t, front, ba and bb within rtol 1e-6
-    (both round the same operations in the same order)."""
+    faces (and so hit masks) equal, t, front, ba and bb with max abs error
+    0.0 (both round the same operations in the same order, and both pick
+    the least t, then the least packed id); "unpacked": the camera rays
+    through mesh_closest_hit_rays, as a trace hands them over."""
     from rtf_tpu_torch.ops import mesh_hit as M
-    rays8, tris, aabb, face0 = _mesh_inputs(case, cuda_dev)
+    args, kw = _mesh_inputs("camera" if case == "unpacked" else case,
+                            cuda_dev)
     before = M.launches
-    kern = M.mesh_closest_hit(rays8, tris, aabb, face0)
-    plain = M.mesh_closest_hit_plain(rays8, tris, aabb, face0)
+    if case == "unpacked":
+        r8 = args[0]
+        kern = M.mesh_closest_hit_rays(
+            r8[:, 0:3].contiguous(), r8[:, 3:6].contiguous(),
+            r8[:, 6].contiguous(), *args[1:], **kw)
+    else:
+        kern = M.mesh_closest_hit(*args, **kw)
+    plain = M.mesh_closest_hit_plain(*args)
     torch.cuda.synchronize()
     assert M.launches == before + 1
     assert torch.equal(kern[1], plain[1])
     assert int((kern[1] >= 0).sum()) > 20
+    if case == "padding":
+        assert not bool((kern[1][::4] >= 0).any())
+        assert not bool((kern[1][1000:] >= 0).any())
     for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
-        assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
+        assert torch.equal(k, p), float((k - p).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bounces", [
+    ("tie", 0), ("tie", 4), ("twin", 4), ("two", 0), ("two", 4),
+    ("box-dead", 4), ("soft", 4), ("textured", 0), ("textured", 4),
+    ("textured-dead", 4)])
+def test_imm_walk_exact(cuda_dev, case, bounces):
+    """The immediates variants' walk (wave_kernel<*, *, false>) against
+    wave_plain with max abs error 0.0: ties at equal t across tiles
+    ("tie": the 80-face ball listed twice; the frame's rays, one ray per
+    face and one per face vertex) and across instances ("twin"), two
+    instances of one ball ("two"), every other lane dead, soft shadows,
+    and the textured variant on the textured box (the 80-face ball)."""
+    from rtf_tpu_torch.render import wave as W
+    name = case.removesuffix("-dead")
+    textured = name == "textured"
+    desc = mxu_walk_desc(name, 64, 48, subdiv=1) \
+        if name in ("tie", "twin", "two") else _desc(name)
+    tables, o3, d3, alive = _setup(desc, cuda_dev)
+    assert not tables.mxu and tables.textured == textured
+    if name in ("tie", "twin", "two"):
+        from rtf_tpu_torch.scene.build import build_scene
+        scene = build_scene(desc, device=cuda_dev)
+        fo, fd = face_rays(scene, cuda_dev)
+        vo, vd = vertex_rays(scene, cuda_dev)
+        o3, d3 = torch.cat([o3, fo, vo], 1), torch.cat([d3, fd, vd], 1)
+        alive = torch.ones(o3.shape[1], dtype=torch.bool, device=cuda_dev)
+    if case.endswith("-dead"):
+        alive[::2] = False
+    soft = name == "soft"
+    cfg = _cfg(bounces=bounces, split_mode="rr",
+               shadow_min=4 if soft else 1, shadow_max=16 if soft else 1,
+               env_on_reflect_miss=textured)
+    plain = W.wave_plain(cfg, tables, o3, d3, alive, 21)
+    counter = W.launch_counter(tables)
+    before = getattr(W, counter)
+    kern = W.wave(cfg, tables, o3, d3, alive, 21)
+    torch.cuda.synchronize()
+    assert getattr(W, counter) == before + 1
+    assert int(kern[1].sum()) > 100
+    _assert_exact(plain, kern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "textured"])
+@pytest.mark.parametrize("staged", [True, False])
+def test_scene_tables_staged_or_not_exact(cuda_dev, monkeypatch, name,
+                                          staged):
+    """The kernel with the small scene tables (spheres, planes, mesh
+    instances, lights) in shared memory, and with them in device memory
+    (the fallback where they do not fit, forced), against wave_plain with
+    max abs error 0.0."""
+    from rtf_tpu_torch.render import wave as W
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    assert W.scene_staged(tables)
+    if not staged:
+        monkeypatch.setattr(W, "scene_staged", lambda tables: False)
+    cfg = _cfg(bounces=4, split_mode="rr",
+               env_on_reflect_miss=name == "textured")
+    plain = W.wave_plain(cfg, tables, o3, d3, alive, 9)
+    kern = W.wave(cfg, tables, o3, d3, alive, 9)
+    torch.cuda.synchronize()
+    _assert_exact(plain, kern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "textured"])
+@pytest.mark.parametrize("case", ["rows", "child rows"])
+def test_imm_rows_exact(cuda_dev, name, case):
+    """The immediates GI variants (wave_kernel<*, true, false>): surface
+    rows and a query per bounce from bounce 0, and a hemisphere child
+    wave with query rows, every other lane dead, against wave_plain with
+    max abs error 0.0."""
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.render.gi import child_wave_args
+    cfg = _cfg(bounces=2, split_mode="rr", hemisphere_samples=4,
+               env_on_reflect_miss=name == "textured")
+    tables, o3, d3, alive = _setup(_desc(name), cuda_dev)
+    assert not tables.mxu
+    kw = dict(surf_out=True, gi_from=0)
+    args = (o3, d3, alive, 13)
+    if case == "child rows":
+        _, hit0, _, surf, _ = W.wave_plain(cfg, tables, *args, **kw)
+        half = alive.clone()
+        half[::2] = False
+        u = torch.rand((2, alive.shape[0]), device=cuda_dev,
+                       generator=torch.Generator(cuda_dev).manual_seed(1))
+        args, kw = child_wave_args(cfg, surf, hit0, half, 13, 1, u[0], u[1])
+        kw["gi_from"] = 0
+    plain = W.wave_plain(cfg, tables, *args, **kw)
+    kern = W.wave(cfg, tables, *args, **kw)
+    torch.cuda.synchronize()
+    _assert_exact(plain, kern)
 
 
 @pytest.mark.cuda
