@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Compare versions of the port's kernels in turns on one card.
 
-    python3 chip_ab.py [PARENT_DIR] [--out FILE]
+    python3 chip_ab.py [PARENT_DIR] [--dense] [--out FILE]
+    python3 chip_ab.py --emulate
 
 Run from the root of a checkout (the change), on a host with a CUDA card
 and nvcc.  The change's kernels build as chip_smoke.py builds them.  The
 launches are chip_smoke.py's, on the same inputs:
+
+  dense primary, scattered  phase 8: mesh_closest_hit_mxu on its two sets
+                      of 480,256 rows16 against the 20,480-face ball;
 
   main, textured      phases 3-4: the wave kernel's immediates variants at
                       800x600 (the 320-face ball), 4 bounces, seed 11;
@@ -21,6 +25,13 @@ launches are chip_smoke.py's, on the same inputs:
                       rays, its first shadow trace, the first bounce's
                       compacted queue.
 
+0. the dense closest hit: the hot loop of each side's mesh_hit_mxu
+   library in cuobjdump's SASS (instructions a pair of a lane, and the
+   issue floor: that times the pairs over 132 SMs x 4 x 32 lanes at the
+   card's top SM clock), the change's counters (pairs filtered,
+   re-checked, valid; tiles with a survivor) and, with PARENT_DIR, both
+   sides in turns parent, change, change, parent on both sets, outputs
+   equal bit for bit on every ray; with --dense the script stops here;
 1. counters: one launch of each wave launch with the counters on (the
    walk's slab tests by level, face tests, SIMT efficiency, lane cycles by
    part, each block's cycles; csrc/wave_kernel.cu STAT_*), its time with
@@ -35,8 +46,10 @@ launches are chip_smoke.py's, on the same inputs:
    memory, staged, twice; outputs equal bit for bit;
 3. with PARENT_DIR (another checkout of the repository, for example
    `git archive` of the parent commit unpacked in a directory that
-   .gitignore lists): the parent's csrc/wave_kernel.cu and csrc/mesh_hit.cu,
-   built with the parent's own nvcc flags into build/ab/, against the
+   .gitignore lists): the parent's csrc/wave_kernel.cu, csrc/mesh_hit.cu
+   and csrc/mesh_hit_mxu.cu (the last run through the parent's own
+   ops/mesh_hit_mxu.py, in step 0), built with the parent's own nvcc
+   flags into build/ab/, against the
    change's in turns parent, change, change, parent on every launch above,
    outputs equal bit for bit; the parent's work counters (STAT 0-10, the
    same layout in both); for mesh_closest_hit the kernel alone (profiler)
@@ -54,8 +67,12 @@ launches are chip_smoke.py's, on the same inputs:
    The parent's mesh_closest_hit(_rays) is its own ops/mesh_hit.py on its
    own library, with the change's arguments that it takes.
 
-A launch's time is the mean of 20 by CUDA events (the queue filled first)
-and of 5 by the profiler (kernel only); a frame's the best of 2.  Prints
+A launch's time is the mean of 20 by CUDA events (the queue filled first;
+5 for the dense closest hit) and of 5 by the profiler (kernel only); a
+frame's the best of 2.  --emulate runs on the CPU alone: the dense
+closest hit's filter emulated in plain torch on phase 8's ray sets at
+160 x 120, its share of surviving pairs and of 16 x 8 tiles with a
+survivor.  Prints
 the card, one line per figure and one JSON object with every figure as the
 last line (also written to --out, default build/chip_ab.json).
 """
@@ -135,12 +152,49 @@ def load_module(name, path):
     return mod
 
 
+def emulate():
+    """The dense closest hit's filter emulated on the CPU
+    (ops/mesh_hit_mxu.py: ray_frags, filter_margins, filter_survivors) on
+    phase 8's two ray sets at 160 x 120 against the 20,480-face ball: the
+    share of pairs that survive, and of 16-ray x 8-face tiles that hold a
+    survivor.  What the kernel's counters should show on the card."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    from rtf_tpu_torch.ops import mesh_hit_mxu as X_
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    cpu = torch.device("cpu")
+    scene = build_scene(box_scene(160, 120, with_mesh=True, mesh_subdiv=5),
+                        device=cpu)
+    trim, sets, _ = CS.dense_inputs(X_, scene, cpu)
+    pack = X_.pack_faces(trim)
+    f = pack.rows.shape[0]
+    w = X_.unpack_frags(pack.frags, f)
+    for name, rays16 in sets.items():
+        a, live = X_.ray_frags(rays16)
+        surv = tiles = 0
+        for s in range(0, rays16.shape[0], 512):
+            sv = X_.filter_survivors(X_.filter_margins(a[s:s + 512], w),
+                                     live[s:s + 512])
+            surv += int(sv.sum())
+            tiles += int(sv.reshape(-1, 16, f // 8, 8).any(3).any(1).sum())
+        pairs = int(live.sum()) * f
+        print(f"[chip_ab] emulated {name}: {rays16.shape[0]} rays x {f} "
+              f"faces, survivors {surv} = {surv / pairs:.6f} of pairs, "
+              f"16x8 tiles with a survivor {tiles} = "
+              f"{tiles * 128 / (rays16.shape[0] * f):.6f}", flush=True)
+
+
 def main(argv):
+    if "--emulate" in argv:
+        return emulate()
     out_path = Path(argv[argv.index("--out") + 1]) if "--out" in argv \
         else ROOT / "build" / "chip_ab.json"
     rest = [a for k, a in enumerate(argv) if not a.startswith("--")
             and (k == 0 or argv[k - 1] != "--out")]
     parent = Path(rest[0]).resolve() if rest else None
+    dense_only = "--dense" in argv
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -152,6 +206,7 @@ def main(argv):
     import chip_smoke as CS
     from rtf_tpu_torch import _build
     from rtf_tpu_torch.ops import mesh_hit as M_
+    from rtf_tpu_torch.ops import mesh_hit_mxu as X_
     from rtf_tpu_torch.render import wave as W_
     from rtf_tpu_torch.render.camera import (
         pixel_order, primary_rays, primary_rays_ch)
@@ -179,6 +234,8 @@ def main(argv):
         csrc = parent / "rtf_tpu_torch" / "csrc"
         jobs["parent"] = (csrc / "wave_kernel.cu", pb.NVCC_FLAGS)
         jobs["parent_mesh_hit"] = (csrc / "mesh_hit.cu", pb.NVCC_FLAGS)
+        jobs["parent_mesh_hit_mxu"] = (csrc / "mesh_hit_mxu.cu",
+                                       pb.NVCC_FLAGS)
     dlls, plogs = nvcc_all(jobs, ROOT / "build" / "ab")
     logs.update(plogs)
     print(f"[chip_ab] built in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -191,7 +248,7 @@ def main(argv):
     change_load("wave")
     change_load("mesh_hit")
     libs = {"change": {}, "device memory": {}}
-    PM = None
+    PM = PX = None
     flat_mesh = False    # the parent's mesh kernel walks its tiles flat
     if parent is not None:
         pw = pb.KERNELS["wave"][2]
@@ -206,7 +263,12 @@ def main(argv):
                                                  else 0))
                         if put_tiles else None),
             "mesh_hit": bind(dlls["parent_mesh_hit"], "rtf_mesh_hit_launch",
-                             pb.KERNELS["mesh_hit"][2])}
+                             pb.KERNELS["mesh_hit"][2]),
+            "mesh_hit_mxu": bind(dlls["parent_mesh_hit_mxu"],
+                                 "rtf_mesh_hit_mxu_launch",
+                                 pb.KERNELS["mesh_hit_mxu"][2])}
+        PX = load_module("parent_mesh_hit_mxu", parent / "rtf_tpu_torch"
+                         / "ops" / "mesh_hit_mxu.py")
         PM = load_module("parent_mesh_hit",
                          parent / "rtf_tpu_torch" / "ops" / "mesh_hit.py")
         flat_mesh = "tree" not in inspect.signature(
@@ -234,7 +296,7 @@ def main(argv):
         memory": the change with its scene tables in device memory."""
         side = "parent" if tag == "parent" else "change"
         cur.clear()
-        cur.update(tabs[side])
+        cur.update(tabs.get(side, {}))
         got = libs[tag]
         _build.load = (lambda name="wave": got[name] if name in got
                        else change_load(name))
@@ -309,7 +371,78 @@ def main(argv):
 
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "counters": {}, "scene_smem": {}, "launches": {},
-              "mesh_closest_hit": {}, "frames": {}}
+              "mesh_closest_hit": {}, "frames": {}, "dense": {}}
+
+    # ---- 0. the dense closest hit (phase 8's two ray sets)
+    libs["change"]["mesh_hit_mxu"] = change_load("mesh_hit_mxu")
+    sass_dir = ROOT / "build" / "ab"
+    sass_dir.mkdir(parents=True, exist_ok=True)
+    dscene = build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5),
+                         device=dev)
+    trim, dsets, _ = CS.dense_inputs(X_, dscene, dev)
+    pairs = dsets["primary"].shape[0] * trim.shape[0] * (trim.shape[2] // 5)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0]) * 1e6
+    for tag, lib in (("change", _build.library_path("mesh_hit_mxu")),
+                     ("parent", sass_dir / "libparent_mesh_hit_mxu.so")):
+        if not lib.exists():
+            continue
+        code = CS.sass(lib)
+        (sass_dir / f"sass_{tag}_mesh_hit_mxu.txt").write_text(code)
+        # the hot loop's instructions, per pair of one lane: a vote of the
+        # change covers 1,024 pairs of a warp, an iteration of the parent
+        # one pair of each lane
+        loop, votes, hmma = CS.sass_fast_path(code, "mesh_hit_mxu_kernel")
+        per_pair = loop / max(votes, 1) * 32 / 1024 if votes else loop
+        floor_ms = per_pair * pairs / (132 * 4 * 32 * clock) * 1e3
+        result["dense"][f"sass_{tag}"] = {
+            "instructions_a_pair": per_pair, "loop": loop, "votes": votes,
+            "hmma": hmma, "clock_hz": clock, "issue_floor_ms": floor_ms}
+        print(f"[chip_ab] dense {tag} hot loop: {loop} instructions, "
+              f"{votes} votes, {hmma} HMMA an iteration: {per_pair:.4f} "
+              f"instructions a pair of a lane; issue floor on {pairs} "
+              f"pairs {floor_ms:.4f} ms at {clock / 1e6:.0f} MHz",
+              flush=True)
+    for name, rays16 in dsets.items():
+        stats = torch.zeros(X_.NSTAT, dtype=torch.int64, device=dev)
+        X_.mesh_closest_hit_mxu(rays16, trim, stats=stats)
+        filtered, rechecked, valid, tiles = stats.tolist()
+        rec = {"filtered": filtered, "rechecked": rechecked, "valid": valid,
+               "tiles": tiles,
+               "survivor_share": rechecked / max(filtered, 1)}
+        print(f"[chip_ab] dense {name}: {json.dumps(rec)}", flush=True)
+        if parent is not None:
+            turns = ("parent", "change", "change", "parent")
+            outs = {}
+            for tag in turns:
+                use(tag)
+                mod = PX if tag == "parent" else X_
+
+                def call(_m=mod, _r=rays16):
+                    return _m.mesh_closest_hit_mxu(_r, trim)
+                outs.setdefault(tag, flat_out(call()))
+                rec.setdefault(tag, {"ms": [], "ms_profiler": []})
+                rec[tag]["ms"].append(events_ms(call, reps=5))
+                rec[tag]["ms_profiler"].append(profiled_ms(
+                    call, "mesh_hit_mxu_kernel"))
+            use("change")
+            check(torch.equal(outs["change"], outs["parent"]),
+                  f"dense {name}: the change's outputs differ from the "
+                  "parent's")
+            for tag in ("parent", "change"):
+                print(f"[chip_ab] dense {name} {tag}: {fmt(rec[tag]['ms'])}"
+                      f" ms (events), {fmt(rec[tag]['ms_profiler'])} ms "
+                      f"(profiler); {rays16.shape[0]} rays, outputs "
+                      "bit-equal", flush=True)
+        result["dense"][name] = rec
+    if dense_only:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(result, indent=1))
+        print(card, flush=True)
+        print(json.dumps(result), flush=True)
+        return
 
     # ---- the scenes, tables and launches
     main_cfg = RenderConfig(min_samples=64, max_samples=64, bounces=4,

@@ -85,12 +85,18 @@ those phases only (for iterating on one path):
             bound on these counts, a 160x120 frame at mesh_subdiv=6
             (81,920 faces) with the kernel against the same frame with the
             plain wave put in the kernel's place (exact); then
-            mesh_closest_hit_mxu on the frame's 480,000 primary rays in the
-            ball's local space against the ball's Plücker matrix (40 tiles
-            of 512 faces): against its plain version on every 7th ray
-            (68,608, exact), against mesh_closest_hit on all rays (the same
-            hit mask, faces equal but for a stated share of shared-edge
-            rays), its time on all rays (CUDA events) and its bound;
+            mesh_closest_hit_mxu against the ball's Plücker matrix (40
+            tiles of 512 faces) on two sets of 480,000 rays in the ball's
+            local space, the frame's primary rays and a seeded scattered
+            set (origins in twice the ball's box, uniform directions):
+            each against its plain version on every 7th ray (68,608,
+            exact), its counters (pairs filtered, re-checked and valid;
+            tiles with a survivor), its time (CUDA events, profiler), its
+            bound (TF32 products, the FP32 filter and re-checks, bytes;
+            beside it the FP32-only bound and the issue floor of the hot
+            loop in the library's SASS); the primary rays against
+            mesh_closest_hit (the same hit mask, faces equal but for a
+            stated share of shared-edge rays);
 9. hybrid_mxu phase 6's hybrid frame (800x600, 8 spp, 4 bounces, photon GI
             with 30 hemisphere samples, photon and caustic volumes) on the
             textured box with the 20,480-face ball: the textured MXU
@@ -128,8 +134,8 @@ SMALL = (160, 120)
 ATOL, ZTOL, FLIP_SHARE, MEAN_TOL = 2e-4, 1e-4, 0.01, 0.01
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 FLOP/s
-# outside the tensor cores
-HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+# outside the tensor cores, dense TF32 FLOP/s on them
+HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 # FP32 operations per unit of kernel work, counted by hand from
 # rtf_tpu_torch/csrc/wave_kernel.cu (add, mul, div, sqrt, floor, min/max
 # and compare count 1 each; expf/powf/sinf/cosf/asinf count 1): a lower
@@ -138,9 +144,12 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # Plücker pair (csrc/plucker.cuh): its three six-term sums and the two
 # winding tests, which every pair needs (the plane terms and the division
 # of the few pairs inside a winding are not counted); cross is o x d, once
-# per instance and ray on the MXU tables.
+# per instance and ray on the MXU tables; filter is the dense closest
+# hit's sign filter a pair (csrc/mesh_hit_mxu.cu: 3 adds, 3 logic
+# operations).
 OPS = dict(sphere=73, plane=46, inst=42, slab=26, tri=40, shade=250,
-           shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9)
+           shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9,
+           filter=6)
 # the wave kernel's counters (csrc/wave_kernel.cu, STAT_*): work, then on
 # the MXU variants the walk's slab tests, cycles by part (summed over
 # lanes) and warp-iterations with their active lanes
@@ -166,6 +175,96 @@ def card_line():
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def dense_inputs(X_, scene, dev, seed=8):
+    """mesh_closest_hit_mxu's inputs in phase 8: the Plücker matrix of the
+    scene's first mesh slot (the 20,480-face ball: 40 tiles of 512 faces)
+    and two sets of width x height rays in the ball's local space, each
+    packed by pack_rays16 (800 x 600: 480,256 rows16): "primary" the
+    frame's primary rays, "scattered" a seeded set with origins uniform in
+    twice the ball's box about its centre and uniform directions.  Also
+    the primary rays' local o, d and t_init."""
+    import numpy as np
+    import torch
+    from rtf_tpu_torch.ops.trace import _to_local
+    from rtf_tpu_torch.render.camera import pixel_order, primary_rays
+    mesh = scene.mesh
+    f0, f1 = mesh.slot_faces[0]
+    abc = [getattr(mesh, k)[f0:f1].cpu().numpy() for k in
+           ("tri_a", "tri_b", "tri_c")]
+    trim = torch.as_tensor(X_.pack_tri_matrix(*abc), device=dev)
+    w, n = scene.width, scene.width * scene.height
+    order = torch.as_tensor(pixel_order(w, scene.height),
+                            device=dev).to(torch.int64)
+    o, d = primary_rays(scene, order % w, order // w, torch.tensor(0))
+    lo, ld = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0], o, d)
+    t_init = torch.full((n,), 1e30, device=dev)
+    v = np.concatenate(abc)
+    rng = np.random.RandomState(seed)
+    so = (v.min(0) + v.max(0)) / 2 + (v.max(0) - v.min(0)) * rng.uniform(
+        -1.0, 1.0, (n, 3))
+    sd = rng.normal(size=(n, 3))
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    sets = {"primary": X_.pack_rays16(lo, ld, t_init)[0],
+            "scattered": X_.pack_rays16(
+                torch.as_tensor(so.astype(np.float32), device=dev),
+                torch.as_tensor(sd.astype(np.float32), device=dev),
+                t_init)[0]}
+    return trim, sets, (lo, ld, t_init)
+
+
+def sass(lib):
+    """cuobjdump -sass of a built library (the CUDA toolkit's, beside
+    nvcc)."""
+    from rtf_tpu_torch import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    return out.stdout
+
+
+def sass_fast_path(text, kernel):
+    """Instructions per iteration of the hot loop of `kernel` (a substring
+    of its mangled name) in cuobjdump output, on the path that most pairs
+    take: the innermost loop (a branch back to a lower address) around the
+    first HMMA, else the first FMNMX; minus the code that conditional
+    forward branches skip: the one after each VOTE.ANY (the filter's rare
+    path), or, without a vote, the one with the farthest target (the pair
+    test's plane terms and division).  Returns (instructions, votes,
+    HMMA) per iteration."""
+    import re
+    body = text.split("Function : ")
+    body = next(b for b in body if b.split()[0].find(kernel) >= 0
+                and "ILb1E" not in b.split()[0])
+    ins = []    # (address, text)
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    first = next((a for a, t in ins if "HMMA" in t), None)
+    if first is None:
+        first = next(a for a, t in ins if "FMNMX" in t)
+
+    def target(t):
+        m = re.search(r"BRA\s+(?:!?P\d,\s*)?0x([0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+    loops = [(target(t), a) for a, t in ins
+             if target(t) is not None and target(t) <= first <= a]
+    head, back = min(loops, key=lambda r: r[1] - r[0])
+    span = [(a, t) for a, t in ins if head <= a <= back]
+    skips = []
+    for k, (a, t) in enumerate(span):
+        if k and "VOTE.ANY" in span[k - 1][1] and target(t) is not None:
+            skips.append((a, target(t)))
+    if not skips:
+        fwd = [(a, target(t)) for a, t in span if t.startswith("@")
+               and target(t) is not None and a < target(t) <= back]
+        skips = [max(fwd, key=lambda r: r[1])]
+    fast = [t for a, t in span if not any(x < a < y for x, y in skips)]
+    return (len(fast), sum(t.startswith("VOTE.ANY P") for t in fast),
+            sum("HMMA" in t for t in fast))
 
 
 def checker_desc(box_scene, w, h):
@@ -616,11 +715,13 @@ def main(argv):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0_) / reps * 1e3
 
-    def profiled_ms(fn, reps=5):
-        """The wave kernel's own device time per launch (torch.profiler over
-        reps calls of fn, one launch each), over the kernel records the
-        profiler delivered: late in this process it can deliver fewer than
-        reps, so their count is printed when it falls short."""
+    def profiled_ms(fn, reps=5, key="wave_kernel", required=True):
+        """The kernel's own device time per launch (torch.profiler over reps
+        calls of fn, one launch of the kernel whose name holds `key` each),
+        over the kernel records the profiler delivered: late in this
+        process it can deliver fewer than reps, so their count is printed
+        when it falls short, and none at all (then None, unless
+        `required`)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -630,13 +731,15 @@ def main(argv):
                 fn()
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and "wave_kernel" in ev.key]
+               if ev.device_type == DeviceType.CUDA and key in ev.key]
         count = sum(ev.count for ev in evs)
-        check(count > 0, "the profiler recorded no wave_kernel launch")
+        if not (count or required):
+            print(f"[profiler] no {key} launch recorded", flush=True)
+            return None
+        check(count > 0, f"the profiler recorded no {key} launch")
         if count < reps:
-            print(f"[profiler] {count} of {reps} wave_kernel launches "
-                  "recorded", flush=True)
+            print(f"[profiler] {count} of {reps} {key} launches recorded",
+                  flush=True)
         return sum(ev.self_device_time_total for ev in evs) / count / 1e3
 
     def work(fn, n):
@@ -1251,39 +1354,56 @@ def main(argv):
         print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: wave kernel "
               "checks and figures", flush=True)
 
-        # the dense closest hit on the frame's primary rays, ball-local
+        # the dense closest hit on two ray sets in the ball's local space
         scene = build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5),
                             device=dev)
         mesh = scene.mesh
-        f0, f1 = mesh.slot_faces[0]
-        abc = [getattr(mesh, k)[f0:f1].cpu().numpy() for k in
-               ("tri_a", "tri_b", "tri_c")]
-        trim = torch.as_tensor(X_.pack_tri_matrix(*abc), device=dev)
-        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
-        o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
-        lo, ld = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0],
-                           o, d)
-        t_init = torch.full((W * H,), 1e30, device=dev)
-        rays16, npad = X_.pack_rays16(lo, ld, t_init)
-        # every 7th ray of the frame (68,608), spread over the whole image
-        sub = rays16[::7].contiguous()
-        X_.launches = 0
-        kern = X_.mesh_closest_hit_mxu(rays16, trim)
-        plain = X_.mesh_closest_hit_mxu_plain(sub, trim)
+        trim, sets, (lo, ld, t_init) = dense_inputs(X_, scene, dev)
+        t0 = time.perf_counter()
+        pack = X_.pack_faces(trim)
         torch.cuda.synchronize()
-        check(X_.launches == 1, "mesh_closest_hit_mxu: one launch")
-        check(torch.equal(kern[1][::7], plain[1]),
-              f"mesh_closest_hit_mxu: faces differ from the plain version "
-              f"on {int((kern[1][::7] != plain[1]).sum())} rays")
-        err = max(float((k[::7] - p).abs().max())
-                  for k, p in zip(kern[0:1] + kern[2:],
-                                  plain[0:1] + plain[2:]))
-        check(err == 0.0, f"mesh_closest_hit_mxu: max abs err {err} against "
-              "the plain version")
-        hits = int((kern[1] >= 0).sum())
-        sub_hits = int((plain[1] >= 0).sum())
-        check(sub_hits > 0, "no ray of the subset hits the ball")
-        # the same rays through mesh_closest_hit (the packed 128-face
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        X_.launches = 0
+        kern = {k: X_.mesh_closest_hit_mxu(r, trim) for k, r in sets.items()}
+        torch.cuda.synchronize()
+        launches = X_.launches
+        check(launches == len(sets), f"mesh_closest_hit_mxu: {launches} "
+              f"launches for {len(sets)} ray sets")
+        err, res = 0.0, {}
+        for name, rays16 in sets.items():
+            # every 7th ray (68,608), spread over the set, exactly
+            sub = rays16[::7].contiguous()
+            plain = X_.mesh_closest_hit_mxu_plain(sub, trim)
+            torch.cuda.synchronize()
+            for k, p in zip(kern[name], plain):
+                check(torch.equal(k[::7], p), f"mesh_closest_hit_mxu "
+                      f"({name}): outputs differ from the plain version on "
+                      f"{int((k[::7] != p).sum())} rays")
+            err = max(err, max(float((k[::7].float() - p.float()).abs().max())
+                               for k, p in zip(kern[name], plain)))
+            stats = torch.zeros(X_.NSTAT, dtype=torch.int64, device=dev)
+            X_.mesh_closest_hit_mxu(rays16, trim, stats=stats)
+            filtered, rechecked, valid, tiles = stats.tolist()
+            res[name] = {
+                "rays": rays16.shape[0], "hits": int((kern[name][1] >= 0)
+                                                     .sum()),
+                "subset_rays": sub.shape[0],
+                "subset_hits": int((plain[1] >= 0).sum()),
+                "pairs_filtered": filtered, "pairs_rechecked": rechecked,
+                "pairs_valid": valid, "survivor_share": rechecked / filtered,
+                "tiles_with_survivor": tiles,
+                "ms": events_ms(lambda: X_.mesh_closest_hit_mxu(rays16, trim),
+                                reps=5),
+                "ms_profiler": profiled_ms(
+                    lambda: X_.mesh_closest_hit_mxu(rays16, trim),
+                    key="mesh_hit_mxu_kernel", required=False),
+                "ms_subset": events_ms(
+                    lambda: X_.mesh_closest_hit_mxu(sub, trim), reps=5),
+                "plain_ms_subset": host_ms(
+                    lambda: X_.mesh_closest_hit_mxu_plain(sub, trim), 1)}
+            check(res[name]["subset_hits"] > 0,
+                  f"no ray of the {name} subset hits the ball")
+        # the primary rays through mesh_closest_hit (the packed 128-face
         # tables): the same hit mask; faces (mapped to arena ids) equal but
         # on rays that meet an edge shared by two faces
         col0, fpad, ar0, nt, _ = mesh.slot_pack[0]
@@ -1292,57 +1412,90 @@ def main(argv):
                                  mesh.tile_aabb[ar0:ar0 + nt], col0,
                                  tree=mesh.hit_tree, slot=0)
         torch.cuda.synchronize()
+        kp = kern["primary"]
         mh_hit = mh[1][:W * H] >= 0
-        check(torch.equal(mh_hit, kern[1][:W * H] >= 0),
+        check(torch.equal(mh_hit, kp[1][:W * H] >= 0),
               f"mesh_closest_hit_mxu and mesh_closest_hit: hit masks differ "
-              f"on {int((mh_hit != (kern[1][:W * H] >= 0)).sum())} rays")
+              f"on {int((mh_hit != (kp[1][:W * H] >= 0)).sum())} rays")
         arena = mesh.tri_perm.to(torch.int64)[
             mh[1][:W * H].clamp(min=0).to(torch.int64)]
-        differ = int((mh_hit & (arena != kern[1][:W * H])).sum())
+        hits = res["primary"]["hits"]
+        differ = int((mh_hit & (arena != kp[1][:W * H])).sum())
         face_share = differ / max(hits, 1)
         check(face_share <= 0.01, f"faces differ from mesh_closest_hit on "
               f"{face_share:.4f} of the hits")
-        t_rel = float(((mh[0][:W * H] - kern[0][:W * H]).abs()
-                       / kern[0][:W * H].abs())[mh_hit].max())
-        print(f"[mxu] mesh_closest_hit_mxu: {npad} rays ({hits} hit the "
-              f"ball), plain on every 7th, {sub.shape[0]} rays ({sub_hits} "
-              f"hits): faces "
-              f"equal, max_abs_err={err:.3e}; against mesh_closest_hit: hit "
-              f"masks equal, faces differ on {differ} of {hits} hits "
-              f"({face_share:.5f}), t within rtol {t_rel:.3e}", flush=True)
-
-        def launch():
-            return X_.mesh_closest_hit_mxu(rays16, trim)
-        ms = events_ms(launch, reps=5)
-        ms_sub = events_ms(lambda: X_.mesh_closest_hit_mxu(sub, trim), reps=5)
-        pms_sub = host_ms(lambda: X_.mesh_closest_hit_mxu_plain(sub, trim), 1)
+        t_rel = float(((mh[0][:W * H] - kp[0][:W * H]).abs()
+                       / kp[0][:W * H].abs())[mh_hit].max())
         t0 = time.perf_counter()         # warm from the subset's runs
-        X_.mesh_closest_hit_mxu_plain(rays16, trim)
+        X_.mesh_closest_hit_mxu_plain(sets["primary"], trim)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
-        pairs = npad * trim.shape[0] * (trim.shape[2] // 5)
-        flops = pairs * OPS["pair"]
-        # each input once: 64 B per ray and the matrix; each output once
-        nbytes = npad * 64 + trim.numel() * 4 + npad * 20
-        bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-        bd_ms = max(bytes_ms, ops_ms)
-        print(f"[mxu] mesh_closest_hit_mxu: {ms:.4f} ms on {npad} rays "
-              f"({ms_sub:.4f} ms on {sub.shape[0]}; mean of 5, CUDA events), "
-              f"plain {pms:.1f} ms ({pms_sub:.1f} ms on {sub.shape[0]}); "
-              f"{pairs} pairs, "
-              f"{flops:.4e} FP32 ops, {nbytes} bytes; bound {bd_ms:.4f} ms "
-              f"(ops {ops_ms:.4f}, bytes {bytes_ms:.5f})", flush=True)
+
+        # the bound: the larger of the TF32 products (3 x 6 multiply-adds a
+        # pair) over the tensor cores' rate, the filter's operations (3
+        # adds and 3 logic operations a pair) and the exact test of the
+        # pairs this run re-checked (39 each) over the FP32 rate, and the
+        # bytes (64 B a ray and the matrix in, 20 B a ray out) over HBM's
+        # rate; beside it the FP32-only bound of every pair and the issue
+        # floor of the hot loop in cuobjdump's SASS
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()[0]) * 1e6
+        code = sass(_build.library_path("mesh_hit_mxu"))
+        loop, votes, hmma = sass_fast_path(code, "mesh_hit_mxu_kernel")
+        loop /= max(votes, 1)      # a vote covers 2 x 8 faces x 64 rays
+        for name, r in res.items():
+            npad = r["rays"]
+            f, rc = r["pairs_filtered"], r["pairs_rechecked"]
+            tc_ms = f * 36 / TF32_FLOPS * 1e3
+            fp_ms = (f * OPS["filter"] + rc * OPS["pair"]) / FP32_FLOPS * 1e3
+            bytes_ms = (npad * 84 + trim.numel() * 4) / HBM_BPS * 1e3
+            pairs = npad * trim.shape[0] * (trim.shape[2] // 5)
+            r.update({
+                "bound_ms": max(tc_ms, fp_ms, bytes_ms),
+                "bound_by": "operations" if max(tc_ms, fp_ms) >= bytes_ms
+                            else "bytes",
+                "bound_tf32_ms": tc_ms, "bound_fp32_ms": fp_ms,
+                "bound_bytes_ms": bytes_ms,
+                "bound_cuda_cores_ms": pairs * OPS["pair"] / FP32_FLOPS * 1e3,
+                "hot_loop_instructions": loop,
+                "issue_floor_ms": loop * (pairs / 1024) / (132 * 4 * clock)
+                                  * 1e3})
+            print(f"[mxu] mesh_closest_hit_mxu {name}: {npad} rays "
+                  f"({r['hits']} hit the ball), plain on every 7th "
+                  f"({r['subset_rays']} rays, {r['subset_hits']} hits): "
+                  f"outputs equal; {r['ms']:.4f} ms by events, "
+                  f"{r['ms_profiler'] or float('nan'):.4f} by the profiler "
+                  f"({r['ms_subset']:.4f} on the subset; its plain version "
+                  f"{r['plain_ms_subset']:.1f}); pairs {r['pairs_filtered']} "
+                  f"filtered, {r['pairs_rechecked']} re-checked (survivor "
+                  f"share {r['survivor_share']:.6f}), {r['pairs_valid']} "
+                  f"valid, {r['tiles_with_survivor']} 16x8 tiles with a "
+                  f"survivor; bound {r['bound_ms']:.4f} ms (TF32 products "
+                  f"{tc_ms:.4f}, FP32 filter and re-checks {fp_ms:.4f}, bytes"
+                  f" {bytes_ms:.5f}; FP32 only "
+                  f"{r['bound_cuda_cores_ms']:.4f}); hot loop {loop:.0f} "
+                  f"instructions a vote of 1,024 pairs ({hmma} HMMA, "
+                  f"{votes} votes an iteration), issue floor "
+                  f"{r['issue_floor_ms']:.4f} ms at {clock / 1e6:.0f} MHz",
+                  flush=True)
+        print(f"[mxu] mesh_closest_hit_mxu: face tables packed in "
+              f"{pack_ms:.2f} ms ({pack.rows.shape[0]} faces kept); the "
+              f"primary rays' plain version {pms:.1f} ms; against "
+              f"mesh_closest_hit: hit masks equal, faces differ on {differ} "
+              f"of {hits} hits ({face_share:.5f}), t within rtol "
+              f"{t_rel:.3e}", flush=True)
         print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: phase passed",
               flush=True)
-        dense = {"launches": 1, "max_abs_err": err, "ms": ms,
-                 "plain_ms": pms, "bound_ms": bd_ms,
-                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                 "library_ms": None, "rays": npad, "hits": hits,
-                 "pairs": pairs, "subset_rays": sub.shape[0],
-                 "ms_subset": ms_sub, "plain_ms_subset": pms_sub,
+        p = res["primary"]
+        dense = {"launches": launches, "max_abs_err": err, "ms": p["ms"],
+                 "plain_ms": pms, "bound_ms": p["bound_ms"],
+                 "bound_by": p["bound_by"], "library_ms": None,
+                 "ray_sets": res, "pack_ms": pack_ms,
                  "faces_differ_from_mesh_closest_hit": differ,
-                 "main_path": "phase 8: the frame's primary rays, not a "
-                              "caller of the port"}
+                 "main_path": "phase 8: the frame's primary rays and a "
+                              "scattered set, not a caller of the port"}
         return [wave_res, dense]
 
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,

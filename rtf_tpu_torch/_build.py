@@ -54,9 +54,9 @@ KERNELS = {
         _P, _P]),                # stats, stream
     "mesh_hit_mxu": ("mesh_hit_mxu.cu", "rtf_mesh_hit_mxu_launch", [
         _P, _I,                  # rays16, n
-        _P, _I, _I, _I,          # trim, ntiles, tile, face0
+        _P, _P, _P, _I, _I,      # frags, rows, fmap, faces, face0
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
-        _P]),                    # stream
+        _P, _P]),                # stats, stream
 }
 
 _LIBS = {}

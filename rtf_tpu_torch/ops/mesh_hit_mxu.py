@@ -14,25 +14,39 @@ wins and tiles compare strictly, the Pallas kernel's rule.
 
 `mesh_closest_hit_mxu_plain` runs the pair test of ops/mxu_pack.py over
 [rays, tile] blocks; `mesh_closest_hit_mxu` launches csrc/mesh_hit_mxu.cu
-for CUDA tensors and runs the plain version for CPU tensors.
+for CUDA tensors and runs the plain version for CPU tensors.  The kernel
+filters the pairs' edge signs on the tensor cores and tests the few pairs
+it cannot reject exactly in FP32, on face tables that `pack_faces` packs
+once per matrix; `ray_frags`, `filter_margins` and `filter_survivors` are
+its filter in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from rtf_tpu_torch.ops.mxu_pack import plucker_bary, plucker_pair
+from rtf_tpu_torch.ops.pack import ZERO
 
 RAY_BLOCK = 512       # rays per Pallas program: pack_rays16 pads to it
 TRI_LANES = 512       # faces per tile of pack_tri_matrix
 _CHUNK = 1 << 20      # ray x face elements per plain step (CPU)
 _CHUNK_CUDA = 1 << 24  # the same on the card
+EPS = 2.0 ** -7       # the filter's margin (csrc/mesh_hit_mxu.cu)
+GROUP = 8             # faces per mma B fragment
+STAGE_FACES = 128     # the fragments are padded to whole 128-face stages
+EXP_MIN = -60         # the least scale exponent of a face or a ray
+
+NSTAT = 4             # the kernel's counters (`mesh_closest_hit_mxu`)
 
 # kernel launches made by `mesh_closest_hit_mxu` (the plain version never
 # counts)
 launches = 0
+_PACK = {}            # "last": (weakref to a matrix, its version, its pack)
 
 
 def pack_tri_matrix(a: np.ndarray, b: np.ndarray, c: np.ndarray,
@@ -99,6 +113,122 @@ def _matrix_cols(trim: torch.Tensor):
     return cols
 
 
+class FacePack(NamedTuple):
+    """The kernel's face tables, packed from the matrix by `pack_faces`:
+    frags [G, 192] float32, G groups of 8 faces (G * 8 the faces rounded
+    up to whole STAGE_FACES) as mma.sync.m16n8k8 TF32 B fragments: per
+    group, lane l = 4 g + q of face g holds (w_a[q], w_a[q + 4], w_b[q],
+    w_b[q + 4]) at floats 4 l.., then (w_c[q], w_c[q + 4]) at 128 + 2 l..
+    Rows 0-5 of w_k are the face's sign 6-vector scaled by 2^-exps and
+    rounded to TF32 (ties away from zero), zero where the scale cannot be
+    formed; row 6 is -EPS (a live ray's column 6 is 1, so the product is
+    s_k - EPS) and row 7 is (1, -1, 0) for w_a, w_b, w_c (a dead ray's
+    column 7 is 1: every pair rejected); a padding face has zero rows 0-5
+    and (1, -1, 0) in rows 6 and 7: rejected for every ray.  rows [F, 24]
+    float32, the 22 rows of the pair test (plucker.cuh's layout) and two
+    zeros, exact; fmap [F] int32, each face's matrix index tile *
+    tile_width + column, increasing; exps [F] int32."""
+    frags: torch.Tensor
+    rows: torch.Tensor
+    fmap: torch.Tensor
+    exps: torch.Tensor
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 stored mantissa bits), ties
+    away from zero: cvt.rna.tf32.f32 for |x| < 2^127."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_faces(trim: torch.Tensor) -> FacePack:
+    """The kernel's face tables from the matrix, on trim's device.  A face
+    whose normal rows (18-20) are all zero (padding columns, degenerate
+    faces) is dropped: its dn is 0, or NaN for a non-finite direction, so
+    it never hits.  Each kept face's 18 sign entries are scaled by
+    2^-b, b the frexp exponent of their largest magnitude (at least
+    EXP_MIN), so every entry is below 1 in magnitude; a power of two
+    changes no sign and, above the subnormals, no rounding."""
+    cols = torch.stack([c.reshape(-1) for c in _matrix_cols(trim)], 1)
+    keep = torch.nonzero((cols[:, 18:21] != 0).any(1)).squeeze(1)
+    rows = cols[keep]
+    f = rows.shape[0]
+    w = rows[:, :18]
+    mx = w.abs().amax(1)
+    ok = torch.isfinite(w).all(1) & (mx > 0)
+    _, e = torch.frexp(torch.where(ok, mx, 1.0))
+    e = e.clamp(min=EXP_MIN)
+    scaled = torch.ldexp(w.double(), -e[:, None].double()).float()
+    scaled = tf32_round(torch.where(ok[:, None], scaled, 0.0))
+    g = -(-f // STAGE_FACES) * STAGE_FACES // GROUP
+    dev = trim.device
+    wk = torch.zeros((g * GROUP, 3, 8), dtype=torch.float32, device=dev)
+    wk[:f, :, :6] = scaled.view(f, 3, 6)
+    reject = torch.tensor([1.0, -1.0, 0.0], device=dev)
+    wk[:f, :, 6] = -EPS
+    wk[f:, :, 6] = reject
+    wk[:, :, 7] = reject
+    wk = wk.view(g, GROUP, 3, 8)
+    lane = torch.arange(32, device=dev)
+    fg, q = lane // 4, lane % 4
+    frags = torch.cat([
+        torch.stack([wk[:, fg, 0, q], wk[:, fg, 0, q + 4],
+                     wk[:, fg, 1, q], wk[:, fg, 1, q + 4]], -1).view(g, 128),
+        torch.stack([wk[:, fg, 2, q], wk[:, fg, 2, q + 4]], -1).view(g, 64)],
+        1)
+    pad = torch.zeros((f, 2), dtype=torch.float32, device=dev)
+    return FacePack(frags.contiguous(), torch.cat([rows, pad], 1).contiguous(),
+                    keep.to(torch.int32), e.to(torch.int32))
+
+
+def unpack_frags(frags: torch.Tensor, f: int) -> torch.Tensor:
+    """The scaled TF32 sign blocks [f, 3, 6] back from `FacePack.frags`."""
+    g = frags.shape[0]
+    p0 = frags[:, :128].reshape(g, GROUP, 4, 4)    # [group, face, q, 4]
+    p1 = frags[:, 128:].reshape(g, GROUP, 4, 2)
+    wk = torch.zeros((g, GROUP, 3, 8), dtype=frags.dtype, device=frags.device)
+    for k, (part, i) in enumerate(((p0, 0), (p0, 2), (p1, 0))):
+        wk[:, :, k, 0:4] = part[..., i]
+        wk[:, :, k, 4:8] = part[..., i + 1]
+    return wk.reshape(g * GROUP, 3, 8)[:f, :, :6]
+
+
+def ray_frags(rays16: torch.Tensor):
+    """What the kernel makes of each ray for the filter, in its arithmetic:
+    (a [N, 6] float32, the row (d, o x d) scaled by 2^-a_r, a_r the frexp
+    exponent of its L1 norm summed left to right (at least EXP_MIN), and
+    rounded to TF32; zero where the norm is zero or not finite (such a ray
+    meets every face in the exact test), live [N] bool: t_init > 1e-3, the
+    rays that can hit at all)."""
+    r = rays16[:, 0:6]
+    l1 = r[:, 0].abs()
+    for k in range(1, 6):
+        l1 = l1 + r[:, k].abs()
+    ok = torch.isfinite(l1) & (l1 > 0)
+    _, e = torch.frexp(torch.where(ok, l1, 1.0))
+    e = e.clamp(min=EXP_MIN)
+    a = torch.ldexp(r.double(), -e[:, None].double()).float()
+    a = tf32_round(torch.where(ok[:, None], a, 0.0))
+    return a, rays16[:, 10] > ZERO
+
+
+def filter_margins(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact sums the tensor cores approximate: a [N, 6] (`ray_frags`)
+    against w [F, 3, 6] (`unpack_frags`), [N, F, 3] float64.  Every
+    product of two TF32 values is exact in float64, and so is a sum of six
+    of them that stays in range."""
+    return torch.einsum("nk,fsk->nfs", a.double(), w.double())
+
+
+def filter_survivors(s: torch.Tensor, live: torch.Tensor,
+                     eps: float = EPS) -> torch.Tensor:
+    """[N, F] bool, the pairs the filter passes to the exact test, from
+    the sums s of `filter_margins`: a live ray's pair is rejected where
+    one sum is at least eps and another below -eps."""
+    rej = (s.amax(2) >= eps) & (s.amin(2) < -eps)
+    return live[:, None] & ~rej
+
+
 def mesh_closest_hit_mxu_plain(rays16: torch.Tensor, trim: torch.Tensor,
                                face0: int = 0):
     """The plain version: every ray against every face, [rays, tile]
@@ -141,13 +271,28 @@ def mesh_closest_hit_mxu_plain(rays16: torch.Tensor, trim: torch.Tensor,
     return t_best, face, front, ba, bb
 
 
+def _face_pack(trim: torch.Tensor) -> FacePack:
+    """`pack_faces(trim)`, packed once per matrix: the last matrix's pack
+    is kept while that tensor lives and is not written to."""
+    hit = _PACK.get("last")
+    if hit is not None and hit[0]() is trim and hit[1] == trim._version:
+        return hit[2]
+    pack = pack_faces(trim)
+    _PACK["last"] = (weakref.ref(trim), trim._version, pack)
+    return pack
+
+
 def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
-                         face0: int = 0):
+                         face0: int = 0, stats=None):
     """rays16 [N, 16] float32 (`pack_rays16`), trim [n_tiles, 16, 5 * tile]
     float32 (`pack_tri_matrix`).  Returns (t, face int32, front 0/1, ba,
-    bb), each [N].  Launches csrc/mesh_hit_mxu.cu for CUDA tensors
-    (counted in `launches`; a build or launch failure raises), or runs
-    `mesh_closest_hit_mxu_plain` for CPU tensors."""
+    bb), each [N].  Launches csrc/mesh_hit_mxu.cu for CUDA tensors on the
+    matrix's `pack_faces` tables (counted in `launches`; a build or launch
+    failure raises), or runs `mesh_closest_hit_mxu_plain` for CPU tensors.
+    stats: optional CUDA int64 tensor [NSTAT] to which the kernel's
+    counting instantiation adds the pairs filtered (live rays x faces
+    kept), the pairs re-checked in FP32, the valid pairs among them and
+    the 16-ray x 8-face tiles that held a pair to re-check."""
     global launches
     if rays16.device.type == "cpu":
         return mesh_closest_hit_mxu_plain(rays16, trim, face0)
@@ -165,8 +310,14 @@ def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
     if trim.shape[1] != 16 or trim.shape[2] % 5:
         raise ValueError("mesh_closest_hit_mxu: trim must be "
                          "[n_tiles, 16, 5 * tile]")
+    if stats is not None and (stats.device != dev
+                              or stats.dtype != torch.int64
+                              or stats.numel() < NSTAT):
+        raise ValueError(f"mesh_closest_hit_mxu: stats must be an int64 "
+                         f"[{NSTAT}] tensor on {dev}")
     from rtf_tpu_torch import _build
     lib = _build.load("mesh_hit_mxu")
+    pack = _face_pack(trim)
     n = rays16.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
@@ -177,8 +328,10 @@ def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rtf_mesh_hit_mxu_launch(
-            ptr(rays16), n, ptr(trim), trim.shape[0], trim.shape[2] // 5,
-            int(face0), ptr(t), ptr(face), ptr(front), ptr(ba), ptr(bb),
+            ptr(rays16), n, ptr(pack.frags), ptr(pack.rows), ptr(pack.fmap),
+            pack.rows.shape[0], int(face0), ptr(t), ptr(face), ptr(front),
+            ptr(ba), ptr(bb),
+            ctypes.c_void_p(0) if stats is None else ptr(stats),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(

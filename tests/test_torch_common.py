@@ -192,6 +192,43 @@ def vertex_rays(scene, dev, seed=0):
             d.float().T.contiguous().to(dev))
 
 
+def icosphere_faces(subdiv, shift=0.0):
+    """The port's icosphere as face corners (a, b, c), each [F, 3] float32
+    numpy, moved by `shift` along every axis."""
+    from rtf_tpu_torch.scene.procedural import icosphere_mesh
+    m = icosphere_mesh(subdiv)
+    return tuple((m.v[m.f[:, k]] + np.float32(shift)).astype(np.float32)
+                 for k in range(3))
+
+
+def dense_rays(kind, a, b, c, seed=0, n=4096):
+    """Rays (o, d) [N, 3] float32 numpy at the faces (a, b, c) for the
+    dense Plücker closest hit: "edge" one ray per face at the midpoint of
+    its edge (face % 3), "vertex" one per face at its corner (face % 3),
+    each from about 3 outside that point (seeded jitter) straight at it;
+    "scattered" n rays with origins uniform in twice the faces' box about
+    its centre and uniform directions."""
+    rng = np.random.RandomState(seed)
+    corners = np.stack([a, b, c], 1).astype(np.float64)
+    ctr = corners.reshape(-1, 3).mean(0)
+    if kind == "scattered":
+        lo, hi = corners.reshape(-1, 3).min(0), corners.reshape(-1, 3).max(0)
+        o = ctr + (hi - lo) * rng.uniform(-1.0, 1.0, (n, 3))
+        d = rng.normal(size=(n, 3))
+    else:
+        f = np.arange(len(a))
+        k = f % 3
+        p = corners[f, k]
+        if kind == "edge":
+            p = 0.5 * (p + corners[f, (k + 1) % 3])
+        out = p - ctr
+        out /= np.linalg.norm(out, axis=1, keepdims=True)
+        o = p + 3.0 * out + rng.normal(0.0, 0.3, p.shape)
+        d = p - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 @pytest.fixture
 def one_torch_thread():
     """Run the test's PyTorch CPU ops on one thread: the port's tests use

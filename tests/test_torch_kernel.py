@@ -13,7 +13,9 @@ an environment map and a checker; tests/test_torch_common.py) run the
 kernel's textured variant, counted in `launches_textured`; the "mxu-"
 cases the 1280-face ball on the MXU tables (the MXU variants, counted in
 `launches_mxu` and `launches_textured_mxu`), and the dense Plücker closest
-hit (csrc/mesh_hit_mxu.cu) runs against its plain version.  The walk's
+hit (csrc/mesh_hit_mxu.cu, a tensor-core sign filter and an exact FP32
+re-check) runs against its plain version bit for bit, on cases that
+stress the filter, and its counters against plain counts.  The walk's
 edge cases on the MXU tables (ties across tiles and instances, two
 instances, the 81,920-face ball, shared or device memory for the upper
 levels, the textured variant's GI rows), the same on the immediates
@@ -383,8 +385,8 @@ def test_wavefront_frame_is_deterministic(cuda_dev):
 def test_mesh_mxu_kernel_matches_plain(cuda_dev):
     """csrc/mesh_hit_mxu.cu against mesh_closest_hit_mxu_plain: 8192 rays
     at the subdiv-4 icosphere (5120 faces, ten 512-face tiles), a quarter
-    of them with t_init 0 (as padding rays), face0 = 77: faces equal, t,
-    front, ba and bb within rtol 1e-6."""
+    of them with t_init 0 (as padding rays), face0 = 77: all five outputs
+    equal bit for bit."""
     from rtf_tpu_torch.ops import mesh_hit_mxu as M
     from rtf_tpu_torch.scene.procedural import icosphere_mesh
     m = icosphere_mesh(4)
@@ -406,9 +408,109 @@ def test_mesh_mxu_kernel_matches_plain(cuda_dev):
     assert M.launches == before + 1
     assert 0.3 < float((kern[1] >= 0).float().mean()) < 0.75
     assert not bool((kern[1][::4] >= 0).any())
-    assert torch.equal(kern[1], plain[1])
-    for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
-        assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+
+
+def _dense_case(case, dev):
+    """(rays16, trim, face0) for the dense kernel's exact cases on the
+    subdiv-4 icosphere (5120 faces): "edge" and "vertex" one ray per face
+    at an edge midpoint or a corner; "ties" face 7 repeated at column 300
+    of tile 0 and at column 100 of tile 1, rays at its edges; "tile128"
+    the first 1000 faces in 128-face tiles (the last one short) with
+    faces 3 and 9 degenerate; "far" the ball moved 1000 along every axis;
+    "cut" scattered rays, face0 = 1000, t_init cutting the ball, N = 1037
+    (no whole block)."""
+    import numpy as np
+
+    from rtf_tpu_torch.ops import mesh_hit_mxu as M
+    from test_torch_common import dense_rays, icosphere_faces
+    a, b, c = icosphere_faces(4, 1000.0 if case == "far" else 0.0)
+    tile, face0, t_init, kind = 512, 0, 1e30, case
+    if case == "ties":
+        a, b, c = (x.copy() for x in (a, b, c))
+        for col in (300, 512 + 100):
+            a[col], b[col], c[col] = a[7], b[7], c[7]
+        kind = "edge"
+    elif case == "tile128":
+        a, b, c = (x[:1000].copy() for x in (a, b, c))
+        b[3] = a[3]
+        b[9] = c[9] = a[9]
+        tile, kind = 128, "vertex"
+    elif case == "far":
+        kind = "vertex"
+    elif case == "cut":
+        kind, face0 = "scattered", 1000
+    o, d = dense_rays(kind, a, b, c, n=1037)
+    if case == "ties":
+        o, d = o[[7, 300, 612] * 300], d[[7, 300, 612] * 300]
+        o = o + np.random.RandomState(3).normal(0, 0.01, o.shape).astype(
+            np.float32)
+    n = len(o)
+    if case == "cut":
+        t_init = np.random.RandomState(4).uniform(0.5, 3.0, n).astype(
+            np.float32)
+    rays16, _ = M.pack_rays16(torch.as_tensor(o, device=dev),
+                              torch.as_tensor(d, device=dev),
+                              torch.as_tensor(t_init, device=dev).expand(n)
+                              .contiguous())
+    trim = torch.as_tensor(M.pack_tri_matrix(a, b, c, tile), device=dev)
+    return rays16[:n].contiguous(), trim, face0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge", "vertex", "ties", "tile128", "far",
+                                  "cut"])
+def test_mesh_mxu_kernel_exact(cuda_dev, case):
+    """The dense kernel's filter under stress (rays at edges and corners,
+    ties in a tile and across tiles, short tiles with degenerate faces,
+    faces 1e3 from the origin, t_init cutting hits, face0 = 1000, a ragged
+    last block): all five outputs equal the plain version's bit for bit."""
+    from rtf_tpu_torch.ops import mesh_hit_mxu as M
+    rays16, trim, face0 = _dense_case(case, cuda_dev)
+    kern = M.mesh_closest_hit_mxu(rays16, trim, face0)
+    plain = M.mesh_closest_hit_mxu_plain(rays16, trim, face0)
+    torch.cuda.synchronize()
+    assert int((plain[1] >= 0).sum()) > 50
+    if case == "ties":
+        assert not bool(((plain[1] == 300) | (plain[1] == 612)).any())
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p), float((k.float() - p.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge", "cut", "far"])
+def test_mesh_mxu_kernel_counts(cuda_dev, case):
+    """The counting instantiation: pairs filtered = live rays x faces kept;
+    valid pairs = plucker_pair's count over live rays (a valid pair is
+    never rejected); pairs re-checked between the emulated filter's
+    survivors at EPS - 2^-18 and at EPS + 2^-16 (the tensor cores sum
+    within 2^-18 of the exact sums of the TF32 values, and the kernel's
+    FP16 rounding of the sums near -2 EPS keeps pairs within 2^-17 more);
+    tiles with a survivor no more than the pairs re-checked."""
+    from rtf_tpu_torch.ops import mesh_hit_mxu as M
+    from rtf_tpu_torch.ops.mxu_pack import plucker_pair
+    rays16, trim, face0 = _dense_case(case, cuda_dev)
+    stats = torch.zeros(M.NSTAT, dtype=torch.int64, device=cuda_dev)
+    kern = M.mesh_closest_hit_mxu(rays16, trim, face0, stats=stats)
+    plain = M.mesh_closest_hit_mxu_plain(rays16, trim, face0)
+    filtered, rechecked, valid, tiles = stats.tolist()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    pack = M.pack_faces(trim)
+    f = pack.rows.shape[0]
+    a, live = M.ray_frags(rays16)
+    s = M.filter_margins(a, M.unpack_frags(pack.frags, f))
+    cols = [pack.rows[:, k][None, :] for k in range(22)]
+    d3, c3, o3 = (tuple(rays16[:, k:k + 1] for k in range(b, b + 3))
+                  for b in (0, 3, 6))
+    ok = plucker_pair(cols, d3, c3, o3)[1] & live[:, None]
+    assert filtered == int(live.sum()) * f
+    assert valid == int(ok.sum()) > 0
+    lo = int(M.filter_survivors(s, live, M.EPS - 2.0 ** -18).sum())
+    hi = int(M.filter_survivors(s, live, M.EPS + 2.0 ** -16).sum())
+    assert lo <= rechecked <= hi, (lo, rechecked, hi)
+    assert 0 < tiles <= rechecked
 
 
 def test_wave_refuses_other_devices():
