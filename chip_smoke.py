@@ -103,12 +103,34 @@ those phases only (for iterating on one path):
             variant with GI rows and, on every child wave, the lane
             permutation of render/gi.py::gi_mesh_perm; phase 6's checks
             and figures (every kernel-against-plain case exact), and per
-            launch kind the walk's counters as in phase 8.
+            launch kind the walk's counters as in phase 8;
+10. photons a scene-file set written into build/photon_scene (an XML with
+            the box's 5 planes, a mirror and a glass sphere and two point
+            lights; the 320-face icosphere as an OBJ whose MTL gives two
+            sub-materials; a PNG and a PPM texture), loaded with the
+            port's load_scene and built at 800x600, rendered with the
+            Final structure as rtf_tpu's CLI runs it (PROFILES["final"],
+            split rr, 8 spp): prepare_caustic_grid (1,000,000 caustic
+            photons) handed to `render` as caustic_grid, `render` given no
+            global map, so it shoots 1,000,000 photons, builds both grids
+            and bakes both volumes itself (8 x 9 + 8 x 6 = 120 launches of
+            mesh_closest_hit and 8 x 31 = 248 of the textured variant,
+            counted); then each step timed alone (the passes, the grid
+            builds, the bakes; stored photons, occupancy before and after
+            the bake's cap, each volume's corners), the frame with both
+            grids handed in (best of 3 after a warm-up, profiled), the GI
+            launch kinds as in phase 6, one chunk of 131,072 photons with
+            mesh_closest_hit against its plain version (the maps and the
+            volumes baked from them equal), a 160x120 hybrid frame (2 spp,
+            4 hemisphere samples) against the plain wave (exact), and the
+            exact-gather wavefront frame at 160x120 (photon_volume=False,
+            the caustic grid at primary hits): finite, lit, the time of
+            estimate_irradiance a call and of _gather_pass alone.
 
 Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
 atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
 difference may flip a Russian-roulette choice, so at most 1% of lanes may
-lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-9
+lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-10
 hold every kernel to its plain version bit for bit (max abs error 0.0),
 the GI rows included.  Dead lanes give exactly zero radiance and no hit.
 
@@ -119,7 +141,8 @@ every row is finite and the query weight is zero on dead lanes.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
-build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu}.png.
+build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu,
+photons}.png.
 """
 import json
 import os
@@ -482,9 +505,89 @@ def box_volume(scene, seed, dev):
     return volume_from_arrays(table, lo, dims, cell, device=dev)
 
 
+def write_photon_scene(directory, w, h, seed=0):
+    """Write the Final era's scene-file set for the textured box into
+    `directory` and return the XML's path: the box's 5 planes (the walls'
+    kd a 512x512 PNG through a 0.25 scale), a mirror and a glass sphere,
+    the 320-face icosphere as an OBJ with uv and normals whose MTL gives
+    two sub-materials (one's map_Kd a 256x256 PPM), and two point lights,
+    as scene_b has; the camera at w x h.  Texels from numpy seed `seed`."""
+    import numpy as np
+    from rtf_tpu_torch.scene.procedural import icosphere_mesh
+    from rtf_tpu_torch.utils.png import write_png
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    write_png(str(directory / "wall.png"),
+              rng.randint(0, 256, (512, 512, 3)).astype(np.uint8))
+    ball = rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    (directory / "ball.ppm").write_bytes(b"P6\n256 256\n255\n"
+                                         + ball.tobytes())
+    m = icosphere_mesh(2)
+    v = m.v.astype(np.float64)
+    vt = np.stack([0.5 + np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi),
+                   0.5 + np.arcsin(np.clip(v[:, 2], -1, 1)) / np.pi], 1)
+    half = len(m.f) // 2
+    lines = ["mtllib ball.mtl"]
+    lines += [f"v {x:.7f} {y:.7f} {z:.7f}" for x, y, z in m.v]
+    lines += [f"vt {a:.7f} {b:.7f}" for a, b in vt]
+    lines += [f"vn {x:.7f} {y:.7f} {z:.7f}" for x, y, z in m.vn]
+    for i, f in enumerate(m.f + 1):
+        if i in (0, half):
+            lines.append("usemtl " + ("redA" if i == 0 else "redB"))
+        lines.append("f " + " ".join(f"{k}/{k}/{k}" for k in f))
+    (directory / "ball.obj").write_text("\n".join(lines) + "\n")
+    (directory / "ball.mtl").write_text(
+        "newmtl redA\nKd 1 0.3 0.3\nKs 0.7 0.7 0.7\nNs 20\nillum 2\n"
+        "map_Kd ball.ppm\nnewmtl redB\nKd 0.3 0.3 1\nKs 0.7 0.7 0.7\n"
+        "Ns 20\nillum 2\n")
+
+    def plane(name, mtl, tf):
+        return (f'<object type="plane" name="{name}" material="{mtl}">'
+                f'<scale value="32"/>{tf}</object>')
+    xml = f"""<xml><scene>
+<object name="box"><translate z="12"/>
+{plane("floor", "wall", '<translate z="-12"/>')}
+{plane("ceiling", "wall", '<rotate x="1" angle="180"/><translate z="12"/>')}
+{plane("back", "wall", '<rotate x="1" angle="90"/><translate y="20"/>')}
+{plane("left", "wallRed", '<rotate y="1" angle="90"/><translate x="-15"/>')}
+{plane("right", "wallBlue",
+       '<rotate y="1" angle="-90"/><translate x="15"/>')}
+</object>
+<object type="sphere" name="mirror" material="mirror">
+<scale value="4"/><translate x="8" y="-6" z="4"/></object>
+<object type="sphere" name="glass" material="glass">
+<scale value="4"/><translate x="-8" y="-6" z="4"/></object>
+<object type="obj" name="ball.obj">
+<scale value="3"/><translate x="1" y="4" z="3"/></object>
+<material type="blinn" name="wall">
+<diffuse value="1" texture="wall.png"><scale value="0.25"/></diffuse>
+<specular value="0"/></material>
+<material type="blinn" name="wallRed">
+<diffuse r="1" g="0.5" b="0.5"/><specular value="0"/></material>
+<material type="blinn" name="wallBlue">
+<diffuse r="0.5" g="0.5" b="1"/><specular value="0"/></material>
+<material type="blinn" name="mirror"><diffuse value="0"/>
+<specular value="1"/><glossiness value="80"/><reflection value="1"/>
+</material>
+<material type="blinn" name="glass"><diffuse value="0"/>
+<specular value="1"/><glossiness value="80"/>
+<refraction value="1" index="1.52"/></material>
+<light type="point" name="L1"><intensity value="50.25"/>
+<position x="-5" y="0" z="22"/></light>
+<light type="point" name="L2"><intensity value="50.25"/>
+<position x="5" y="0" z="22"/></light>
+</scene><camera><position x="0" y="-60" z="12"/>
+<target x="0" y="0" z="12"/><up x="0" y="0" z="1"/><fov value="30"/>
+<width value="{w}"/><height value="{h}"/></camera></xml>
+"""
+    path = directory / "box.xml"
+    path.write_text(xml)
+    return path
+
+
 def main(argv):
     # no arguments: every phase; phase numbers: the build and those only
-    phases = {int(a) for a in argv} or set(range(1, 10))
+    phases = {int(a) for a in argv} or set(range(1, 11))
     try:
         import torch
     except ImportError:
@@ -715,13 +818,13 @@ def main(argv):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0_) / reps * 1e3
 
-    def profiled_ms(fn, reps=5, key="wave_kernel", required=True):
+    def profiled_ms(fn, reps=5, key="wave_kernel"):
         """The kernel's own device time per launch (torch.profiler over reps
         calls of fn, one launch of the kernel whose name holds `key` each),
         over the kernel records the profiler delivered: late in this
         process it can deliver fewer than reps, so their count is printed
-        when it falls short, and none at all (then None, unless
-        `required`)."""
+        when it falls short, and none at all (then None, printed; the CUDA
+        events' figure stands beside it)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -733,10 +836,9 @@ def main(argv):
         evs = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA and key in ev.key]
         count = sum(ev.count for ev in evs)
-        if not (count or required):
+        if not count:
             print(f"[profiler] no {key} launch recorded", flush=True)
             return None
-        check(count > 0, f"the profiler recorded no {key} launch")
         if count < reps:
             print(f"[profiler] {count} of {reps} {key} launches recorded",
                   flush=True)
@@ -844,7 +946,7 @@ def main(argv):
         bd = bound(tables, st, n, 7, 5)
         launch_prof_ms = profiled_ms(launch)
         print(f"[{tag}] kernel {kern_ms:.4f} ms/launch at {W}x{H} (mean of "
-              f"20, CUDA events; {launch_prof_ms:.4f} ms by the profiler, "
+              f"20, CUDA events; {launch_prof_ms} ms by the profiler, "
               f"kernel only); work {json.dumps(st)}; "
               f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
               f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
@@ -871,6 +973,68 @@ def main(argv):
             "bound_ms_texel_reads": bd["bound_ms_texel_reads"],
             "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
             "work": st, "walk": walk, "ms_profiler_launch": launch_prof_ms}
+
+    def gi_launch_kinds(tag, gcfg, scene, tables, gi_vol, caustic_vol, gen):
+        """Per launch kind of a GI sample wave at the scene's full shape
+        (the primary launch with its rows, one child launch from it): the
+        kernel against its plain version, its time (CUDA events,
+        profiler), the plain version's time, work counts and bound.
+        Returns (figures per kind, errors, (o3, d3, alive))."""
+        w, h = scene.width, scene.height
+        n = w * h
+        o3, d3 = rays(scene, 0)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        gf = primary_gi_from(gi_vol, caustic_vol)
+
+        def primary(fn=W_.wave, **kw):
+            return fn(gcfg, tables, o3, d3, alive, 11, surf_out=True,
+                      gi_from=gf, **kw)
+        _, hit0, _, surf, _ = primary()
+        u = torch.rand((2, n), generator=gen, device=dev)
+        args, ckw = child_wave_args(gcfg, surf, hit0, alive, 11, 0, u[0],
+                                    u[1])
+        ckw["gi_from"] = 0 if gi_vol is not None else None
+
+        def child(fn=W_.wave, **kw):
+            return fn(gcfg, tables, *args, **ckw, **kw)
+        kinds, errs = {}, []
+        for kname, fn, live, nb, gfk, rows_in, rows_out in (
+                ("primary", primary, alive, gcfg.bounces, gf, 7,
+                 W_.out_rows(gcfg.bounces + 1, True, gf)),
+                ("child", child, args[2], ckw["bounces"], ckw["gi_from"], 14,
+                 W_.out_rows(ckw["bounces"] + 1, False, ckw["gi_from"]))):
+            # the kernel against its plain version at this path's shape;
+            # the plain call is also the untimed first call of its timing
+            kern, plain = fn(), fn(W_.wave_plain)
+            torch.cuda.synchronize()
+            name = f"{tag} {kname} {w}x{h}"
+            if len(kern) == 3:           # a hemisphere child: no rows
+                errs.append(compare(name, plain, kern, live, nb)[0])
+            else:
+                errs.append(compare_rows(name, plain, kern, live, nb,
+                                         0 if gfk is None else gfk))
+            del kern, plain
+            t0 = time.perf_counter()
+            fn(W_.wave_plain)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            ms = events_ms(fn)
+            ms_prof = profiled_ms(fn)
+            st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
+                                   rows_in, rows_out)
+            bd = bound(tables, st, n, rows_in, rows_out)
+            kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
+                                max_abs_err=errs[-1], work=st,
+                                rows_in=rows_in, rows_out=rows_out, **bd,
+                                walk=walk)
+            print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
+                  f"events), {ms_prof} ms (profiler, kernel only), "
+                  f"plain {pms:.2f} ms; rows {rows_in} in, "
+                  f"{rows_out} out; work {json.dumps(st)}; "
+                  f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
+                  f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
+                  f"{bd['bytes_ms']:.4f}), by {bd['bound_by']}", flush=True)
+        return kinds, errs, (o3, d3, alive)
 
     def drive_gi(tag, desc, gcfg, counter, volumes=False):
         """Render one GI path through `render`, every frame counted in
@@ -938,58 +1102,8 @@ def main(argv):
             tag, frame_s, lambda: render(scene, gcfg, seed=9, **rkw))
 
         # the two launch kinds of a GI sample wave
-        o3, d3 = rays(scene, 0)
-        alive = torch.ones(n, dtype=torch.bool, device=dev)
-        gf = primary_gi_from(gi_vol, caustic_vol)
-
-        def primary(fn=W_.wave, **kw):
-            return fn(gcfg, tables, o3, d3, alive, 11, surf_out=True,
-                      gi_from=gf, **kw)
-        _, hit0, _, surf, _ = primary()
-        u = torch.rand((2, n), generator=gen, device=dev)
-        args, ckw = child_wave_args(gcfg, surf, hit0, alive, 11, 0, u[0],
-                                    u[1])
-        ckw["gi_from"] = 0 if gi_vol is not None else None
-
-        def child(fn=W_.wave, **kw):
-            return fn(gcfg, tables, *args, **ckw, **kw)
-        kinds, errs = {}, []
-        for kname, fn, live, nb, gfk, rows_in, rows_out in (
-                ("primary", primary, alive, gcfg.bounces, gf, 7,
-                 W_.out_rows(gcfg.bounces + 1, True, gf)),
-                ("child", child, args[2], ckw["bounces"], ckw["gi_from"], 14,
-                 W_.out_rows(ckw["bounces"] + 1, False, ckw["gi_from"]))):
-            # the kernel against its plain version at this path's shape;
-            # the plain call is also the untimed first call of its timing
-            kern, plain = fn(), fn(W_.wave_plain)
-            torch.cuda.synchronize()
-            name = f"{tag} {kname} {w}x{h}"
-            if len(kern) == 3:           # a hemisphere child: no rows
-                errs.append(compare(name, plain, kern, live, nb)[0])
-            else:
-                errs.append(compare_rows(name, plain, kern, live, nb,
-                                         0 if gfk is None else gfk))
-            del kern, plain
-            t0 = time.perf_counter()
-            fn(W_.wave_plain)
-            torch.cuda.synchronize()
-            pms = (time.perf_counter() - t0) * 1e3
-            ms = events_ms(fn)
-            ms_prof = profiled_ms(fn)
-            st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
-                                   rows_in, rows_out)
-            bd = bound(tables, st, n, rows_in, rows_out)
-            kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
-                                max_abs_err=errs[-1], work=st,
-                                rows_in=rows_in, rows_out=rows_out, **bd,
-                                walk=walk)
-            print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
-                  f"events), {ms_prof:.4f} ms (profiler, kernel only), "
-                  f"plain {pms:.2f} ms; rows {rows_in} in, "
-                  f"{rows_out} out; work {json.dumps(st)}; "
-                  f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
-                  f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
-                  f"{bd['bytes_ms']:.4f}), by {bd['bound_by']}", flush=True)
+        kinds, errs, (o3, d3, alive) = gi_launch_kinds(
+            tag, gcfg, scene, tables, gi_vol, caustic_vol, gen)
 
         def per_launch(k):
             return (kinds["primary"][k] + s_hemi * kinds["child"][k]) \
@@ -1027,6 +1141,55 @@ def main(argv):
     def mesh_counts():
         return {"mesh_closest_hit": M_.launches,
                 **{c: getattr(W_, c) for c in counters}}
+
+    def plain_fn(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
+        """mesh_closest_hit's plain version on a trace's rays (packed for
+        it), in the place of mesh_hit.py::mesh_closest_hit_rays."""
+        rays8, _ = M_.pack_rays(lo, ld, t_init)
+        return tuple(x[:lo.shape[0]] for x in M_.mesh_closest_hit_plain(
+            rays8, tris, aabb, face0))
+
+    def mesh_launch_figures(tag, label, scene, args, kw):
+        """One captured mesh_closest_hit_rays call (args, kw): the kernel's
+        time per launch (CUDA events with the queue filled first), the
+        plain version's, the work counts (slab tests per level of the box
+        hierarchy, pairs) and the bound on them."""
+        tree = scene.mesh.hit_tree
+        tree_bytes = sum(getattr(tree, k).numel() * 4 for k in (
+            "faces", "roots", "groups", "tnodes", "leaves"))
+        lo = args[0]
+
+        def launch(stats=None):
+            return M_.mesh_closest_hit_rays(*args, stats=stats, **kw)
+        ms = events_ms(launch)
+        pms = host_ms(lambda: plain_fn(*args), 2)
+        stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
+        launch(stats)
+        (slabs, pairs, roots, walks, groups, tiles, leaves) = stats.tolist()
+        n = lo.shape[0]
+        flops = slabs * OPS["slab"] + pairs * OPS["tri"]
+        # each input once: 28 B per ray (o, d, t_init), the slot's face
+        # rows and hierarchy; each output once: 20 B per ray
+        nbytes = n * 28 + tree_bytes + n * 20
+        bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+        per_walk = {k: v / max(walks, 1) for k, v in (
+            ("groups", groups), ("tiles", tiles), ("leaves", leaves),
+            ("pairs", pairs))}
+        print(f"[{tag}] mesh_closest_hit {label}: {ms:.4f} ms (mean of 20, "
+              f"CUDA events), plain {pms:.2f} ms; {slabs} slab tests "
+              f"({roots} root, {walks} walks; groups, tiles, leaves, pairs "
+              f"per walk " + ", ".join(f"{v:.2f}" for v in per_walk.values())
+              + f"), {pairs} ray-face pairs ({pairs / n:.2f} per ray); "
+              f"{flops:.4e} FP32 ops, {nbytes} bytes; bound "
+              f"{max(bytes_ms, ops_ms):.5f} ms (ops {ops_ms:.5f}, bytes "
+              f"{bytes_ms:.5f})", flush=True)
+        return dict(ms=ms, plain_ms=pms, slab_tests=slabs, pairs=pairs,
+                    root_tests=roots, walks=walks, group_tests=groups,
+                    tile_tests=tiles, leaf_tests=leaves, per_walk=per_walk,
+                    flops=flops, bytes=nbytes,
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms
+                    else "bytes")
 
     def drive_wavefront():
         """Phase 7: render the default config on the XLA wavefront's port
@@ -1084,11 +1247,6 @@ def main(argv):
             calls[0] += 1
             return kernel_fn(lo, ld, t_init, tris, aabb, face0, stats, **k)
 
-        def plain_fn(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
-            """The plain version on a trace's rays (packed for it)."""
-            rays8, _ = M_.pack_rays(lo, ld, t_init)
-            return tuple(x[:lo.shape[0]] for x in M_.mesh_closest_hit_plain(
-                rays8, tris, aabb, face0))
         M_.mesh_closest_hit_rays = capture
         try:
             one_wave()
@@ -1173,48 +1331,11 @@ def main(argv):
         # time per launch of each input kind: CUDA events with the queue
         # filled first, the plain version; work counts and the bound (the
         # profiler's kernel time is the wave's average above)
-        tree = scene.mesh.hit_tree
-        tree_bytes = sum(getattr(tree, k).numel() * 4 for k in (
-            "faces", "roots", "groups", "tnodes", "leaves"))
         for key, label in ((0, "primary"), (1, "shadow"),
                            (per_shade, "bounce 1")):
             args, kw = captured[key]
-            lo = args[0]
-
-            def launch(stats=None):
-                return M_.mesh_closest_hit_rays(*args, stats=stats, **kw)
-            ms = events_ms(launch)
-            pms = host_ms(lambda: plain_fn(*args), 2)
-            stats = torch.zeros(M_.NSTAT, dtype=torch.int64, device=dev)
-            launch(stats)
-            (slabs, pairs, roots, walks, groups, tiles,
-             leaves) = stats.tolist()
-            n = lo.shape[0]
-            flops = slabs * OPS["slab"] + pairs * OPS["tri"]
-            # each input once: 28 B per ray (o, d, t_init), the slot's face
-            # rows and hierarchy; each output once: 20 B per ray
-            nbytes = n * 28 + tree_bytes + n * 20
-            bytes_ms, ops_ms = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-            per_walk = {k: v / max(walks, 1) for k, v in (
-                ("groups", groups), ("tiles", tiles), ("leaves", leaves),
-                ("pairs", pairs))}
-            kinds[label].update(
-                ms=ms, plain_ms=pms, slab_tests=slabs,
-                pairs=pairs, root_tests=roots, walks=walks,
-                group_tests=groups, tile_tests=tiles, leaf_tests=leaves,
-                per_walk=per_walk, flops=flops, bytes=nbytes,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-            print(f"[wavefront] mesh_closest_hit {label}: {ms:.4f} ms (mean "
-                  f"of 20, CUDA events), plain {pms:.2f} ms; {slabs} slab "
-                  f"tests ({roots} "
-                  f"root, {walks} walks; groups, tiles, leaves, pairs per "
-                  f"walk "
-                  + ", ".join(f"{v:.2f}" for v in per_walk.values())
-                  + f"), {pairs} ray-face pairs "
-                  f"({pairs / n:.2f} per ray); {flops:.4e} FP32 ops, "
-                  f"{nbytes} bytes; bound {max(bytes_ms, ops_ms):.5f} ms "
-                  f"(ops {ops_ms:.5f}, bytes {bytes_ms:.5f})", flush=True)
+            kinds[label].update(mesh_launch_figures(
+                "wavefront", label, scene, args, kw))
         stamp("timed the kernel and the plain version")
 
         # a 160x120 frame (2 spp) with the kernel and with the plain
@@ -1293,28 +1414,32 @@ def main(argv):
             "small_frame_max_abs_err": float(ferr.max()),
             "gi_gain": float(gain), "per_input": kinds}
 
-    def small_frame_vs_plain(tag, desc, fcfg, counter):
+    def small_frame_vs_plain(tag, desc, fcfg, counter, launches=None,
+                             **rkw):
         """A 160x120 frame with the wave kernel against the same frame with
         the plain wave put in the kernel's place (one seed, so the same
-        draws): hit masks and sample counts equal, z within rtol, at most
-        1% of pixels outside ATOL, means within 1%.  Returns the max abs
-        error."""
+        draws; rkw: more arguments of `render`): the kernel launched
+        `launches` times (default one a sample), hit masks and sample
+        counts equal, z within rtol, at most 1% of pixels outside ATOL,
+        means within 1%.  Returns the max abs error."""
         scene = build_scene(desc, device=dev)
         stab = scene_tables(scene)
         check(W_.launch_counter(stab) == counter,
               f"{tag}: wrong kernel variant")
         setattr(W_, counter, 0)
-        fk = render(scene, fcfg, seed=5, device=dev, tables=stab)
-        check(getattr(W_, counter) == fcfg.max_samples,
+        fk = render(scene, fcfg, seed=5, device=dev, tables=stab, **rkw)
+        check(getattr(W_, counter) == (launches or fcfg.max_samples),
               f"{tag}: the small frame ran the kernel")
         setattr(W_, counter, 0)
-        kernel_fn = R_.wave
+        kernel_fns = R_.wave, R_.gi_wave
         R_.wave = (lambda cfg_, tables_, *a, stats=None, **k:
                    W_.wave_plain(cfg_, tables_, *a, **k))
+        R_.gi_wave = (lambda *a, **k:
+                      kernel_fns[1](*a, wave_fn=W_.wave_plain, **k))
         try:
-            fp = render(scene, fcfg, seed=5, device=dev, tables=stab)
+            fp = render(scene, fcfg, seed=5, device=dev, tables=stab, **rkw)
         finally:
-            R_.wave = kernel_fn
+            R_.wave, R_.gi_wave = kernel_fns
         check(getattr(W_, counter) == 0, f"{tag}: the plain frame launched "
               "the kernel")
         check(np.array_equal(fk.sample_count, fp.sample_count)
@@ -1396,7 +1521,7 @@ def main(argv):
                                 reps=5),
                 "ms_profiler": profiled_ms(
                     lambda: X_.mesh_closest_hit_mxu(rays16, trim),
-                    key="mesh_hit_mxu_kernel", required=False),
+                    key="mesh_hit_mxu_kernel"),
                 "ms_subset": events_ms(
                     lambda: X_.mesh_closest_hit_mxu(sub, trim), reps=5),
                 "plain_ms_subset": host_ms(
@@ -1498,6 +1623,309 @@ def main(argv):
                               "scattered set, not a caller of the port"}
         return [wave_res, dense]
 
+    def drive_photons():
+        """Phase 10: the scene-file set written into build/photon_scene,
+        loaded with the port's load_scene and built at W x H; the Final
+        structure as rtf_tpu's CLI runs it: the caustic pass
+        (prepare_caustic_grid) handed to `render` as caustic_grid, `render`
+        given no global map (it shoots, grids and bakes both volumes
+        itself), every launch counted; then each step timed on its own,
+        the frame with both grids handed in, the photon map and volume of
+        one chunk with mesh_closest_hit against its plain version (exact),
+        a 160x120 hybrid frame against the plain wave (exact), and the
+        exact-gather wavefront frame at 160x120."""
+        from rtf_tpu_torch.gi import grid as GR_
+        from rtf_tpu_torch.gi.photon import shoot_photons
+        from rtf_tpu_torch.gi.volume import build_irradiance_volume
+        from rtf_tpu_torch.render import integrator as I_
+        from rtf_tpu_torch.render.config import PROFILES
+        from rtf_tpu_torch.scene.xml_loader import load_scene
+        t_phase = time.perf_counter()
+
+        def stamp(what):
+            print(f"[photons] {time.perf_counter() - t_phase:.1f} s: "
+                  f"{what}", flush=True)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0_
+
+        def zero_counts():
+            M_.launches = X_.launches = 0
+            for c in counters:
+                setattr(W_, c, 0)
+            torch.cuda.synchronize()
+
+        xml = write_photon_scene(ROOT / "build" / "photon_scene", W, H)
+        desc = load_scene(str(xml))
+        scene = build_scene(desc, device=dev)
+        tables = scene_tables(scene)
+        pcfg = PROFILES["final"].with_(split_mode="rr", min_samples=8,
+                                       max_samples=8)
+        lights = [k for k in scene.light_kinds if k != "ambient"]
+        check(len(lights) == 2 and scene.num_mesh_inst == 1
+              and scene.mesh.tri_a.shape[0] == 320 and tables.textured
+              and not tables.mxu, "the scene file's box: two lights, the "
+              "320-face ball, file textures (the textured variant)")
+        chunk = 131072
+        passes = [(pcfg.photon_count, pcfg.photon_bounces),
+                  (pcfg.caustic_count, pcfg.caustic_bounces)]
+        mesh_expected = sum(-(-n // chunk) * (b + 1) for n, b in passes) \
+            * scene.num_mesh_inst
+        wave_expected = pcfg.max_samples * (1 + pcfg.hemisphere_samples)
+        stamp(f"wrote and loaded {xml.relative_to(ROOT)} ({W}x{H}, "
+              f"{scene.mesh.tri_a.shape[0]} faces, lights {lights})")
+
+        # the main path as a user drives it, every launch counted
+        zero_counts()
+        t0 = time.perf_counter()
+        caustic = R_.prepare_caustic_grid(scene, pcfg, 2, tables=tables)
+        check(render_path(scene, pcfg, caustic) == ("fused", None),
+              "the photon frame must take the fused path")
+        first = render(scene, pcfg, seed=1, device=dev, tables=tables,
+                       caustic_grid=caustic)
+        first_s = time.perf_counter() - t0
+        counts = mesh_counts()
+        check(counts["mesh_closest_hit"] == mesh_expected
+              and counts["launches_textured"] == wave_expected
+              and sum(counts.values()) == mesh_expected + wave_expected
+              and X_.launches == 0,
+              f"photons: launches {counts}, expected {mesh_expected} of "
+              f"mesh_closest_hit and {wave_expected} of launches_textured")
+        check(np.isfinite(first.radiance).all()
+              and first.image.shape == (H, W, 3)
+              and (first.sample_count == pcfg.max_samples).all()
+              and first.image.mean() > 5.0, "photons: the first frame")
+        stamp(f"caustic pass + render with no global map (shoots, grids, "
+              f"bakes, renders): {first_s:.3f} s; launches {counts}")
+
+        # each step on its own (the same seeds as render's own passes)
+        pm, photon_s = timed(lambda: shoot_photons(
+            scene, pcfg, pcfg.photon_count, pcfg.photon_count,
+            R_._pass_generator(scene, 1, 999), tables=tables))
+        grid, grid_s = timed(lambda: GR_.build_photon_grid(
+            pm, pcfg.knn_radius, scene.world_min, scene.world_max))
+        cpm, caustic_s = timed(lambda: shoot_photons(
+            scene, pcfg, pcfg.caustic_count, pcfg.caustic_count,
+            R_._pass_generator(scene, 2, 998), caustic_only=True,
+            tables=tables))
+        cgrid, cgrid_s = timed(lambda: GR_.build_photon_grid(
+            cpm, pcfg.caustic_radius, scene.world_min, scene.world_max))
+        check(int(cgrid.n_valid) == int(caustic.n_valid),
+              "the caustic pass is not deterministic")
+        vol, bake_s = timed(lambda: R_._cached_volume(
+            grid, pcfg.knn_radius, pcfg.knn_k, scene.world_min,
+            scene.world_max))
+        cvol, cbake_s = timed(lambda: R_._cached_volume(
+            cgrid, pcfg.caustic_radius, pcfg.knn_k, scene.world_min,
+            scene.world_max))
+        occ_cap = max(2048, 2 * pcfg.knn_k)
+        maps = {}
+        for name, m, g, v, shot_s, g_s, b_s in (
+                ("global", pm, grid, vol, photon_s, grid_s, bake_s),
+                ("caustic", cpm, cgrid, cvol, caustic_s, cgrid_s, cbake_s)):
+            capped = GR_.cap_occupancy(g, occ_cap).max_occupancy
+            check(bool(torch.isfinite(v.table).all()),
+                  f"{name} volume not finite")
+            maps[name] = dict(
+                stored=int(m.count), pass_s=shot_s, grid_s=g_s, bake_s=b_s,
+                max_occupancy=g.max_occupancy, max_occupancy_capped=capped,
+                grid_dims=g.dims, volume_dims=v.dims,
+                corners=v.table.shape[1],
+                corners_lit=int((v.table[:3].amax(0) > 0).sum()))
+            print(f"[photons] {name} map: {m.count} stored, pass "
+                  f"{shot_s:.3f} s, grid {g.dims} in {g_s:.3f} s, "
+                  f"max_occupancy {g.max_occupancy} (capped at {occ_cap}: "
+                  f"{capped}), volume {v.dims} cells, {v.table.shape[1]} "
+                  f"corners ({maps[name]['corners_lit']} lit) baked in "
+                  f"{b_s:.3f} s", flush=True)
+        check(maps["global"]["stored"] > 100000
+              and maps["caustic"]["stored"] > 1000, "too few photons")
+
+        def shoot_chunk():
+            return shoot_photons(   # room for a store at every bounce
+                scene, pcfg, chunk, chunk * pcfg.photon_bounces,
+                torch.Generator(device=dev).manual_seed(11), tables=tables)
+        chunk_s = min(timed(shoot_chunk)[1] for _ in range(2))
+        chunk_busy_us, chunk_prof_ms, _ = profile_frame(
+            "photon chunk", chunk_s, shoot_chunk, kernel="mesh_hit_kernel")
+        stamp(f"timed the passes, grids and bakes; one chunk of {chunk} "
+              f"global photons {chunk_s:.4f} s")
+
+        # the frame with both grids handed in (their volumes cached)
+        rkw = dict(device=dev, tables=tables, gi_grid=grid,
+                   caustic_grid=cgrid)
+        render(scene, pcfg, seed=3, **rkw)              # warm-up frame
+        frame_s, res = float("inf"), None
+        for rep in range(3):
+            zero_counts()
+            t0 = time.perf_counter()
+            out = render(scene, pcfg, seed=1 + rep, **rkw)
+            dt = time.perf_counter() - t0
+            counts = mesh_counts()
+            check(counts["launches_textured"] == wave_expected
+                  and sum(counts.values()) == wave_expected,
+                  f"photon frame {rep}: launches {counts}")
+            check(np.isfinite(out.radiance).all()
+                  and out.image.mean() > 5.0, "photons: a frame")
+            if dt < frame_s:
+                frame_s, res = dt, out
+        direct = render(scene, pcfg.with_(gi_mode="none"), seed=1,
+                        device=dev, tables=tables)
+        gain = res.radiance.mean() / direct.radiance.mean()
+        check(gain > 1.0, f"photons: GI adds no light ({gain:.4f})")
+        png = ROOT / "build" / "chip_smoke_photons.png"
+        write_png(str(png), res.image)
+        busy_us, prof_ms, _ = profile_frame(
+            "photons", frame_s, lambda: render(scene, pcfg, seed=9, **rkw))
+        print(f"[photons] frame {W}x{H} {pcfg.max_samples}spp "
+              f"{pcfg.bounces} bounces photon GI, {pcfg.hemisphere_samples}"
+              f" hemisphere samples, both grids handed in: best of 3 "
+              f"{frame_s:.4f} s, {wave_expected} launches/frame, mean "
+              f"radiance {gain:.4f}x the frame without GI, png "
+              f"{png.relative_to(ROOT)}", flush=True)
+        kinds, errs, _ = gi_launch_kinds(
+            "photons", pcfg, scene, tables, vol, cvol,
+            torch.Generator(device=dev).manual_seed(5))
+        stamp("frames and launch figures")
+
+        # one chunk with mesh_closest_hit and with its plain version in the
+        # kernel's place, from one generator seed: maps and volumes equal
+        captured, calls = {}, [0]
+        kernel_fn = M_.mesh_closest_hit_rays
+
+        def capture(*a, **k):
+            if calls[0] == 1:                  # the first bounce's trace
+                captured["bounce 1"] = (a, k)
+            calls[0] += 1
+            return kernel_fn(*a, **k)
+
+        def one_chunk(fn):
+            M_.mesh_closest_hit_rays = fn
+            try:
+                cpm_ = shoot_chunk()
+                g_ = GR_.build_photon_grid(cpm_, pcfg.knn_radius,
+                                           scene.world_min, scene.world_max)
+                return cpm_, build_irradiance_volume(
+                    g_, pcfg.knn_radius, pcfg.knn_k, scene.world_min,
+                    scene.world_max)
+            finally:
+                M_.mesh_closest_hit_rays = kernel_fn
+        zero_counts()
+        (kmap, kvol) = one_chunk(capture)
+        check(M_.launches == pcfg.photon_bounces + 1,
+              f"the chunk launched the kernel {M_.launches} times")
+        (pmap, pvol) = one_chunk(plain_fn)
+        check(M_.launches == pcfg.photon_bounces + 1,
+              "the plain chunk launched the kernel")
+        chunk_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(tuple(kmap) + (kvol.table,),
+                                        tuple(pmap) + (pvol.table,)))
+        check(chunk_err == 0.0 and int(kmap.count) == int(pmap.count)
+              < chunk * pcfg.photon_bounces,
+              f"photons: the chunk's map or volume differs from the plain "
+              f"version's by {chunk_err}")
+        print(f"[photons] one chunk of {chunk} photons, mesh_closest_hit "
+              f"against its plain version: {int(kmap.count)} stored, map "
+              f"and volume equal (max_abs_err={chunk_err:.3e})", flush=True)
+        mesh_fig = mesh_launch_figures("photons", "bounce 1", scene,
+                                       *captured["bounce 1"])
+
+        # a 160x120 hybrid frame from those volumes, kernel against plain
+        small_desc = load_scene(str(xml))
+        small_desc.camera.width, small_desc.camera.height = SMALL
+        scfg = pcfg.with_(min_samples=2, max_samples=2,
+                          hemisphere_samples=4)
+        small_err = small_frame_vs_plain(
+            "photons", small_desc, scfg, "launches_textured",
+            launches=2 * 5, gi_grid=kvol, caustic_grid=cvol)
+        check(small_err == 0.0, f"photons: the 160x120 hybrid frame "
+              f"differs from the plain wave's by {small_err}")
+        stamp("kernel against plain")
+
+        # the exact-gather wavefront frame at 160x120
+        small = build_scene(small_desc, device=dev)
+        stab = scene_tables(small)
+        ecfg = scfg.with_(photon_volume=False)
+        check(render_path(small, ecfg, cgrid)[0] == "wavefront",
+              "photon_volume=False must take the wavefront")
+        gathers = []
+        est_fn = I_.estimate_irradiance
+
+        def timed_est(g, qp, qn, radius, k):
+            out, dt = timed(lambda: est_fn(g, qp, qn, radius, k))
+            gathers.append((qp.shape[0], dt, g is cgrid, (g, qp, qn)))
+            return out
+        I_.estimate_irradiance = timed_est
+        try:
+            ex, ex_s = timed(lambda: render(
+                small, ecfg, device=dev, tables=stab, gi_grid=grid,
+                caustic_grid=cgrid))
+        finally:
+            I_.estimate_irradiance = est_fn
+        none = render(small, ecfg.with_(gi_mode="none"), device=dev,
+                      tables=stab)
+        ex_gain = ex.radiance.mean() / none.radiance.mean()
+        check(np.isfinite(ex.radiance).all() and ex_gain > 1.0,
+              f"the exact-gather frame adds no light ({ex_gain:.4f})")
+        per_call = {}
+        for name, is_c in (("global", False), ("caustic", True)):
+            sel = [x for x in gathers if x[2] == is_c]
+            check(len(sel) > 0, f"no {name} gather in the exact frame")
+            per_call[name] = dict(
+                calls=len(sel), queries=sel[0][0],
+                ms_per_call=sum(x[1] for x in sel) / len(sel) * 1e3)
+        # the gather pass alone on one global call's candidates
+        g_, qp_, qn_ = next(x[3] for x in gathers if not x[2])
+        start, cnt = GR_._cell_ranges(g_, qp_, g_.max_occupancy)
+        total = int(cnt.sum())
+        cand = GR_._Candidates(g_, qp_, start, cnt, total)
+        front = (g_.dir[cand.idx] * qn_[cand.q]).sum(-1) < 0.0
+        r2 = torch.full((qp_.shape[0],), pcfg.knn_radius ** 2, device=dev)
+        gather_ms = events_ms(lambda: GR_._gather_pass(g_, cand, front, r2,
+                                                       0), reps=10)
+        print(f"[photons] exact-gather wavefront frame {SMALL[0]}x"
+              f"{SMALL[1]} ({ecfg.max_samples} spp, {ecfg.bounces} bounces,"
+              f" {ecfg.hemisphere_samples} hemisphere samples): "
+              f"{ex_s:.3f} s, mean radiance {ex_gain:.4f}x without GI; "
+              f"estimate_irradiance "
+              + "; ".join(f"{k} {v['calls']} calls of {v['queries']} "
+                          f"queries, {v['ms_per_call']:.3f} ms a call"
+                          for k, v in per_call.items())
+              + f"; _gather_pass alone on {total} candidates "
+              f"{gather_ms:.4f} ms (CUDA events)", flush=True)
+        stamp("phase passed")
+        p, c = kinds["primary"], kinds["child"]
+        s_hemi = pcfg.hemisphere_samples
+
+        def per_launch(k):
+            return (p[k] + s_hemi * c[k]) / (1 + s_hemi)
+        common = {"frame_s": frame_s, "first_frame_s": first_s,
+                  "device_busy_share": busy_us / 1e6 / frame_s,
+                  "maps": maps, "library_ms": None}
+        return [
+            {"launches": mesh_expected, "max_abs_err": chunk_err,
+             "ms": mesh_fig["ms"], "ms_profiler": chunk_prof_ms,
+             "plain_ms": mesh_fig["plain_ms"], "chunk_s": chunk_s,
+             "chunk_device_busy_share": chunk_busy_us / 1e6 / chunk_s,
+             "bound_ms": mesh_fig["bound_ms"],
+             "bound_by": mesh_fig["bound_by"], "bounce_1": mesh_fig,
+             **common},
+            {"launches": wave_expected,
+             "max_abs_err": max(errs + [small_err]),
+             "ms": per_launch("ms"), "ms_profiler": prof_ms,
+             "plain_ms": per_launch("plain_ms"),
+             "bound_ms": per_launch("bound_ms"),
+             "bound_by": c["bound_by"], "per_launch_kind": kinds,
+             "exact_gather": {"frame_s": ex_s, "gain": float(ex_gain),
+                              "per_call": per_call,
+                              "gather_pass_ms": gather_ms,
+                              "gather_pass_candidates": total},
+             "gain": float(gain), **common}]
+
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
                           hemisphere_samples=4, queue_factor=1.0)
@@ -1557,6 +1985,17 @@ def main(argv):
          lambda: drive_gi("hybrid_mxu",
                           textured_desc(box_scene, W, H, mesh_subdiv=5),
                           hyb_cfg, "launches_textured_mxu", volumes=True)),
+        # ---- phase 10: a scene file and the photon pipeline: the caustic
+        # pass, `render` shooting its own photons and baking its volumes
+        (10, [{"name": "mesh_closest_hit_photons",
+               "source": "rtf_tpu_torch/csrc/mesh_hit.cu",
+               "replaces": "rtf_tpu/ops/pallas_mesh.py:330 (photon "
+                           "traces: gi/photon.py)"},
+              {"name": "wave_textured_gi_photons",
+               "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+               "replaces": "rtf_tpu/render/fused_seg.py:482 and :516 "
+                           "(gi_out rows; volumes baked from photon maps)"}],
+         drive_photons),
     ]
     kernels = []
     for ph, entries, fn in runs:

@@ -19,10 +19,10 @@ material's absorption and applies it once its own hit distance is known.
 The environment on a miss goes to refraction rays only (quirk of
 main.cpp:613-638), and to reflection rays too with cfg.env_on_reflect_miss.
 GI: the hemisphere fan-out at the first hit ('hemisphere', 'pathtrace',
-'photon'; main.cpp:642-693, azimuth not stratified) and the photon
-estimate from an irradiance volume handed in (below the first hit for
-'photon', at every hit for 'pm_direct').  The exact photon gather and the
-caustic grid are not ported.
+'photon'; main.cpp:642-693, azimuth not stratified), the photon estimate
+below the first hit for 'photon' and at every hit for 'pm_direct' (from
+an irradiance volume, or the exact gather of gi/grid.py from a photon
+grid), and the caustic map's exact gather at primary hits.
 
 Randomness: where rtf_tpu draws with jax.random, these functions draw
 the same shapes from a torch.Generator (shade_lanes: the soft-shadow and
@@ -40,7 +40,8 @@ import torch
 
 from rtf_tpu_torch.core.math import cross, dot, luma, normalize, \
     offset_origin
-from rtf_tpu_torch.gi.volume import sample_volume
+from rtf_tpu_torch.gi.grid import estimate_irradiance
+from rtf_tpu_torch.gi.volume import IrradianceVolume, sample_volume
 from rtf_tpu_torch.ops.texture import sample_environment
 from rtf_tpu_torch.ops.trace import resolve_surface, trace
 from rtf_tpu_torch.render.shade import (
@@ -96,13 +97,16 @@ class ShadeResult(NamedTuple):
 
 
 def shade_lanes(scene, cfg, tables, o, d, tput, absorb, pixel, alive, rtype,
-                gen, gi_vol=None) -> ShadeResult:
+                gen, gi_map=None, caustic_grid=None) -> ShadeResult:
     """Trace + locally shade one wavefront; return radiance & children.
 
     gen: the torch.Generator of the soft-shadow and glossy draws
-    (render/shade.py::draw_shadow_uniforms, draw_gloss_uniforms).  gi_vol:
-    an irradiance volume, whose kd * E(p) * max(0, -N . meanDir) is added
-    at every hit (main.cpp:694-705)."""
+    (render/shade.py::draw_shadow_uniforms, draw_gloss_uniforms).  gi_map:
+    an irradiance volume or a photon grid, whose kd * E(p) * max(0, -N .
+    meanDir) is added at every hit (main.cpp:694-705; a grid's E is the
+    exact estimate_irradiance).  caustic_grid: a caustic photon grid,
+    whose estimate (radius cfg.caustic_radius) is added at primary hits
+    (the reference's commented-out caustic term, Proj13 main.cpp:517-534)."""
     n = o.shape[0]
     # dead lanes trace from a far sentinel (rtf_tpu's mesh kernel culls
     # whole dead blocks there)
@@ -121,10 +125,20 @@ def shade_lanes(scene, cfg, tables, o, d, tput, absorb, pixel, alive, rtype,
         col = mtl.emission + direct_lighting(
             scene, cfg, surf, mtl, view,
             draw_shadow_uniforms(scene, cfg, n, gen, o.device))
-    if gi_vol is not None:
-        irrad, mean_dir = sample_volume(gi_vol, surf.p)
+    if gi_map is not None:
+        if isinstance(gi_map, IrradianceVolume):
+            irrad, mean_dir = sample_volume(gi_map, surf.p)
+        else:
+            irrad, mean_dir = estimate_irradiance(
+                gi_map, surf.p, surf.n, cfg.knn_radius, cfg.knn_k)
         theta = torch.clamp(-dot(surf.n, mean_dir), min=0.0)
         col = col + mtl.kd * irrad * theta[:, None]
+    if caustic_grid is not None:
+        crad, cdir = estimate_irradiance(caustic_grid, surf.p, surf.n,
+                                         cfg.caustic_radius, cfg.knn_k)
+        cth = torch.clamp(-dot(surf.n, cdir), min=0.0)
+        prim = (rtype == RT_PRIMARY)[:, None]
+        col = col + torch.where(prim, mtl.kd * crad * cth[:, None], 0.0)
     radiance = torch.where(hit_mask[:, None], k_eff * col, 0.0)
 
     env_ok = rtype == RT_REFRACT
@@ -204,14 +218,14 @@ def _rr_select(children: RayQueue, u: torch.Tensor) -> RayQueue:
                     alive=(wsum > 0.0) & (refl.alive | refr.alive))
 
 
-def _run_bounces_rr(scene, cfg, tables, q: RayQueue, gen, gi_vol=None,
+def _run_bounces_rr(scene, cfg, tables, q: RayQueue, gen, gi_map=None,
                     bounces=None):
     """Lane-aligned bounce loop: returns summed radiance PER LANE."""
     nb = cfg.bounces if bounces is None else bounces
     lane_rad = torch.zeros_like(q.o)
     for b in range(nb):
         res = shade_lanes(scene, cfg, tables, q.o, q.d, q.tput, q.absorb,
-                          q.pixel, q.alive, q.rtype, gen, gi_vol=gi_vol)
+                          q.pixel, q.alive, q.rtype, gen, gi_map=gi_map)
         lane_rad = lane_rad + res.radiance
         if b + 1 < nb:
             q = _rr_select(res.children, _uniform(gen, (q.capacity,), q.o))
@@ -219,14 +233,14 @@ def _run_bounces_rr(scene, cfg, tables, q: RayQueue, gen, gi_vol=None,
 
 
 def _run_bounces(scene, cfg, tables, q: RayQueue, image, gen, capacity,
-                 gi_vol=None, bounces=None):
+                 gi_map=None, bounces=None):
     """The 'both' bounce loop: splat every bounce into the frame, compact
     the children.  It compacts while b + 1 < cfg.bounces (not the loop's
     own count), as rtf_tpu does."""
     nb = cfg.bounces if bounces is None else bounces
     for b in range(nb):
         res = shade_lanes(scene, cfg, tables, q.o, q.d, q.tput, q.absorb,
-                          q.pixel, q.alive, q.rtype, gen, gi_vol=gi_vol)
+                          q.pixel, q.alive, q.rtype, gen, gi_map=gi_map)
         image = _splat(image, q.pixel, res.radiance)
         if b + 1 < cfg.bounces:
             q = _compact(res.children, capacity)
@@ -267,12 +281,14 @@ def _hemisphere_chunk(scene, cfg, res: ShadeResult, pixel, u) -> RayQueue:
 
 
 def render_wave(scene, cfg, tables, o, d, pixel, sample_mask, gen,
-                num_pixels: int, gi_vol=None, inv_pixel=None) -> WaveOutput:
+                num_pixels: int, gi_map=None, inv_pixel=None,
+                caustic_grid=None) -> WaveOutput:
     """Render one wave of primary samples through the full bounce queue.
 
     `sample_mask` disables lanes (the adaptive ladder's later rungs).
-    Radiance is the SUM over samples.  gi_vol: the photon volume of
-    gi_mode 'photon' (below the first hit) or 'pm_direct' (every hit).
+    Radiance is the SUM over samples.  gi_map: the photon volume or grid
+    of gi_mode 'photon' (below the first hit) or 'pm_direct' (every hit);
+    caustic_grid: the caustic photon grid, gathered at the primary hits.
     `inv_pixel`: when `pixel` is a permutation of arange(num_pixels), its
     inverse; the 'rr' split then runs lane-aligned, without scatters."""
     n = o.shape[0]
@@ -285,7 +301,8 @@ def render_wave(scene, cfg, tables, o, d, pixel, sample_mask, gen,
         absorb=torch.zeros((n, 3), dtype=torch.float32, device=dev),
         pixel=pixel, alive=sample_mask,
         rtype=torch.full((n,), RT_PRIMARY, dtype=torch.int32, device=dev),
-        gen=gen, gi_vol=gi_vol if cfg.gi_mode == "pm_direct" else None)
+        gen=gen, gi_map=gi_map if cfg.gi_mode == "pm_direct" else None,
+        caustic_grid=caustic_grid)
     hit = res.hit_mask & sample_mask
     z = torch.where(hit, res.hit_t, 1.0e30)
 
@@ -296,16 +313,16 @@ def render_wave(scene, cfg, tables, o, d, pixel, sample_mask, gen,
                                       _uniform(gen, (2, n), o))
             res_c = shade_lanes(scene, cfg, tables, chunk.o, chunk.d,
                                 chunk.tput, chunk.absorb, chunk.pixel,
-                                chunk.alive, chunk.rtype, gen, gi_vol=gi_vol)
+                                chunk.alive, chunk.rtype, gen, gi_map=gi_map)
             lane_rad = lane_rad + res_c.radiance
             q_c = _rr_select(res_c.children, _uniform(gen, (n,), o))
             # hemisphere samples carry bounceCount-1 (main.cpp:678)
             lane_rad = lane_rad + _run_bounces_rr(
-                scene, cfg, tables, q_c, gen, gi_vol=gi_vol,
+                scene, cfg, tables, q_c, gen, gi_map=gi_map,
                 bounces=max(cfg.bounces - 1, 0))
         q = _rr_select(res.children, _uniform(gen, (n,), o))
         lane_rad = lane_rad + _run_bounces_rr(scene, cfg, tables, q, gen,
-                                              gi_vol=gi_vol)
+                                              gi_map=gi_map)
         return WaveOutput(radiance=lane_rad[inv_pixel],
                           hit_count=hit.to(torch.int32)[inv_pixel],
                           z_min=z[inv_pixel])
@@ -321,9 +338,9 @@ def render_wave(scene, cfg, tables, o, d, pixel, sample_mask, gen,
         chunk = _hemisphere_chunk(scene, cfg, res, pixel,
                                   _uniform(gen, (2, n), o))
         image, _ = _run_bounces(scene, cfg, tables, chunk, image, gen,
-                                capacity, gi_vol=gi_vol,
+                                capacity, gi_map=gi_map,
                                 bounces=max(cfg.bounces - 1, 0))
     q = _compact(res.children, capacity)
     image, _ = _run_bounces(scene, cfg, tables, q, image, gen, capacity,
-                            gi_vol=gi_vol)
+                            gi_map=gi_map)
     return WaveOutput(radiance=image, hit_count=hit_count, z_min=z_min)

@@ -21,12 +21,17 @@ and the wavefront's draws (soft shadows, glossy normals, Russian
 roulette, hemisphere directions) and the lens from a second one on the
 device (JAX's threefry key stream is not reproduced).
 
-GI on the fused path (gi_mode 'hemisphere', 'pathtrace', or 'photon' with
-an irradiance volume passed in, and a caustic volume in any mode): each
-sample wave is render/gi.py::gi_wave, the primary launch and
-cfg.hemisphere_samples child launches (rtf_tpu/render/renderer.py's
-`gi_host` loop, without its per-dispatch chunking).  On the wavefront GI
-is render_wave's own hemisphere fan-out and volume term.
+Photon GI as rtf_tpu renders it: 'photon' and 'pm_direct' read a photon
+map, which `render` shoots itself when none is handed in
+(`prepare_photon_grid`: gi/photon.py, gi/grid.py); the irradiance volumes
+are baked from the grids where rtf_tpu bakes them (`_cached_volume`,
+gi/volume.py::build_irradiance_volume, once per grid).  GI on the fused
+path (gi_mode 'hemisphere', 'pathtrace', or 'photon' with photon_volume,
+and a caustic map in any mode): each sample wave is render/gi.py::
+gi_wave, the primary launch and cfg.hemisphere_samples child launches
+(rtf_tpu/render/renderer.py's `gi_host` loop, without its per-dispatch
+chunking).  On the wavefront GI is render_wave's own hemisphere fan-out,
+volume term or exact gather, and the caustic grid's gather.
 """
 from __future__ import annotations
 
@@ -38,7 +43,9 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.core.math import BIGFLOAT
-from rtf_tpu_torch.gi.volume import IrradianceVolume
+from rtf_tpu_torch.gi.grid import PhotonGrid, build_photon_grid
+from rtf_tpu_torch.gi.photon import shoot_photons
+from rtf_tpu_torch.gi.volume import IrradianceVolume, build_irradiance_volume
 from rtf_tpu_torch.ops.texture import sample_background
 from rtf_tpu_torch.render.camera import (
     pixel_order, primary_rays, primary_rays_ch,
@@ -64,11 +71,13 @@ class RenderResult(NamedTuple):
 
 class WaveInputs(NamedTuple):
     """What a sample wave needs besides the scene and its kernel seed: the
-    photon volume (gi_mode 'photon' or 'pm_direct'), the caustic volume
-    and the device generator of the wave's draws (the lens, the fused
-    path's hemisphere directions, the wavefront's draws)."""
-    vol: Optional[IrradianceVolume]
-    caustic: Optional[IrradianceVolume]
+    photon map (gi_mode 'photon' or 'pm_direct'; a volume, or on the
+    wavefront a grid), the caustic map (a volume on the fused path, a grid
+    on the wavefront) and the device generator of the wave's draws (the
+    lens, the fused path's hemisphere directions, the wavefront's
+    draws)."""
+    gi_map: Optional[object]
+    caustic: Optional[object]
     generator: torch.Generator
 
 
@@ -124,7 +133,8 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
         o, d = primary_rays(scene, px, py, j, halton_bases=bases,
                             lens_u=lens_u)
         out = render_wave(scene, cfg, tables, o, d, ids, mask, gi.generator,
-                          n, gi_vol=gi.vol, inv_pixel=ids)
+                          n, gi_map=gi.gi_map, inv_pixel=ids,
+                          caustic_grid=gi.caustic)
         return out.radiance.T, out.hit_count, out.z_min
     o3, d3 = primary_rays_ch(scene, px, py, j, halton_bases=bases,
                              lens_u=lens_u)
@@ -135,13 +145,13 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
         uniforms = torch.rand((cfg.hemisphere_samples, 2, n),
                               generator=gi.generator, device=mask.device)
         rad3, hitl, zl = gi_wave(cfg, tables, o3, d3, mask, seed, uniforms,
-                                 gi_vol=gi.vol, caustic_vol=gi.caustic)
+                                 gi_vol=gi.gi_map, caustic_vol=gi.caustic)
     return rad3, hitl.to(torch.int32), torch.where(hitl, zl, BIGFLOAT)
 
 
 def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
-                 order: torch.Tensor, seed: int, gi_vol=None,
-                 caustic_vol=None, wavefront: bool = False):
+                 order: torch.Tensor, seed: int, gi_map=None,
+                 caustic=None, wavefront: bool = False):
     """The adaptive ladder in lane space: (rad [3,P], hits [P], z [P],
     nsamples [P]) with lane k = pixel order[k], every sample wave a
     `wave_contrib` on the fused path or on the wavefront."""
@@ -149,7 +159,7 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
     px, py = order % scene.width, order // scene.width
     n = order.shape[0]
     gen = torch.Generator().manual_seed(int(seed))
-    gi = WaveInputs(gi_vol, caustic_vol,
+    gi = WaveInputs(gi_map, caustic,
                   torch.Generator(device=dev).manual_seed(int(seed)))
     rad = torch.zeros((3, n), dtype=torch.float32, device=dev)
     rad2 = torch.zeros_like(rad)
@@ -238,28 +248,55 @@ def _scene_on(x, dev):
     return dataclasses.replace(x, **kw)
 
 
+def _cached_volume(grid: PhotonGrid, radius, k, bounds_min, bounds_max):
+    """The grid's irradiance volume, baked once per grid and kept on it
+    (rtf_tpu/render/renderer.py::_cached_volume): a bake costs seconds and
+    must happen once per photon pass, not once per frame."""
+    key = (float(radius), int(k), tuple(bounds_min), tuple(bounds_max))
+    vol = grid.volumes.get(key)
+    if vol is None:
+        vol = grid.volumes[key] = build_irradiance_volume(
+            grid, radius, k, bounds_min, bounds_max)
+    return vol
+
+
+def _one_of(grid, vol, name):
+    if grid is not None and vol is not None:
+        raise ValueError(f"pass {name}_grid or {name}_vol, not both")
+    return vol if grid is None else grid
+
+
 def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
            device="cuda", tables: WaveTables = None,
            gi_vol: IrradianceVolume = None,
-           caustic_vol: IrradianceVolume = None) -> RenderResult:
+           caustic_vol: IrradianceVolume = None,
+           gi_grid=None, caustic_grid=None) -> RenderResult:
     """Render a built scene.  Runs on the card unless device='cpu'; the
     scene's tensors are moved to `device` as needed.  Pass `tables`
     (render/scene_tables.py) to reuse them across frames.
 
-    gi_vol: the photon irradiance volume that gi_mode 'photon' reads
-    below the first hit and 'pm_direct' (wavefront only) at every hit
-    (gi/volume.py: `load_volume`, `volume_from_arrays`); the photon pass
-    that builds one is not ported.  caustic_vol: a caustic volume, added
-    at the first hit in any GI mode on the fused path (rtf_tpu.render's
-    caustic_grid, as a volume)."""
+    gi_grid: the photon map that gi_mode 'photon' reads below the first
+    hit and 'pm_direct' (wavefront only) at every hit: a PhotonGrid
+    (`prepare_photon_grid`) or an IrradianceVolume (gi/volume.py:
+    `load_volume`, `volume_from_arrays`).  Where those modes get none,
+    `render` shoots cfg.photon_count photons itself from the seed.  With
+    cfg.photon_volume a grid is baked into a volume (once per grid);
+    without, the wavefront gathers from the grid exactly.  caustic_grid: a
+    caustic map (`prepare_caustic_grid`, or a volume), added at the first
+    hit in any GI mode: the fused path reads it as a volume (baked with
+    cfg.photon_volume), the wavefront gathers from a grid.  gi_vol and
+    caustic_vol: the same maps, as volumes."""
     dev = resolve_device(device)
-    path, why = render_path(scene, cfg, gi_vol, caustic_vol)
+    gi_grid = _one_of(gi_grid, gi_vol, "gi")
+    caustic_grid = _one_of(caustic_grid, caustic_vol, "caustic")
+    if gi_grid is not None and cfg.gi_mode not in ("photon", "pm_direct"):
+        raise ValueError(f"a photon map is read only by gi_mode 'photon' "
+                         f"and 'pm_direct', not {cfg.gi_mode!r}")
+    seed = cfg.seed if seed is None else seed
+    path, why = render_path(scene, cfg, caustic_grid)
     if path is None:
         raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
                                   f"{why}")
-    if gi_vol is not None and cfg.gi_mode not in ("photon", "pm_direct"):
-        raise ValueError(f"gi_vol is read only by gi_mode 'photon' and "
-                         f"'pm_direct', not {cfg.gi_mode!r}")
     if path == "fused":
         label = ("fused, the wave kernel's MXU-table mesh variant "
                  f"({scene.mesh.tri_a.shape[0]} faces > {MAX_FACES})"
@@ -267,8 +304,6 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     else:
         label = "XLA wavefront"
     _log_path(scene, label, why)
-    gi_vol, caustic_vol = (None if v is None else v.to(dev)
-                           for v in (gi_vol, caustic_vol))
     if (float(cfg.isect_zero), bool(cfg.ref_exact),
             bool(cfg.sphere_minroot)) != (float(scene.isect_zero),
                                           bool(scene.ref_exact),
@@ -279,17 +314,62 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
             scene, isect_zero=float(cfg.isect_zero),
             ref_exact=bool(cfg.ref_exact),
             sphere_minroot=bool(cfg.sphere_minroot))
-    if path == "wavefront" and scene.device != dev:
+    if scene.device != dev:
         scene = _scene_on(scene, dev)
     if tables is None:
         tables = scene_tables(scene, dev)
     elif tables.device != dev:
         raise ValueError(f"tables live on {tables.device}, not {dev}")
+    if cfg.gi_mode in ("photon", "pm_direct") and gi_grid is None:
+        gi_grid = prepare_photon_grid(scene, cfg, seed, tables=tables)
+
+    def volume(m, radius):
+        if m is None or isinstance(m, IrradianceVolume):
+            return None if m is None else m.to(dev)
+        return _cached_volume(m, radius, cfg.knn_k, scene.world_min,
+                              scene.world_max)
+    gi_map = gi_grid
+    if cfg.photon_volume or isinstance(gi_grid, IrradianceVolume):
+        gi_map = volume(gi_grid, cfg.knn_radius)
+    # the caustic volume only where the fused path reads it (the wavefront
+    # gathers from the caustic grid)
+    caustic = volume(caustic_grid, cfg.caustic_radius) \
+        if path == "fused" else caustic_grid
     order = torch.as_tensor(pixel_order(scene.width, scene.height),
                             device=dev).to(torch.int64)
-    rad, hits, z, ns = render_lanes(scene, cfg, tables, order,
-                                    cfg.seed if seed is None else seed,
-                                    gi_vol, caustic_vol,
+    rad, hits, z, ns = render_lanes(scene, cfg, tables, order, seed,
+                                    gi_map, caustic,
                                     wavefront=path == "wavefront")
     rad, hits, z, ns = lanes_to_pixels(rad, hits, z, ns, order)
     return finalize(scene, cfg, tables, rad, hits, z, ns)
+
+
+def _pass_generator(scene, seed, stream: int) -> torch.Generator:
+    """The device generator of a photon pass: the render seed and the
+    pass's stream (rtf_tpu folds 999 and 998 into its key) mixed by
+    numpy's SeedSequence."""
+    s = int(np.random.SeedSequence([int(seed), stream]).generate_state(1)[0])
+    return torch.Generator(device=scene.device).manual_seed(s)
+
+
+def prepare_photon_grid(scene: Scene, cfg: RenderConfig, seed: int,
+                        tables: WaveTables = None) -> PhotonGrid:
+    """Photon pass: shoot cfg.photon_count photons on the scene's device and
+    build their grid at cfg.knn_radius (generatePhotonMap,
+    main.cpp:350-437)."""
+    pm = shoot_photons(scene, cfg, cfg.photon_count, cfg.photon_count,
+                       _pass_generator(scene, seed, 999), tables=tables)
+    return build_photon_grid(pm, cfg.knn_radius, scene.world_min,
+                             scene.world_max)
+
+
+def prepare_caustic_grid(scene: Scene, cfg: RenderConfig, seed: int,
+                         tables: WaveTables = None) -> PhotonGrid:
+    """Caustic photon pass: cfg.caustic_count photons, stored only after
+    >= 2 specular segments (CausticTracing, Proj13 main.cpp:430-457), in a
+    grid at cfg.caustic_radius."""
+    pm = shoot_photons(scene, cfg, cfg.caustic_count, cfg.caustic_count,
+                       _pass_generator(scene, seed, 998), caustic_only=True,
+                       tables=tables)
+    return build_photon_grid(pm, cfg.caustic_radius, scene.world_min,
+                             scene.world_max)

@@ -70,6 +70,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rtf_tpu_torch.gi.volume import IrradianceVolume
 from rtf_tpu_torch.ops.mxu_pack import (  # noqa: F401 (TILE_PAD)
     MXU_TILE, NODE_W, TILE_PAD, mesh_mxu_pack, packed_hierarchy,
     walk_tables)
@@ -94,33 +95,19 @@ GI_MODES = ("none", "hemisphere", "pathtrace", "photon")
 WAVEFRONT_GI_MODES = GI_MODES + ("pm_direct",)
 
 
-def _photon_reason(cfg, gi_vol):
-    if cfg.gi_mode in ("photon", "pm_direct"):
-        if not cfg.photon_volume:
-            return ("photon_volume=False (the exact photon gather needs the "
-                    "photon pipeline, which is not ported)")
-        if gi_vol is None:
-            return (f"gi_mode={cfg.gi_mode!r} without an irradiance volume "
-                    "(pass gi_vol; the photon pass that builds one is not "
-                    "ported)")
-    return None
-
-
-def fused_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
+def fused_reason(scene: Scene, cfg, caustic=None):
     """None if rtf_tpu's fused kernel renders the scene+config on a TPU,
     else why not: the gates of rtf_tpu/render/fused.py::fuse_reason and
     fused_seg.py::seg_reason, in their order (the kernel's textured
-    variant is the segmented path's).  'photon' and caustics run only from
-    irradiance volumes handed in.  The port's wave kernel (render/wave.py)
-    takes all of these, a mesh over MAX_FACES faces on its MXU variant."""
+    variant is the segmented path's), then renderer.py's caustic rule: a
+    caustic map (grid or volume) goes to the fused path only as a volume,
+    which rtf_tpu builds only with photon_volume.  The port's wave kernel
+    (render/wave.py) takes all of these, a mesh over MAX_FACES faces on
+    its MXU variant."""
     if cfg.gi_mode == "photon" and not cfg.photon_volume:
         return "gi_mode=photon without photon_volume (exact kNN is XLA)"
     if cfg.gi_mode not in GI_MODES:
         return f"gi_mode={cfg.gi_mode!r} not kernelized"
-    if caustic_vol is not None and not cfg.photon_volume:
-        return ("a caustic volume with photon_volume=False (the exact "
-                "photon gather needs the photon pipeline, which is not "
-                "ported)")
     if cfg.resolved_split_mode() != "rr":
         return "split_mode='both' (exact Fresnel split is XLA-only)"
     if cfg.tex_filter:
@@ -137,14 +124,16 @@ def fused_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     nm = mt.diffuse.shape[0]
     if nm > MAX_MATERIALS:
         return f"{nm} materials > {MAX_MATERIALS}"
-    return _photon_reason(cfg, gi_vol)
+    if caustic is not None and not cfg.photon_volume:
+        return "caustic grid present but no caustic volume built"
+    return None
 
 
 def _num_faces(scene: Scene) -> int:
     return 0 if scene.mesh is None else scene.mesh.tri_a.shape[0]
 
 
-def wavefront_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
+def wavefront_reason(scene: Scene, cfg, caustic=None):
     """None if the XLA wavefront's port (render/integrator.py) renders the
     scene+config, else why not."""
     if cfg.gi_mode not in WAVEFRONT_GI_MODES:
@@ -152,14 +141,15 @@ def wavefront_reason(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
     if cfg.tex_filter:
         return ("tex_filter (footprint_duv and sample_texmap_filtered are "
                 "not ported)")
-    if caustic_vol is not None:
+    if isinstance(caustic, IrradianceVolume):
         return ("a caustic volume on the wavefront (its caustic term is "
-                "the exact photon gather, which is not ported)")
+                "the exact photon gather from a caustic grid, as in "
+                "rtf_tpu)")
     if scene.mesh is not None and scene.num_mesh_inst > 0 \
             and scene.mesh_algo not in MESH_ALGOS:
         return (f"mesh_algo={scene.mesh_algo!r} (the port runs "
                 f"{', '.join(MESH_ALGOS)}; bvh_traverse is not ported)")
-    return _photon_reason(cfg, gi_vol)
+    return None
 
 
 def mesh_mode(scene: Scene) -> str:
@@ -170,15 +160,16 @@ def mesh_mode(scene: Scene) -> str:
     return "imm" if _num_faces(scene) <= MAX_FACES else "mxu"
 
 
-def render_path(scene: Scene, cfg, gi_vol=None, caustic_vol=None):
-    """The path rtf_tpu takes on a TPU (renderer.py:447-480) as (path,
+def render_path(scene: Scene, cfg, caustic=None):
+    """The path rtf_tpu takes on a TPU (renderer.py:433-480) as (path,
     why): ('fused', None) where the wave kernel runs it (a mesh over
     MAX_FACES faces on its MXU variant), else ('wavefront', the fused
-    path's reason), or (None, why neither runs it)."""
-    why = fused_reason(scene, cfg, gi_vol, caustic_vol)
+    path's reason), or (None, why neither runs it).  caustic: the caustic
+    map handed to `render`, a PhotonGrid or an IrradianceVolume."""
+    why = fused_reason(scene, cfg, caustic)
     if why is None:
         return "fused", None
-    wf = wavefront_reason(scene, cfg, gi_vol, caustic_vol)
+    wf = wavefront_reason(scene, cfg, caustic)
     if wf is None:
         return "wavefront", why
     return None, f"fused: {why}; wavefront: {wf}"

@@ -299,15 +299,18 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("case", [
-    "gi", "tex_filter", "tex_filter_wavefront", "caustic_wavefront",
-    "photon_no_volume", "bvh"])
+    "tex_filter", "tex_filter_wavefront", "caustic_wavefront", "bvh"])
 def test_unsupported_scenes_raise(case):
     """What neither path of the port renders yet.  The cases this test
     had before the wavefront was ported (the 'both' split, DOF, more than
     2 lights, more than 16 materials, emission texture maps) render now
     (test_torch_wavefront_render.py::test_formerly_refused_scenes_render),
     and so do its large-mesh cases since the MXU variant was ported
-    (test_large_mesh_scenes_render)."""
+    (test_large_mesh_scenes_render) and its photon cases since the photon
+    pass was ported (test_torch_photon_render.py::
+    test_formerly_refused_photon_scenes_render).  A caustic volume on the
+    wavefront stays refused: rtf_tpu's wavefront gathers caustics only
+    from a photon grid."""
     import dataclasses
 
     from rtf_tpu_torch.gi.volume import load_volume
@@ -321,17 +324,13 @@ def test_unsupported_scenes_raise(case):
                        shadow_min=1, shadow_max=1)
     both = cfg.with_(split_mode="both")
     kw, match = {}, None
-    if case == "gi":               # pm_direct needs a volume
-        cfg, match = cfg.with_(gi_mode="pm_direct"), "irradiance volume"
-    elif case == "tex_filter":
+    if case == "tex_filter":
         cfg, match = cfg.with_(tex_filter=True), "tex_filter"
     elif case == "tex_filter_wavefront":
         cfg, match = both.with_(tex_filter=True), "footprint_duv"
     elif case == "caustic_wavefront":
         cfg, match = both, "caustic volume on the wavefront"
         kw = dict(caustic_vol=load_volume(VOLUME, device="cpu"))
-    elif case == "photon_no_volume":
-        cfg, match = both.with_(gi_mode="photon"), "photon pass"
     else:                          # bvh_traverse is not ported
         cfg, match = both, "bvh"
     scene = build_scene(desc, device="cpu")

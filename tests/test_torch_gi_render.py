@@ -5,7 +5,9 @@ within test_fused.py:153's 8% band (the RNG streams differ); photon and
 caustic volumes add light on top of the same waves; the GI configurations
 neither path of the port renders are refused with NotImplementedError (GI
 on the 'both' split and with a lens render now:
-test_torch_wavefront_gi.py, test_torch_wavefront_render.py)."""
+test_torch_wavefront_gi.py, test_torch_wavefront_render.py; photon GI
+without a volume and with photon_volume=False since the photon pass was
+ported: test_torch_photon_render.py)."""
 import numpy as np
 import pytest
 
@@ -69,9 +71,10 @@ def test_render_photon_and_caustic_volumes_add_light():
 
 
 @pytest.mark.parametrize("case", [
-    "photon_no_volume", "photon_volume_false", "caustic_volume_false",
-    "pm_direct", "caustic_both_split", "pm_direct_volume_false"])
+    "caustic_volume_false", "caustic_both_split"])
 def test_gi_refusals_raise(case):
+    """A caustic volume where only the wavefront can run: its caustic term
+    is the exact gather from a caustic grid, as in rtf_tpu."""
     from rtf_tpu_torch.gi.volume import load_volume
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
@@ -80,25 +83,12 @@ def test_gi_refusals_raise(case):
     vol = load_volume(VOLUME, device="cpu")
     cfg = RenderConfig(gi_mode="hemisphere", **KW)
     desc = box_scene(8, 6, mesh_subdiv=0)
-    kw = {}
-    if case == "photon_no_volume":
-        cfg, match = cfg.with_(gi_mode="photon"), "photon pass"
-    elif case == "photon_volume_false":
-        cfg, match = cfg.with_(gi_mode="photon", photon_volume=False), \
-            "photon pipeline"
-        kw = dict(gi_vol=vol)
-    elif case == "caustic_volume_false":
-        cfg, match = cfg.with_(photon_volume=False), "photon pipeline"
-        kw = dict(caustic_vol=vol)
-    elif case == "pm_direct":
-        cfg, match = cfg.with_(gi_mode="pm_direct"), "pm_direct"
-    elif case == "caustic_both_split":      # the wavefront's is the gather
-        cfg, match = cfg.with_(split_mode="both"), "caustic volume"
-        kw = dict(caustic_vol=vol)
-    else:
-        cfg, match = cfg.with_(gi_mode="pm_direct", photon_volume=False), \
-            "photon pipeline"
-        kw = dict(gi_vol=vol)
+    if case == "caustic_volume_false":     # no caustic volume is read
+        cfg = cfg.with_(photon_volume=False)
+    else:                                  # the wavefront's is the gather
+        cfg = cfg.with_(split_mode="both")
+    kw = dict(caustic_vol=vol)
     scene = build_scene(desc, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError,
+                       match="caustic volume on the wavefront"):
         render(scene, cfg, device="cpu", **kw)

@@ -751,3 +751,83 @@ def test_no_mesh_algo_runs_the_plain_version_on_the_card(cuda_dev,
     torch.cuda.synchronize()
     assert M.launches - before == 2
     assert bool(hit.is_hit.any()) and lit.shape == (o.shape[0],)
+
+
+def _plain_rays(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
+    """mesh_closest_hit's plain version in mesh_closest_hit_rays' place."""
+    from rtf_tpu_torch.ops import mesh_hit as M
+    rays8, _ = M.pack_rays(lo, ld, t_init)
+    return tuple(x[:lo.shape[0]] for x in M.mesh_closest_hit_plain(
+        rays8, tris, aabb, face0))
+
+
+@pytest.mark.cuda
+def test_photon_chunk_kernel_matches_plain(cuda_dev, monkeypatch):
+    """One chunk of 131,072 global photons on the textured box (the
+    320-face ball), shot twice from one generator seed: with
+    mesh_closest_hit (photon_bounces + 1 launches) and with its plain
+    version in the kernel's place (no launch).  The maps (count, pos, dir,
+    power), their grids and the volumes baked from them are equal bit for
+    bit."""
+    from rtf_tpu_torch.gi.grid import build_photon_grid
+    from rtf_tpu_torch.gi.photon import shoot_photons
+    from rtf_tpu_torch.gi.volume import build_irradiance_volume
+    from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.scene.build import build_scene
+    scene = build_scene(textured_desc(64, 48, mesh_subdiv=2),
+                        device=cuda_dev)
+    tables = scene_tables(scene)
+    cfg = RenderConfig()
+
+    def shoot():
+        pm = shoot_photons(scene, cfg, 131072, 131072 * cfg.photon_bounces,
+                           torch.Generator(cuda_dev).manual_seed(3),
+                           tables=tables)
+        grid = build_photon_grid(pm, cfg.knn_radius, scene.world_min,
+                                 scene.world_max)
+        return pm, grid, build_irradiance_volume(
+            grid, cfg.knn_radius, cfg.knn_k, scene.world_min,
+            scene.world_max)
+    before = M.launches
+    kern = shoot()
+    assert M.launches - before == cfg.photon_bounces + 1
+    monkeypatch.setattr(M, "mesh_closest_hit_rays", _plain_rays)
+    plain = shoot()
+    assert M.launches - before == cfg.photon_bounces + 1
+    assert 50000 < int(kern[0].count) < 131072 * cfg.photon_bounces
+    for a, b in zip(kern[0], plain[0]):
+        assert torch.equal(a, b)
+    for k in ("pos", "cell_start", "cell_count"):
+        assert torch.equal(getattr(kern[1], k), getattr(plain[1], k))
+    assert torch.equal(kern[2].table, plain[2].table)
+    assert bool(torch.isfinite(kern[2].table).all())
+
+
+@pytest.mark.cuda
+def test_render_shoots_photons_with_the_kernel(cuda_dev):
+    """`render` with photon GI and no map on the card: its photon pass
+    launches mesh_closest_hit once per trace (one chunk, photon_bounces +
+    1 traces), the frame the wave kernel's GI launches, and the frame is
+    the same bit for bit when rendered twice."""
+    import numpy as np
+
+    from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.scene.build import build_scene
+    scene = build_scene(textured_desc(64, 48, mesh_subdiv=2),
+                        device=cuda_dev)
+    cfg = RenderConfig(min_samples=2, max_samples=2, bounces=2,
+                       shadow_min=1, shadow_max=1, split_mode="rr",
+                       gi_mode="photon", hemisphere_samples=2,
+                       photon_count=50000)
+    m0, w0 = M.launches, W.launches_textured
+    a = render(scene, cfg, seed=4, device=cuda_dev)
+    assert M.launches - m0 == cfg.photon_bounces + 1
+    assert W.launches_textured - w0 == 2 * (1 + 2)
+    b = render(scene, cfg, seed=4, device=cuda_dev)
+    assert np.array_equal(a.radiance, b.radiance)
+    assert np.isfinite(a.radiance).all() and a.image.mean() > 5.0

@@ -1,0 +1,23 @@
+"""Photon GI with photon_volume=False in the mean only (the hemisphere
+draws differ), on test_torch_photon_render.py's carried photon and
+caustic grids, within test_torch_gi_render.py's 8% band: the exact gather
+below the first hit and the caustic grid's at primary hits, on the port's
+wavefront against rtf_tpu's."""
+import pytest
+
+jax = pytest.importorskip("jax")
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+from test_torch_common import one_torch_thread  # noqa: E402,F401
+from test_torch_photon_render import HEMI, _renders, maps  # noqa: E402,F401
+
+
+def test_photon_exact_matches_jax_mean(maps):
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.scene_tables import render_path
+    kw = dict(HEMI, gi_mode="photon", split_mode="rr", photon_volume=False)
+    assert render_path(maps[1], RenderConfig(**kw), maps[3][1])[0] \
+        == "wavefront"
+    got, want = _renders(maps, **kw)
+    mean_p, mean_r = got.radiance.mean(), want.radiance.mean()
+    assert abs(mean_p - mean_r) / mean_r < 0.08, (mean_p, mean_r)

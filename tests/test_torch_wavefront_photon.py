@@ -31,7 +31,7 @@ def test_photon_profile_renders_on_cpu(profile):
     from rtf_tpu_torch.render.scene_tables import render_path
     cfg = PROFILES[profile]
     scene, vol, res = _render(cfg)
-    assert render_path(scene, cfg, gi_vol=vol)[0] == "wavefront"
+    assert render_path(scene, cfg)[0] == "wavefront"
     assert np.isfinite(res.radiance).all() and res.image.mean() > 5.0
     assert set(np.unique(res.sample_count)) <= {4, 8}
 
@@ -42,7 +42,7 @@ def test_pm_direct_lights_from_the_volume():
     cfg = RenderConfig(min_samples=4, max_samples=4, bounces=1,
                        gi_mode="pm_direct", shadow_min=1, shadow_max=1)
     scene, vol, res = _render(cfg)
-    path, why = render_path(scene, cfg, gi_vol=vol)
+    path, why = render_path(scene, cfg)
     assert path == "wavefront" and "pm_direct" in why
     assert np.isfinite(res.radiance).all()
     # no light loop: the box's lit surfaces are the volume's alone
