@@ -125,12 +125,33 @@ those phases only (for iterating on one path):
             4 hemisphere samples) against the plain wave (exact), and the
             exact-gather wavefront frame at 160x120 (photon_volume=False,
             the caustic grid at primary hits): finite, lit, the time of
-            estimate_irradiance a call and of _gather_pass alone.
+            estimate_irradiance a call and of _gather_pass alone;
+11. cli     the port's command line as a user runs it on phase 10's scene
+            files at 800x600, each call a fresh `python -m
+            rtf_tpu_torch.cli` process with a timeout of its own: `render
+            --profile proj11 --gi-cache --zbuffer --samplecount`, `render
+            --profile final --caustics --photon-dump --spp 8` and `watch
+            --spp 4 --resume --state` one at a time, then `photons --count
+            1000000`, `preview`, `probe --pixel 400,300` and `view` in its
+            three modes on watch's state at once, then `viz` on the .dat;
+            each exit code, wall time and "Render time" line, every PNG
+            read back (800x600, not constant; watch's sample-count view is
+            constant, every pixel having 4 samples), each .dat reloaded
+            with its count; then the irradiance cache in-process (proj11):
+            the counted render_with_cache (the fused evaluator's textured
+            GI launches, 20 a level, and mesh_closest_hit's first-hit and
+            direct-pass launches), the build and the cached frame (best of
+            3 after a warm-up, synchronised host clock), one profiled
+            build, the evaluator's child launch at each level's shape
+            (events, plain, bound), and, bit for bit, the evaluator at
+            every level (20 hemisphere samples) against gi_chunks on
+            the plain wave, `_first_hits` against the plain mesh test and
+            a 160x120 render_with_cache against the plain wave.
 
 Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
 atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
 difference may flip a Russian-roulette choice, so at most 1% of lanes may
-lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-10
+lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-11
 hold every kernel to its plain version bit for bit (max abs error 0.0),
 the GI rows included.  Dead lanes give exactly zero radiance and no hit.
 
@@ -142,7 +163,7 @@ every row is finite and the query weight is zero on dead lanes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
 build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu,
-photons}.png.
+photons}.png, phase 11's files to build/cli/.
 """
 import json
 import os
@@ -587,7 +608,7 @@ def write_photon_scene(directory, w, h, seed=0):
 
 def main(argv):
     # no arguments: every phase; phase numbers: the build and those only
-    phases = {int(a) for a in argv} or set(range(1, 11))
+    phases = {int(a) for a in argv} or set(range(1, 12))
     try:
         import torch
     except ImportError:
@@ -1926,6 +1947,347 @@ def main(argv):
                               "gather_pass_candidates": total},
              "gain": float(gain), **common}]
 
+    def drive_cli():
+        """Phase 11: the port's command line as a user runs it, each call a
+        fresh `python -m rtf_tpu_torch.cli` process at 800x600 on phase
+        10's scene-file set; then the irradiance cache in-process: the
+        counted main run of render_with_cache (proj11), its build and the
+        cached frame timed, the evaluator's launches per level (events,
+        plain, bound), one profiled build, and the kernels against their
+        plain versions: the evaluator at every level, the first hits on
+        mesh_closest_hit, a 160x120 cached frame (exact)."""
+        import re
+
+        from rtf_tpu_torch.gi import irradiance_cache as IC_
+        from rtf_tpu_torch.gi.io import load_photon_dat
+        from rtf_tpu_torch.render.config import PROFILES
+        from rtf_tpu_torch.render.scene_tables import fused_reason
+        from rtf_tpu_torch.scene.xml_loader import load_scene
+        from rtf_tpu_torch.utils.png import read_png
+        t_phase = time.perf_counter()
+
+        def stamp(what):
+            print(f"[cli] {time.perf_counter() - t_phase:.1f} s: {what}",
+                  flush=True)
+
+        xml = ROOT / "build" / "photon_scene" / "box.xml"
+        if not xml.exists():
+            write_photon_scene(xml.parent, W, H)
+        out = ROOT / "build" / "cli"
+        out.mkdir(parents=True, exist_ok=True)
+        for f in out.iterdir():         # watch --resume starts fresh
+            f.unlink()
+        calls = {}
+
+        def text_of(x):
+            return x.decode() if isinstance(x, bytes) else (x or "")
+
+        def cli(*jobs, timeout=600):
+            """CLI calls, each (tag, argv) in its own process, all started
+            at once; fails the phase on a nonzero exit (printing the call's
+            output) or past the timeout.  Returns their standard outputs."""
+            procs = []
+            for tag, argv in jobs:
+                argv = [str(x) for x in argv]
+                procs.append((tag, argv, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "rtf_tpu_torch.cli", *argv],
+                    cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)))
+            texts = []
+            try:
+                for tag, argv, t0, proc in procs:
+                    left = max(timeout - (time.perf_counter() - t0), 1.0)
+                    try:
+                        so, se = proc.communicate(timeout=left)
+                    except subprocess.TimeoutExpired:
+                        fail(f"cli {tag}: no exit within {timeout} s")
+                    dt = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        print(so + se, flush=True)
+                        fail(f"cli {tag}: exit code {proc.returncode}")
+                    times = re.findall(r"Render time is \d+:\d\d:\d\d",
+                                       so)
+                    calls[tag] = dict(argv=argv, wall_s=dt,
+                                      together_with=len(jobs) - 1,
+                                      render_time=times[-1] if times
+                                      else None)
+                    print(f"[cli] {tag}: exit 0, {dt:.1f} s wall"
+                          + (f" (with {len(jobs) - 1} other calls at once)"
+                             if len(jobs) > 1 else "")
+                          + (f"; {times[-1]}" if times else ""), flush=True)
+                    texts.append(so)
+            finally:
+                for _, _, _, proc in procs:       # stop what still runs
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            return texts
+
+        def png(name, constant=False):
+            img = read_png(str(out / name))
+            check(img.shape[:2] == (H, W), f"cli: {name} is {img.shape}")
+            check((float(img.std()) == 0.0) == constant,
+                  f"cli: {name} is {'not ' if constant else ''}constant")
+
+        # ---- the seven subcommands, each in its own process: the three
+        # renders one at a time (their wall times are theirs alone), then
+        # the short calls at once
+        (text,) = cli(("render --profile proj11 --gi-cache", [
+            "render", xml, "--profile", "proj11", "--gi-cache", "--zbuffer",
+            out / "cache_z.png", "--samplecount", out / "cache_sc.png",
+            "--out", out / "cache.png"]))
+        check("of pixels traced, rest interpolated" in text,
+              "cli: no irradiance-cache line")
+        for name in ("cache.png", "cache_z.png", "cache_sc.png"):
+            png(name)
+        (text,) = cli(("render --profile final --caustics", [
+            "render", xml, "--profile", "final", "--caustics",
+            "--photon-dump", out / "final.dat", "--spp", "8", "--out",
+            out / "final.png"]))
+        dumped = int(re.search(r"photon pass: (\d+) photons",
+                               text).group(1))
+        check(len(load_photon_dat(str(out / "final.dat"))[0]) == dumped > 0,
+              "cli: the photon dump does not reload with its count")
+        png("final.png")
+        state = out / "watch.npz"
+        (text,) = cli(("watch --spp 4", [
+            "watch", xml, "--spp", "4", "--resume", "--state", state,
+            "--out", out / "watch.png"]))
+        st = np.load(state)
+        check(int(st["done"]) == 4 and int(st["pass_ix"]) == 3
+              and re.findall(r"\[(\d)/4 spp\]", text) == ["1", "3", "4"],
+              "cli: watch did not make passes of 1, 2 and 1 spp")
+        png("watch.png")
+        texts = cli(
+            ("photons --count 1000000", ["photons", xml, "--count",
+                                         "1000000", "--out",
+                                         out / "pm.dat"]),
+            ("preview", ["preview", xml, "--out", out / "preview.png"]),
+            ("probe --pixel 400,300", ["probe", xml, "--pixel", "400,300"]),
+            *((f"view --mode {m}", ["view", xml, state, "--mode", m,
+                                    "--out", out / f"view_{m}.png"])
+              for m in ("image", "z", "samplecount")))
+        stored = int(re.search(r"stored (\d+) photons", texts[0]).group(1))
+        check(len(load_photon_dat(str(out / "pm.dat"))[0]) == stored > 0,
+              "cli: pm.dat does not reload with its stored count")
+        png("preview.png")
+        check("pixel (400, 300):" in texts[2] and "samples: 1" in texts[2],
+              "cli: probe printed no pixel")
+        for m in ("image", "z", "samplecount"):
+            # every pixel of a watch pass takes the pass's samples, so the
+            # sample-count view of a watch state is constant
+            png(f"view_{m}.png", constant=m == "samplecount")
+        cli(("viz", ["viz", out / "pm.dat", "--out", out / "viz.png"]))
+        png("viz.png")
+        stamp(f"{len(calls)} CLI calls")
+
+        # ---- the cache in-process: the counted main run
+        scene = build_scene(load_scene(str(xml)), device=dev)
+        tables = scene_tables(scene)
+        ccfg = PROFILES["proj11"]
+        hemi = ccfg.hemisphere_samples
+        check(render_path(scene, ccfg.with_(gi_mode="none"))[0]
+              == "wavefront" and tables.textured and fused_reason(
+                  scene, ccfg.with_(gi_mode="none", split_mode="rr")) is None,
+              "cli: proj11's direct pass takes the wavefront, the "
+              "evaluator the textured GI variant")
+        lights = sum(1 for k in scene.light_kinds if k != "ambient")
+        mesh_expected = scene.num_mesh_inst * (
+            1 + R_._phase_bounds(ccfg)[-1] * (1 + ccfg.bounces)
+            * (1 + lights))
+        levels, first_hits = [], {}
+        fused_fn, mesh_fn = IC_._eval_irradiance_fused, \
+            M_.mesh_closest_hit_rays
+
+        def zero_counts():
+            M_.launches = X_.launches = 0
+            for c in counters:
+                setattr(W_, c, 0)
+            torch.cuda.synchronize()
+
+        def spy(scene_, cfg_, tables_, p, n, mask, draws, level,
+                wave_fn=None):
+            levels.append(dict(level=level, lanes=p.shape[0],
+                               traced=int(mask.sum()), inputs=(p, n, mask),
+                               grid=len(IC_._grid_points(
+                                   W, H, 16 >> level)[0])))
+            return fused_fn(scene_, cfg_, tables_, p, n, mask, draws, level,
+                            wave_fn)
+
+        def capture(*a, **k):
+            first_hits.setdefault("call", (a, k))
+            return mesh_fn(*a, **k)
+        zero_counts()
+        IC_._eval_irradiance_fused, M_.mesh_closest_hit_rays = spy, capture
+        try:
+            t0 = time.perf_counter()
+            res, cache = IC_.render_with_cache(scene, ccfg, 1, device=dev,
+                                               tables=tables)
+            first_s = time.perf_counter() - t0
+        finally:
+            IC_._eval_irradiance_fused, M_.mesh_closest_hit_rays = \
+                fused_fn, mesh_fn
+        counts = mesh_counts()
+        wave_expected = hemi * len(levels)
+        check(counts["launches_textured"] == wave_expected > 0
+              and counts["mesh_closest_hit"] == mesh_expected
+              and sum(counts.values()) == wave_expected + mesh_expected,
+              f"cli: launches {counts}, expected {wave_expected} of "
+              f"launches_textured and {mesh_expected} of mesh_closest_hit")
+        share = float(cache.computed.float().mean())
+        check(np.isfinite(res.radiance).all() and res.image.mean() > 5.0
+              and 0.0 < share < 0.6, "cli: the cached frame")
+        print(f"[cli] render_with_cache {W}x{H} proj11 (first run): "
+              f"{first_s:.3f} s; launches {counts}; points traced per level "
+              + ", ".join(f"{x['level']}: {x['traced']} of {x['grid']}"
+                          for x in levels)
+              + f"; {share:.4f} of pixels traced", flush=True)
+
+        def synced(fn):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0_
+
+        def build(seed):
+            return IC_.build_irradiance_cache(scene, ccfg, seed, device=dev,
+                                              tables=tables)
+
+        def cached(seed):
+            return IC_.render_with_cache(scene, ccfg, seed, device=dev,
+                                         tables=tables)
+        synced(lambda: build(2))                         # warm-up
+        build_s = min(synced(lambda: build(3 + r)) for r in range(3))
+        synced(lambda: cached(2))
+        cached_s = min(synced(lambda: cached(3 + r)) for r in range(3))
+        busy_us, build_prof_ms, _ = profile_frame(
+            "cli cache build", build_s, lambda: build(9))
+        # the profiler over a cached frame's ~10^5 small wavefront ops
+        # costs more than the frame: the mesh kernel's own time from five
+        # first-hit traces instead
+        mesh_prof_ms = profiled_ms(lambda: IC_._first_hits(scene, tables),
+                                   key="mesh_hit_kernel")
+        stamp(f"build_irradiance_cache best of 3 {build_s:.4f} s, "
+              f"render_with_cache {cached_s:.4f} s (synchronised host "
+              f"clock); device busy {busy_us / 1e6 / build_s:.4f} of a "
+              f"build; mesh_closest_hit on the first hits {mesh_prof_ms} ms "
+              "(profiler)")
+
+        # ---- the evaluator's child launch at each level's shape
+        cfg_s = ccfg.with_(hemisphere_samples=hemi)
+        gen11 = torch.Generator(device=dev).manual_seed(11)
+        per_level = []
+        for x in levels:
+            p, n, mask = x["inputs"]
+            one = torch.ones(p.shape[0], device=dev)
+            surf = torch.stack([p[:, 0], p[:, 1], p[:, 2], n[:, 0], n[:, 1],
+                                n[:, 2], one, one, one, one, one, one])
+            u = torch.rand((2, p.shape[0]), generator=gen11, device=dev)
+            args, ckw = child_wave_args(cfg_s, surf, mask, mask, 11, 0,
+                                        u[0], u[1])
+
+            def child(fn=W_.wave, _a=args, _k=ckw, **kw):
+                return fn(cfg_s, tables, *_a, **_k, **kw)
+            nl = p.shape[0]
+            rows_out = W_.out_rows(ckw["bounces"] + 1, False, None)
+            ms = events_ms(child)
+            pms = host_ms(lambda: child(W_.wave_plain), 1)
+            st_, _ = work(child, nl)
+            bd = bound(tables, st_, nl, 14, rows_out)
+            per_level.append(dict(level=x["level"], lanes=nl,
+                                  traced=x["traced"], ms=ms, plain_ms=pms,
+                                  work=st_, **bd))
+            print(f"[cli] evaluator child launch, level {x['level']} "
+                  f"({nl} lanes): {ms:.4f} ms (mean of 20, CUDA events), "
+                  f"plain {pms:.2f} ms; {bd['flops']:.4e} FP32 ops, "
+                  f"{bd['bytes']} bytes; bound {bd['bound_ms']:.5f} ms "
+                  f"({bd['bound_by']})", flush=True)
+
+        # ---- the kernels against their plain versions, bit for bit
+        errs = []
+        for x in levels:
+            p, n, mask = x["inputs"]
+            e = [IC_._eval_irradiance_fused(
+                scene, ccfg, tables, p, n, mask,
+                IC_.CacheDraws(torch.Generator(device=dev).manual_seed(5)),
+                x["level"], wave_fn=fn) for fn in (None, W_.wave_plain)]
+            errs.append(float((e[0] - e[1]).abs().max()))
+            print(f"[cli] evaluator, level {x['level']} ({p.shape[0]} "
+                  f"lanes, {hemi} hemisphere samples), kernel vs plain: "
+                  f"max_abs_err={errs[-1]:.3e}", flush=True)
+        a, k = first_hits["call"]
+        kern = IC_._first_hits(scene, tables)
+        M_.mesh_closest_hit_rays = plain_fn
+        try:
+            plain = IC_._first_hits(scene, tables)
+        finally:
+            M_.mesh_closest_hit_rays = mesh_fn
+        mesh_err = max(float((x.float() - y.float()).abs().max())
+                       for x, y in zip(kern, plain))
+        print(f"[cli] _first_hits ({W * H} rays), mesh_closest_hit vs its "
+              f"plain version: max_abs_err={mesh_err:.3e}", flush=True)
+        mesh_fig = mesh_launch_figures("cli", "first hits", scene, a, k)
+        small_desc = load_scene(str(xml))
+        small_desc.camera.width, small_desc.camera.height = SMALL
+        small = build_scene(small_desc, device=dev)
+        stab = scene_tables(small)
+        setattr(W_, "launches_textured", 0)
+        fk, ck = IC_.render_with_cache(small, ccfg, 5, device=dev,
+                                       tables=stab)
+        check(W_.launches_textured > 0, "cli: the small cached frame ran "
+              "no wave kernel")
+        setattr(W_, "launches_textured", 0)
+        kernel_wave = IC_.wave
+        IC_.wave = (lambda cfg_, tables_, *a_, stats=None, **k_:
+                    W_.wave_plain(cfg_, tables_, *a_, **k_))
+        try:
+            fp, cp = IC_.render_with_cache(small, ccfg, 5, device=dev,
+                                           tables=stab)
+        finally:
+            IC_.wave = kernel_wave
+        check(W_.launches_textured == 0, "cli: the plain cached frame "
+              "launched the kernel")
+        small_err = max(float(np.abs(fk.radiance - fp.radiance).max()),
+                        float((ck.E - cp.E).abs().max()))
+        check(np.array_equal(fk.z, fp.z)
+              and torch.equal(ck.computed, cp.computed), "cli: the small "
+              "cached frames differ in z or in the traced points")
+        print(f"[cli] {SMALL[0]}x{SMALL[1]} render_with_cache, kernel vs "
+              f"plain wave: max_abs_err={small_err:.3e}", flush=True)
+        check(max(errs + [mesh_err, small_err]) == 0.0,
+              f"cli: a kernel differs from its plain version "
+              f"({errs}, {mesh_err}, {small_err})")
+        stamp("phase passed")
+
+        def mean(k):
+            return sum(x[k] for x in per_level) / len(per_level)
+        common = {"library_ms": None, "cache_build_s": build_s,
+                  "render_with_cache_s": cached_s,
+                  "first_render_with_cache_s": first_s,
+                  "traced_share": share, "cli_calls": calls}
+        return [
+            {"launches": wave_expected,
+             "max_abs_err": max(errs + [small_err]),
+             "ms": mean("ms"), "ms_profiler": build_prof_ms,
+             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+             "bound_by": per_level[-1]["bound_by"],
+             "device_busy_share_build": busy_us / 1e6 / build_s,
+             "per_level": [{k_: v for k_, v in x.items()
+                            if k_ != "work"} for x in per_level], **common},
+            {"launches": mesh_expected,
+             "launches_first_hits": scene.num_mesh_inst,
+             "launches_direct_pass": mesh_expected - scene.num_mesh_inst,
+             "figures_of": "the first-hit launch alone (ms, plain_ms, "
+                           "bound_ms, max_abs_err); the direct pass's "
+                           "wavefront launches are counted, not timed here",
+             "max_abs_err": mesh_err,
+             "ms": mesh_fig["ms"], "ms_profiler": mesh_prof_ms,
+             "plain_ms": mesh_fig["plain_ms"],
+             "bound_ms": mesh_fig["bound_ms"],
+             "bound_by": mesh_fig["bound_by"], "first_hits": mesh_fig,
+             **common}]
+
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
                           hemisphere_samples=4, queue_factor=1.0)
@@ -1996,6 +2358,17 @@ def main(argv):
                "replaces": "rtf_tpu/render/fused_seg.py:482 and :516 "
                            "(gi_out rows; volumes baked from photon maps)"}],
          drive_photons),
+        # ---- phase 11: the command line, each subcommand in its own
+        # process, and the irradiance cache in-process
+        (11, [{"name": "wave_textured_gi_cache",
+               "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
+               "replaces": "rtf_tpu/render/fused_seg.py:482 and :516 "
+                           "(the irradiance cache's fused evaluator)"},
+              {"name": "mesh_closest_hit_cache",
+               "source": "rtf_tpu_torch/csrc/mesh_hit.cu",
+               "replaces": "rtf_tpu/ops/pallas_mesh.py:330 (the cache's "
+                           "first hits and its direct pass)"}],
+         drive_cli),
     ]
     kernels = []
     for ph, entries, fn in runs:

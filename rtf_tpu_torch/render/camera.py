@@ -98,6 +98,13 @@ def primary_rays_ch(scene, px: torch.Tensor, py: torch.Tensor,
     return o3, d3
 
 
+def pixel_grid(width: int, height: int, device="cpu"):
+    """Flat [P] int64 pixel coordinates in pixel-id order (row-major like
+    the pixel iterator, main.cpp:71-78: x = i % W, y = i / W)."""
+    idx = torch.arange(width * height, dtype=torch.int64, device=device)
+    return idx % width, idx // width
+
+
 @functools.lru_cache(maxsize=32)
 def pixel_order(width: int, height: int, tw: int = 32, th: int = 16):
     """Tile-coherent pixel permutation: flat pixel ids ordered so that

@@ -16,6 +16,11 @@ Output conventions match RenderImage (scene.h:540-656): gamma before
 `Clamp(int(c*255))`, misses show the background (its colour times its map
 at uvw = (x/W, y/H, 0)), z-buffer and sample-count AOVs.
 
+`render` is `render_device_host` (the raw accumulators in pixel order;
+the CLI's `watch` accumulates passes with its `sample_base` and
+`progress_cb`) and `finalize`; `preview` is the flat-shaded single trace
+the CLI writes before a render.
+
 Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed,
 and the wavefront's draws (soft shadows, glossy normals, Russian
 roulette, hemisphere directions) and the lens from a second one on the
@@ -42,13 +47,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from rtf_tpu_torch.core.math import BIGFLOAT
+from rtf_tpu_torch.core.math import BIGFLOAT, dot
 from rtf_tpu_torch.gi.grid import PhotonGrid, build_photon_grid
 from rtf_tpu_torch.gi.photon import shoot_photons
 from rtf_tpu_torch.gi.volume import IrradianceVolume, build_irradiance_volume
-from rtf_tpu_torch.ops.texture import sample_background
+from rtf_tpu_torch.ops.texture import _sel_rows, sample_background
+from rtf_tpu_torch.ops.trace import resolve_surface, trace
 from rtf_tpu_torch.render.camera import (
-    pixel_order, primary_rays, primary_rays_ch,
+    pixel_grid, pixel_order, primary_rays, primary_rays_ch,
 )
 from rtf_tpu_torch.render.config import RenderConfig
 from rtf_tpu_torch.render.gi import gi_wave
@@ -151,10 +157,13 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
 
 def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
                  order: torch.Tensor, seed: int, gi_map=None,
-                 caustic=None, wavefront: bool = False):
+                 caustic=None, wavefront: bool = False,
+                 sample_base: int = 0, progress_cb=None):
     """The adaptive ladder in lane space: (rad [3,P], hits [P], z [P],
     nsamples [P]) with lane k = pixel order[k], every sample wave a
-    `wave_contrib` on the fused path or on the wavefront."""
+    `wave_contrib` on the fused path or on the wavefront.  Wave j of the
+    ladder takes Halton index sample_base + j; progress_cb(done, total)
+    is called after each wave (see `render_device_host`)."""
     dev = tables.device
     px, py = order % scene.width, order // scene.width
     n = order.shape[0]
@@ -166,19 +175,26 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
     hits = torch.zeros(n, dtype=torch.int32, device=dev)
     z = torch.full((n,), BIGFLOAT, dtype=torch.float32, device=dev)
 
+    bounds = _phase_bounds(cfg)
+    done = 0
+
     def run(mask, lo, hi):
-        nonlocal rad, rad2, hits, z
+        nonlocal rad, rad2, hits, z, done
         for j in range(lo, hi):
             s = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
             contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
-                                           mask, j, s, gi, wavefront)
+                                           mask, sample_base + j, s, gi,
+                                           wavefront)
             rad = rad + contrib
             rad2 = rad2 + contrib * contrib
             hits = hits + hc
             z = torch.minimum(z, zm)
+            if progress_cb is not None:
+                hits[:1].cpu()        # a small fence: the wave has finished
+                done += 1
+                progress_cb(done, bounds[-1])
 
     all_px = torch.ones(n, dtype=torch.bool, device=dev)
-    bounds = _phase_bounds(cfg)
     run(all_px, 0, bounds[0])
     nsamples = torch.full((n,), bounds[0], dtype=torch.int32, device=dev)
     need = all_px
@@ -266,6 +282,94 @@ def _one_of(grid, vol, name):
     return vol if grid is None else grid
 
 
+def _on_device(scene: Scene, cfg: RenderConfig, dev: torch.device,
+               tables: WaveTables = None):
+    """The scene on `dev`, with the config's intersection statics unless
+    cfg is None, and its tables (built when not given)."""
+    if cfg is not None and (float(cfg.isect_zero), bool(cfg.ref_exact),
+            bool(cfg.sphere_minroot)) != (float(scene.isect_zero),
+                                          bool(scene.ref_exact),
+                                          bool(scene.sphere_minroot)):
+        # the era's intersection statics travel on the scene, so trace()
+        # sees them without a cfg plumb-through (renderer.py:421-428)
+        scene = dataclasses.replace(
+            scene, isect_zero=float(cfg.isect_zero),
+            ref_exact=bool(cfg.ref_exact),
+            sphere_minroot=bool(cfg.sphere_minroot))
+    if scene.device != dev:
+        scene = _scene_on(scene, dev)
+    if tables is None:
+        tables = scene_tables(scene, dev)
+    elif tables.device != dev:
+        raise ValueError(f"tables live on {tables.device}, not {dev}")
+    return scene, tables
+
+
+def _frame(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
+           tables: WaveTables, gi_grid, caustic_grid, sample_base: int = 0,
+           progress_cb=None):
+    """One frame's accumulators (`render_device_host`), with the scene on
+    `dev` and its tables: (scene, tables, (rad, hits, z, nsamples))."""
+    if gi_grid is not None and cfg.gi_mode not in ("photon", "pm_direct"):
+        raise ValueError(f"a photon map is read only by gi_mode 'photon' "
+                         f"and 'pm_direct', not {cfg.gi_mode!r}")
+    seed = cfg.seed if seed is None else seed
+    path, why = render_path(scene, cfg, caustic_grid)
+    if path is None:
+        raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
+                                  f"{why}")
+    if path == "fused":
+        label = ("fused, the wave kernel's MXU-table mesh variant "
+                 f"({scene.mesh.tri_a.shape[0]} faces > {MAX_FACES})"
+                 if mesh_mode(scene) == "mxu" else "fused")
+    else:
+        label = "XLA wavefront"
+    _log_path(scene, label, why)
+    scene, tables = _on_device(scene, cfg, dev, tables)
+    if cfg.gi_mode in ("photon", "pm_direct") and gi_grid is None:
+        gi_grid = prepare_photon_grid(scene, cfg, seed, tables=tables)
+
+    def volume(m, radius):
+        if m is None or isinstance(m, IrradianceVolume):
+            return None if m is None else m.to(dev)
+        return _cached_volume(m, radius, cfg.knn_k, scene.world_min,
+                              scene.world_max)
+    gi_map = gi_grid
+    if cfg.photon_volume or isinstance(gi_grid, IrradianceVolume):
+        gi_map = volume(gi_grid, cfg.knn_radius)
+    # the caustic volume only where the fused path reads it (the wavefront
+    # gathers from the caustic grid)
+    caustic = volume(caustic_grid, cfg.caustic_radius) \
+        if path == "fused" else caustic_grid
+    order = torch.as_tensor(pixel_order(scene.width, scene.height),
+                            device=dev).to(torch.int64)
+    acc = render_lanes(scene, cfg, tables, order, seed, gi_map, caustic,
+                       wavefront=path == "wavefront",
+                       sample_base=sample_base, progress_cb=progress_cb)
+    return scene, tables, lanes_to_pixels(*acc, order)
+
+
+def render_device_host(scene: Scene, cfg: RenderConfig, seed=None,
+                       device="cuda", tables: WaveTables = None,
+                       gi_grid=None, caustic_grid=None,
+                       sample_base: int = 0, progress_cb=None) -> tuple:
+    """The frame's raw accumulators in pixel-id order, on `device`: (rad
+    [3,P] summed over samples, hits [P] int32, z [P], nsamples [P] int32)
+    (rtf_tpu/render/renderer.py::render_device_host).  `render` is this
+    and `finalize`; the arguments are render's, without its gi_vol and
+    caustic_vol aliases.
+
+    sample_base offsets the Halton index of every wave of both adaptive
+    phases, so that a caller accumulating passes (the CLI's `watch`)
+    continues the index stream instead of re-rendering index 0.
+    progress_cb(done_waves, total_waves) is called after each wave, with
+    total_waves = _phase_bounds(cfg)[-1]; each call first waits for the
+    wave with a one-element device-to-host copy, which is paid only when
+    a callback is given."""
+    return _frame(scene, cfg, seed, resolve_device(device), tables,
+                  gi_grid, caustic_grid, sample_base, progress_cb)[2]
+
+
 def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
            device="cuda", tables: WaveTables = None,
            gi_vol: IrradianceVolume = None,
@@ -286,62 +390,81 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     hit in any GI mode: the fused path reads it as a volume (baked with
     cfg.photon_volume), the wavefront gathers from a grid.  gi_vol and
     caustic_vol: the same maps, as volumes."""
-    dev = resolve_device(device)
-    gi_grid = _one_of(gi_grid, gi_vol, "gi")
-    caustic_grid = _one_of(caustic_grid, caustic_vol, "caustic")
-    if gi_grid is not None and cfg.gi_mode not in ("photon", "pm_direct"):
-        raise ValueError(f"a photon map is read only by gi_mode 'photon' "
-                         f"and 'pm_direct', not {cfg.gi_mode!r}")
-    seed = cfg.seed if seed is None else seed
-    path, why = render_path(scene, cfg, caustic_grid)
-    if path is None:
-        raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
-                                  f"{why}")
-    if path == "fused":
-        label = ("fused, the wave kernel's MXU-table mesh variant "
-                 f"({scene.mesh.tri_a.shape[0]} faces > {MAX_FACES})"
-                 if mesh_mode(scene) == "mxu" else "fused")
-    else:
-        label = "XLA wavefront"
-    _log_path(scene, label, why)
-    if (float(cfg.isect_zero), bool(cfg.ref_exact),
-            bool(cfg.sphere_minroot)) != (float(scene.isect_zero),
-                                          bool(scene.ref_exact),
-                                          bool(scene.sphere_minroot)):
-        # the era's intersection statics travel on the scene, so trace()
-        # sees them without a cfg plumb-through (renderer.py:421-428)
-        scene = dataclasses.replace(
-            scene, isect_zero=float(cfg.isect_zero),
-            ref_exact=bool(cfg.ref_exact),
-            sphere_minroot=bool(cfg.sphere_minroot))
-    if scene.device != dev:
-        scene = _scene_on(scene, dev)
-    if tables is None:
-        tables = scene_tables(scene, dev)
-    elif tables.device != dev:
-        raise ValueError(f"tables live on {tables.device}, not {dev}")
-    if cfg.gi_mode in ("photon", "pm_direct") and gi_grid is None:
-        gi_grid = prepare_photon_grid(scene, cfg, seed, tables=tables)
+    scene, tables, acc = _frame(
+        scene, cfg, seed, resolve_device(device), tables,
+        _one_of(gi_grid, gi_vol, "gi"),
+        _one_of(caustic_grid, caustic_vol, "caustic"))
+    return finalize(scene, cfg, tables, *acc)
 
-    def volume(m, radius):
-        if m is None or isinstance(m, IrradianceVolume):
-            return None if m is None else m.to(dev)
-        return _cached_volume(m, radius, cfg.knn_k, scene.world_min,
-                              scene.world_max)
-    gi_map = gi_grid
-    if cfg.photon_volume or isinstance(gi_grid, IrradianceVolume):
-        gi_map = volume(gi_grid, cfg.knn_radius)
-    # the caustic volume only where the fused path reads it (the wavefront
-    # gathers from the caustic grid)
-    caustic = volume(caustic_grid, cfg.caustic_radius) \
-        if path == "fused" else caustic_grid
-    order = torch.as_tensor(pixel_order(scene.width, scene.height),
-                            device=dev).to(torch.int64)
-    rad, hits, z, ns = render_lanes(scene, cfg, tables, order, seed,
-                                    gi_map, caustic,
-                                    wavefront=path == "wavefront")
-    rad, hits, z, ns = lanes_to_pixels(rad, hits, z, ns, order)
-    return finalize(scene, cfg, tables, rad, hits, z, ns)
+
+def _preview_device(scene: Scene, tables: WaveTables, frames: int,
+                    lens_u=None, gen=None):
+    """The flat-shaded preview trace (rtf_tpu/render/renderer.py::
+    _preview_device): material base colour x (0.25 + 0.75 |N.V|), no
+    shadows, bounces or textures, the background where the ray misses,
+    Halton index 0.  frames > 1 averages lens-jittered frames and keeps
+    the least z; frame f's lens uniforms [2, P] are lens_u[f], else drawn
+    from `gen`.  Returns (image [P,3] uint8, z [P]) on the scene's
+    device."""
+    w, h = scene.width, scene.height
+    dev = scene.device
+    px, py = pixel_grid(w, h, dev)
+    size = torch.tensor([float(w), float(h)], device=dev)
+    bg = sample_background(tables, scene.bg_color,
+                           px.to(torch.float32) / size[0],
+                           py.to(torch.float32) / size[1])
+
+    def frame(lu):
+        o, d = primary_rays(scene, px, py, torch.zeros_like(px),
+                            lens_u=lu)
+        surf = resolve_surface(scene, o, d, trace(scene, o, d))
+        kd = _sel_rows(scene.materials.diffuse, surf.mtl)
+        ndv = torch.abs(dot(surf.n, -d))[:, None]
+        col = torch.where(surf.valid[:, None], kd * (0.25 + 0.75 * ndv), bg)
+        return col, torch.where(surf.valid, surf.t, BIGFLOAT)
+
+    if frames <= 1:
+        col, z = frame(None)
+    else:
+        col = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        z = torch.full((w * h,), BIGFLOAT, dtype=torch.float32, device=dev)
+        for f in range(frames):
+            lu = lens_u[f] if lens_u is not None else torch.rand(
+                (2, w * h), generator=gen, device=dev)
+            cf, zf = frame(lu)
+            col, z = col + cf, torch.minimum(z, zf)
+        col = col / torch.full((), float(frames), device=dev)
+    img8 = torch.clamp(torch.floor(col * 255.0), 0, 255).to(torch.uint8)
+    return img8, z
+
+
+def preview(scene: Scene, dof_frames: int = 0, seed: int = 0,
+            device="cuda", tables: WaveTables = None,
+            lens_u=None) -> RenderResult:
+    """Fast flat-shaded scene preview, the analog of the reference's
+    GL-rasterized pre-render view (ShowViewport, viewport.cpp:93-268): one
+    trace per pixel, material base colours with a headlight term, the
+    background on a miss (rtf_tpu/render/renderer.py::preview).  Runs on
+    the card unless device='cpu'.
+
+    dof_frames: when the camera has a lens (scene.dof > 0), average this
+    many lens-jittered frames, the reference's 32-frame jittered GL
+    accumulation (viewport.cpp:76-80, 344-361); 0 means 32 with a lens.
+    The lens uniforms come from a device generator seeded by `seed`, or
+    from lens_u [frames, 2, P] when given."""
+    dev = resolve_device(device)
+    scene, tables = _on_device(scene, None, dev, tables)
+    w, h = scene.width, scene.height
+    if dof_frames == 0:
+        dof_frames = 32 if float(scene.dof) > 0 else 1
+    frames = dof_frames if float(scene.dof) > 0 else 1
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    img8, z = _preview_device(scene, tables, frames, lens_u, gen)
+    image = img8.cpu().numpy().reshape(h, w, 3)
+    return RenderResult(
+        image=image, radiance=image.astype(np.float32) / 255.0,
+        z=z.cpu().numpy().reshape(h, w),
+        sample_count=np.ones((h, w), np.int32))
 
 
 def _pass_generator(scene, seed, stream: int) -> torch.Generator:

@@ -283,19 +283,41 @@ def test_port_imports_no_jax():
                 f"{path.relative_to(ROOT)} imports {mod}"
 
 
-def test_entry_points_default_to_the_card():
-    from rtf_tpu_torch.render.renderer import render
+def test_entry_points_default_to_the_card(tmp_path):
+    from rtf_tpu_torch.cli import main
+    from rtf_tpu_torch.gi.irradiance_cache import (
+        build_irradiance_cache, render_with_cache)
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import preview, render
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
     desc = box_scene(8, 6, mesh_subdiv=0)
     if torch.cuda.is_available():
         assert build_scene(desc).cam_m.device.type == "cuda"
         return
+    from test_torch_cli import write_cli_scene
     with pytest.raises(RuntimeError, match="CUDA"):
         build_scene(desc)
     scene = build_scene(desc, device="cpu")
+    cfg = RenderConfig(min_samples=1, max_samples=1, bounces=0,
+                       gi_mode="hemisphere", hemisphere_samples=1)
+    for fn in (lambda: render(scene), lambda: preview(scene),
+               lambda: build_irradiance_cache(scene, cfg),
+               lambda: render_with_cache(scene, cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+    # the CLI's --device defaults to the card: every subcommand that
+    # touches a tensor raises without a card
+    xml = write_cli_scene(tmp_path)
+    for argv in (["render", xml], ["preview", xml], ["probe", xml,
+                                                     "--pixel", "1,1"],
+                 ["watch", xml, "--out", str(tmp_path / "w.png")],
+                 ["photons", xml, "--count", "10"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    np.savez(tmp_path / "s.npz", num_px=32 * 24, width=32, height=24)
     with pytest.raises(RuntimeError, match="CUDA"):
-        render(scene)
+        main(["view", xml, str(tmp_path / "s.npz")])
 
 
 @pytest.mark.parametrize("case", [

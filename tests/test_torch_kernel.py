@@ -831,3 +831,38 @@ def test_render_shoots_photons_with_the_kernel(cuda_dev):
     b = render(scene, cfg, seed=4, device=cuda_dev)
     assert np.array_equal(a.radiance, b.radiance)
     assert np.isfinite(a.radiance).all() and a.image.mean() > 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "textured"])
+def test_cache_evaluator_exact(cuda_dev, name):
+    """The irradiance cache's fused evaluator at 160x120 on the kernel
+    (its untextured and textured GI variants) against the same call on
+    the plain wave, one draw seed each: equal bit for bit, one launch per
+    hemisphere sample; the cached frame's first hits trace on
+    mesh_closest_hit."""
+    from rtf_tpu_torch.gi import irradiance_cache as IC
+    from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    scene = build_scene(textured_desc(160, 120) if name == "textured"
+                        else box_scene(160, 120), device=cuda_dev)
+    tables = scene_tables(scene)
+    m0 = M.launches
+    p, n, _, _, hit, front = IC._first_hits(scene, tables)
+    assert M.launches - m0 == scene.num_mesh_inst
+    mask = hit & front
+    cfg = _cfg(bounces=2, gi_mode="hemisphere", hemisphere_samples=4,
+               split_mode="rr")
+    counter = W.launch_counter(tables)
+    out = []
+    for fn in (None, W.wave_plain):
+        before = getattr(W, counter)
+        draws = IC.CacheDraws(torch.Generator(device=cuda_dev).manual_seed(3))
+        out.append(IC._eval_irradiance_fused(scene, cfg, tables, p, n, mask,
+                                             draws, 0, wave_fn=fn))
+        assert getattr(W, counter) - before == (4 if fn is None else 0)
+    assert torch.equal(out[0], out[1]), float((out[0] - out[1]).abs().max())
+    assert float(out[0].mean()) > 0.0
