@@ -8,12 +8,12 @@ imports only the port, torch and numpy, and exits nonzero on any failure.
 With no arguments it runs every phase; given phase numbers, the build and
 those phases only (for iterating on one path):
 
-1. build    builds the three kernel libraries (one nvcc per source, started
+1. build    builds the four kernel libraries (one nvcc per source, started
             together): the wave kernel (its eight variants: untextured or
             textured, with or without GI rows, the immediates mesh or the
-            MXU tables), mesh_closest_hit and mesh_closest_hit_mxu, from
-            the sources in the checkout, and prints the build time and
-            register counts;
+            MXU tables), mesh_closest_hit, mesh_closest_hit_mxu and
+            bvh_closest_hit, from the sources in the checkout, and prints
+            the build time and register counts;
 2. kernel   holds the kernel against its plain PyTorch version on the card
             at 160x120 (box scene at bounces 0 and 4, soft shadows, a
             checker scene, glossy materials, waves with every other lane
@@ -145,13 +145,42 @@ those phases only (for iterating on one path):
             build, the evaluator's child launch at each level's shape
             (events, plain, bound), and, bit for bit, the evaluator at
             every level (20 hemisphere samples) against gi_chunks on
-            the plain wave, `_first_hits` against the plain mesh test and
-            a 160x120 render_with_cache against the plain wave.
+            the plain wave, `_first_hits` and the direct pass's first
+            shadow trace against the plain mesh test and a 160x120
+            render_with_cache against the plain wave;
+12. bvh     the BVH walk, the dense mesh test, footprint filtering and the
+            sharded render on box_scene(800, 600, mesh_subdiv=5,
+            light_size=1.0), the 20,480-face ball: bvh_closest_hit
+            (csrc/bvh_hit.cu) against its plain lock-step walk on one
+            wave's 480,000 primary rays and first shadow batch and on a
+            seeded scattered set about the ball (faces, counters and every
+            output equal), and against mesh_closest_hit (hit masks equal,
+            t within rtol 1e-4 and atol 1e-6, faces equal but at equal-t
+            ties, counted; rays through a shared edge, a barycentric below
+            1e-5 in either test, may slip between its two faces in one of
+            the two triangle tests: counted, at most 1 in 10,000 rays);
+            its time (CUDA events, profiler), counters (nodes, box and face
+            tests), bound and the plain walk's time; RenderConfig() with
+            mesh_algo="bvh" through `render` (a warm-up, best of 3, 840
+            launches a frame counted, beside the same frame on
+            mesh_closest_hit, one frame; one wave profiled) and a 160x120
+            frame (1 spp, one shadow ray a light) against the same frame
+            on the plain walk (exact);
+            mesh_algo="dense" on the primary rays against
+            mesh_closest_hit (hit masks equal, t within rtol 1e-4) and a
+            160x120 dense frame (finite, lit, timed); tex_filter on the
+            textured box at 800x600 on the wavefront (finite, lit, pixels
+            changed, timed beside the unfiltered frame); render_sharded on
+            a 1x1 NCCL mesh (world size 1) against render_device_host on
+            the main path's config, bit for bit, and on a 1x2 gloo mesh of
+            two processes that share the card (`--gloo-rank`), each half
+            the samples: hits, z and sample counts equal, radiance within
+            rtol 1e-5 (atol 5e-5; the ranks' sums add in another order).
 
 Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
 atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
 difference may flip a Russian-roulette choice, so at most 1% of lanes may
-lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-11
+lie outside atol 2e-4 and the mean radiance agrees within 1%.  Phases 3-12
 hold every kernel to its plain version bit for bit (max abs error 0.0),
 the GI rows included.  Dead lanes give exactly zero radiance and no hit.
 
@@ -163,7 +192,7 @@ every row is finite and the query weight is zero on dead lanes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
 build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu,
-photons}.png, phase 11's files to build/cli/.
+photons,bvh,tex_filter}.png, phase 11's files to build/cli/.
 """
 import json
 import os
@@ -190,10 +219,12 @@ HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 # of the few pairs inside a winding are not counted); cross is o x d, once
 # per instance and ray on the MXU tables; filter is the dense closest
 # hit's sign filter a pair (csrc/mesh_hit_mxu.cu: 3 adds, 3 logic
-# operations).
+# operations).  The BVH walk (csrc/bvh_hit.cu): inv is a ray's 1/d with
+# its guards, once a ray; box a slab test with its entry distance; bvh_tri
+# intersect_triangle with its normalisation, one projected area per call.
 OPS = dict(sphere=73, plane=46, inst=42, slab=26, tri=40, shade=250,
            shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9,
-           filter=6)
+           filter=6, inv=12, box=40, bvh_tri=105)
 # the wave kernel's counters (csrc/wave_kernel.cu, STAT_*): work, then on
 # the MXU variants the walk's slab tests, cycles by part (summed over
 # lanes) and warp-iterations with their active lanes
@@ -606,9 +637,46 @@ def write_photon_scene(directory, w, h, seed=0):
     return path
 
 
+def gloo_rank(rank, port, out):
+    """One of phase 12's two processes that share the card under gloo:
+    render_sharded on a (1, 2) mesh (the two ranks split the samples) of
+    the main path's config at 800x600, rank 0 saving the frame and its
+    time to `out` (an .npz)."""
+    import numpy as np
+    import torch
+    from torch import distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from rtf_tpu_torch.parallel.mesh import make_mesh, render_sharded
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = make_mesh(1, 2)
+        scene = build_scene(box_scene(W, H, with_mesh=True), device="cuda")
+        cfg = RenderConfig(min_samples=SPP, max_samples=SPP,
+                           bounces=BOUNCES, shadow_min=1, shadow_max=1,
+                           gi_mode="none")
+        render_sharded(scene, cfg, mesh, seed=3, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        acc = render_sharded(scene, cfg, mesh, seed=7, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(out, seconds=dt,
+                     **{k: x.cpu().numpy() for k, x in zip(
+                         ("rad", "hits", "z", "ns"), acc)})
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv):
     # no arguments: every phase; phase numbers: the build and those only
-    phases = {int(a) for a in argv} or set(range(1, 12))
+    phases = {int(a) for a in argv} or set(range(1, 13))
     try:
         import torch
     except ImportError:
@@ -2114,8 +2182,16 @@ def main(argv):
             return fused_fn(scene_, cfg_, tables_, p, n, mask, draws, level,
                             wave_fn)
 
+        mesh_calls = [0]
+
         def capture(*a, **k):
-            first_hits.setdefault("call", (a, k))
+            # the first-hit trace's launch, and the direct pass's first
+            # shadow trace (after its primary trace)
+            if mesh_calls[0] == 0:
+                first_hits["call"] = (a, k)
+            elif mesh_calls[0] == 2 * scene.num_mesh_inst:
+                first_hits["direct"] = (a, k)
+            mesh_calls[0] += 1
             return mesh_fn(*a, **k)
         zero_counts()
         IC_._eval_irradiance_fused, M_.mesh_closest_hit_rays = spy, capture
@@ -2227,6 +2303,18 @@ def main(argv):
                        for x, y in zip(kern, plain))
         print(f"[cli] _first_hits ({W * H} rays), mesh_closest_hit vs its "
               f"plain version: max_abs_err={mesh_err:.3e}", flush=True)
+        da, dk = first_hits["direct"]
+        dkern = M_.mesh_closest_hit_rays(*da, **dk)
+        dplain = plain_fn(*da)
+        check(torch.equal(dkern[1], dplain[1]), "cli: the direct pass's "
+              "shadow launch: faces differ from the plain version")
+        direct_err = max(float((x - y).abs().max()) for x, y in zip(
+            dkern[0:1] + dkern[2:], dplain[0:1] + dplain[2:]))
+        print(f"[cli] the direct pass's first shadow trace ({da[0].shape[0]}"
+              f" rays, {int((dkern[1] >= 0).sum())} hit the ball), "
+              f"mesh_closest_hit vs its plain version: faces equal, "
+              f"max_abs_err={direct_err:.3e}", flush=True)
+        del dkern, dplain
         mesh_fig = mesh_launch_figures("cli", "first hits", scene, a, k)
         small_desc = load_scene(str(xml))
         small_desc.camera.width, small_desc.camera.height = SMALL
@@ -2255,9 +2343,9 @@ def main(argv):
               "cached frames differ in z or in the traced points")
         print(f"[cli] {SMALL[0]}x{SMALL[1]} render_with_cache, kernel vs "
               f"plain wave: max_abs_err={small_err:.3e}", flush=True)
-        check(max(errs + [mesh_err, small_err]) == 0.0,
+        check(max(errs + [mesh_err, direct_err, small_err]) == 0.0,
               f"cli: a kernel differs from its plain version "
-              f"({errs}, {mesh_err}, {small_err})")
+              f"({errs}, {mesh_err}, {direct_err}, {small_err})")
         stamp("phase passed")
 
         def mean(k):
@@ -2279,14 +2367,464 @@ def main(argv):
              "launches_first_hits": scene.num_mesh_inst,
              "launches_direct_pass": mesh_expected - scene.num_mesh_inst,
              "figures_of": "the first-hit launch alone (ms, plain_ms, "
-                           "bound_ms, max_abs_err); the direct pass's "
+                           "bound_ms); max_abs_err over it and the direct "
+                           "pass's first shadow launch; the direct pass's "
                            "wavefront launches are counted, not timed here",
-             "max_abs_err": mesh_err,
+             "max_abs_err": max(mesh_err, direct_err),
+             "max_abs_err_direct_pass": direct_err,
              "ms": mesh_fig["ms"], "ms_profiler": mesh_prof_ms,
              "plain_ms": mesh_fig["plain_ms"],
              "bound_ms": mesh_fig["bound_ms"],
              "bound_by": mesh_fig["bound_by"], "first_hits": mesh_fig,
              **common}]
+
+    def drive_bvh():
+        """Phase 12: the BVH walk (csrc/bvh_hit.cu) on the wavefront's
+        mesh_algo="bvh", the dense mesh test, footprint filtering and the
+        sharded render, on box_scene(800, 600, mesh_subdiv=5,
+        light_size=1.0) (the 20,480-face ball): the kernel against its plain
+        version on one wave's primary and shadow rays and on a seeded
+        scattered set (exact), and against mesh_closest_hit; its time,
+        counters and bound; RenderConfig() with mesh_algo="bvh" (best of 3,
+        840 launches a frame) and a 160x120 frame against the plain walk
+        (exact); mesh_algo="dense" on the primary rays and a 160x120 frame;
+        tex_filter on the textured box at 800x600; render_sharded on a 1x1
+        NCCL mesh against render_device_host on the main config (exact)."""
+        import dataclasses
+        import socket
+
+        from torch import distributed as dist
+
+        from rtf_tpu_torch.ops import bvh_hit as B_
+        from rtf_tpu_torch.ops.trace import _dense_mesh
+        from rtf_tpu_torch.parallel.distributed import init_multihost
+        from rtf_tpu_torch.parallel.mesh import make_mesh, render_sharded
+        from rtf_tpu_torch.scene.build import ensure_bvh
+        t_phase = time.perf_counter()
+
+        def stamp(what):
+            print(f"[bvh] {time.perf_counter() - t_phase:.1f} s: {what}",
+                  flush=True)
+        wcfg = RenderConfig()
+        base = build_scene(box_scene(W, H, with_mesh=True, mesh_subdiv=5,
+                                     light_size=1.0), device=dev)
+        check(base.mesh.tri_a.shape[0] == 20480 and base.num_mesh_inst == 1,
+              "bvh: the scene has one 20,480-face ball")
+        scene = dataclasses.replace(base, mesh_algo="bvh")
+        tables = scene_tables(scene)
+        check(render_path(scene, wcfg)[0] == "wavefront",
+              "bvh: RenderConfig() takes the wavefront")
+        mesh = scene.mesh
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ensure_bvh(mesh)
+        walk = B_.bvh_walk(mesh)
+        torch.cuda.synchronize()
+        bvh_build_s = time.perf_counter() - t0
+        child = mesh.bvh_child.cpu().numpy()
+        depth, level = 0, [int(mesh.slot_root[0])]
+        while level:
+            depth += 1
+            level = [c + k for i in level if child[i] >= 0
+                     for c in (int(child[i]),) for k in (0, 1)]
+        print(f"[bvh] BVH of {mesh.tri_a.shape[0]} faces: "
+              f"{walk.nodes.shape[0]} nodes, {depth} levels, built in "
+              f"{bvh_build_s:.3f} s (the NumPy builder and the kernel's "
+              f"tables, once per arena)", flush=True)
+        root = walk.roots[0]
+        per_shade = (1 + wcfg.shadow_min + wcfg.shadow_max) \
+            * scene.num_mesh_inst
+        per_wave = per_shade * (1 + wcfg.bounces)
+        expected = per_wave * wcfg.max_samples
+
+        # one wave's primary and first shadow rays, as the trace hands
+        # them to bvh_closest_hit
+        captured, calls = {}, [0]
+        kernel_fn = B_.bvh_closest_hit
+        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+        o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
+        ids = torch.arange(W * H, device=dev)
+
+        def one_wave(sc=scene, tb=tables):
+            return render_wave(
+                sc, wcfg, tb, o, d, ids,
+                torch.ones(W * H, dtype=torch.bool, device=dev),
+                torch.Generator(device=dev).manual_seed(3), W * H,
+                inv_pixel=ids)
+
+        def capture(mesh_, root_, lo, ld, t_init, stats=None):
+            if calls[0] in (0, 1):
+                captured[calls[0]] = (lo, ld, t_init)
+            calls[0] += 1
+            return kernel_fn(mesh_, root_, lo, ld, t_init, stats)
+        B_.bvh_closest_hit = capture
+        try:
+            one_wave()
+        finally:
+            B_.bvh_closest_hit = kernel_fn
+        check(calls[0] == per_wave, f"bvh: one wave made {calls[0]} walks, "
+              f"expected {per_wave}")
+        v = torch.cat([mesh.tri_a, mesh.tri_b, mesh.tri_c]).cpu().numpy()
+        rng = np.random.RandomState(12)
+        so = (v.min(0) + v.max(0)) / 2 + (v.max(0) - v.min(0)) * \
+            rng.uniform(-1.0, 1.0, (W * H, 3))
+        sd = rng.normal(size=(W * H, 3))
+        sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+        sets = {"primary": captured[0], "shadow": captured[1],
+                "scattered": (torch.as_tensor(so.astype(np.float32),
+                                              device=dev),
+                              torch.as_tensor(sd.astype(np.float32),
+                                              device=dev),
+                              torch.full((W * H,), 1e30, device=dev))}
+        col0, fpad, ar0, nt, _ = mesh.slot_pack[0]
+        perm = mesh.tri_perm.to(torch.int64)
+        node_bytes = walk.nodes.numel() * 4 + walk.leaf_tris.numel() * 4
+        kinds, err = {}, 0.0
+        for label, (lo, ld, t_init) in sets.items():
+            sk, sp = (torch.zeros(B_.NSTAT, dtype=torch.int64, device=dev)
+                      for _ in range(2))
+            kern = B_.bvh_closest_hit(mesh, root, lo, ld, t_init, stats=sk)
+            plain = B_.bvh_closest_hit_plain(mesh, root, lo, ld, t_init,
+                                             stats=sp)
+            torch.cuda.synchronize()
+            check(torch.equal(kern[1], plain[1]),
+                  f"bvh {label}: faces differ on "
+                  f"{int((kern[1] != plain[1]).sum())} rays")
+            e = max(float((k - p).abs().max())
+                    for k, p in zip(kern[0:1] + kern[2:],
+                                    plain[0:1] + plain[2:]))
+            check(e == 0.0, f"bvh {label}: max abs err {e} against the "
+                  "plain walk")
+            check(torch.equal(sk, sp), f"bvh {label}: counters "
+                  f"{sk.tolist()} against the plain walk's {sp.tolist()}")
+            err = max(err, e)
+            n = lo.shape[0]
+            hit = kern[1] >= 0
+            fig = dict(rays=n, hits=int(hit.sum()), max_abs_err=e)
+            if label != "shadow":
+                mt, mf, _, mba, mbb = M_.mesh_closest_hit_rays(
+                    lo, ld, t_init, mesh.tri_packed[:, col0:col0 + fpad],
+                    mesh.tile_aabb[ar0:ar0 + nt], face0=col0,
+                    tree=mesh.hit_tree, slot=0)
+                mhit = mf >= 0
+
+                def near_edge(h, ba_, bb_):
+                    return h & (torch.minimum(torch.minimum(ba_, bb_),
+                                              1.0 - ba_ - bb_) < 1e-5)
+                # a ray through a shared edge (a barycentric below 1e-5 in
+                # either test) may slip between the two faces in one of the
+                # two triangle tests, which round apart there: counted
+                edge = near_edge(hit, kern[3], kern[4]) \
+                    | near_edge(mhit, mba, mbb)
+                # t within rtol 1e-4, and 1e-6 for the hits just past the
+                # 1e-3 bias, where the two tests' plane distances round
+                # apart by about 1e-7 (origins on the ball's surface)
+                off = (kern[0] - mt).abs() - 1e-4 * mt.abs()
+                bad = ~edge & ((hit != mhit) | (hit & (off > 1e-6)))
+                if bool(bad.any()):
+                    idx = torch.nonzero(bad)[:8, 0]
+                    mp = plain_fn(lo[idx], ld[idx], t_init[idx],
+                                  mesh.tri_packed[:, col0:col0 + fpad],
+                                  mesh.tile_aabb[ar0:ar0 + nt], col0)
+                    for j, i in enumerate(idx.tolist()):
+                        print(f"[bvh] {label} ray {i}: |o| "
+                              f"{float(lo[i].norm()):.6f}, walk t "
+                              f"{float(kern[0][i]):.9g} face "
+                              f"{int(kern[1][i])}; mesh_closest_hit t "
+                              f"{float(mt[i]):.9g} face "
+                              f"{int(perm[mf[i].clamp(min=0)])}, its plain "
+                              f"t {float(mp[0][j]):.9g} face "
+                              f"{int(perm[mp[1][j].clamp(min=0)])}",
+                              flush=True)
+                slips = int((edge & ((hit != mhit) | (hit & (off > 1e-6))))
+                            .sum())
+                check(not bool(bad.any()) and slips <= n // 10000,
+                      f"bvh {label}: {int(bad.sum())} rays beyond rtol 1e-4 "
+                      f"(atol 1e-6) of mesh_closest_hit or with another hit "
+                      f"mask, {slips} edge slips")
+                keep = hit & ~edge
+                rel = ((kern[0] - mt).abs() / mt.abs())[keep]
+                ma = perm[mf.clamp(min=0).to(torch.int64)].to(torch.int32)
+                ties = int((keep & (ma != kern[1])).sum())
+                fig.update(faces_differing_at_ties=ties, edge_slips=slips,
+                           edge_rays=int(edge.sum()),
+                           t_max_rel_vs_mesh_closest_hit=float(rel.max()))
+                del mt, mf
+            nodes, inner, leaves, faces, most = sk.tolist()
+            ms = events_ms(lambda: B_.bvh_closest_hit(mesh, root, lo, ld,
+                                                      t_init))
+            pms = host_ms(lambda: B_.bvh_closest_hit_plain(
+                mesh, root, lo, ld, t_init), 1)
+            boxes = nodes + 2 * inner
+            flops = n * OPS["inv"] + boxes * OPS["box"] \
+                + faces * OPS["bvh_tri"]
+            # each input once (28 B a ray in, the tree), each output once
+            # (20 B a ray)
+            nbytes = n * 48 + node_bytes
+            bytes_ms = nbytes / HBM_BPS * 1e3
+            ops_ms = flops / FP32_FLOPS * 1e3
+            fig.update(ms=ms, plain_ms=pms, nodes_popped=nodes,
+                       inner_entered=inner, leaves_entered=leaves,
+                       face_tests=faces, box_tests=boxes, most_pops=most,
+                       flops=flops, bytes=nbytes,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms
+                       else "bytes")
+            kinds[label] = fig
+            print(f"[bvh] bvh_closest_hit vs plain, {label}: {n} rays "
+                  f"({fig['hits']} hit), faces, counters and hit masks "
+                  f"equal, max_abs_err={e:.3e}; "
+                  + (f"against mesh_closest_hit: masks equal, t max rel "
+                     f"{fig['t_max_rel_vs_mesh_closest_hit']:.3e}, "
+                     f"{fig['faces_differing_at_ties']} faces differ at "
+                     f"equal-t ties, {fig['edge_slips']} of "
+                     f"{fig['edge_rays']} rays through a shared edge slip "
+                     f"through in one test; " if label != "shadow" else "")
+                  + f"{ms:.4f} ms (mean of 20, CUDA events), plain "
+                  f"{pms:.1f} ms ({most} lock steps); {nodes} nodes popped"
+                  f" ({nodes / n:.2f} a ray), {boxes} box tests, {leaves} "
+                  f"leaves, {faces} face tests ({faces / n:.2f} a ray); "
+                  f"{flops:.4e} FP32 ops, {nbytes} bytes; bound "
+                  f"{max(bytes_ms, ops_ms):.5f} ms (ops {ops_ms:.5f}, "
+                  f"bytes {bytes_ms:.5f})", flush=True)
+            del kern, plain
+        prim = sets["primary"]
+        prof_ms = profiled_ms(lambda: B_.bvh_closest_hit(mesh, root, *prim),
+                              key="bvh_hit_kernel")
+        stamp("kernel against plain and mesh_closest_hit, timed")
+
+        # RenderConfig() with the walk, through `render`
+        def bvh_counts():
+            return {"bvh_closest_hit": B_.launches, **mesh_counts()}
+        render(scene, wcfg, device=dev, tables=tables)    # warm-up frame
+        frame_s, res = float("inf"), None
+        for rep in range(3):
+            B_.launches = M_.launches = 0
+            for c in counters:
+                setattr(W_, c, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
+            dt = time.perf_counter() - t0
+            counts = bvh_counts()
+            check(counts["bvh_closest_hit"] == expected
+                  and sum(counts.values()) == expected,
+                  f"bvh frame {rep}: launches {counts}, expected {expected}"
+                  f" of bvh_closest_hit")
+            check(np.isfinite(out.radiance).all() and out.image.mean() > 5.0,
+                  "bvh frame: non-finite or black")
+            if dt < frame_s:
+                frame_s, res = dt, out
+        png = ROOT / "build" / "chip_smoke_bvh.png"
+        (ROOT / "build").mkdir(exist_ok=True)
+        write_png(str(png), res.image)
+        # the same frame on mesh_closest_hit, once (the tables are warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(base, wcfg, seed=1, device=dev, tables=tables)
+        auto_s = time.perf_counter() - t0
+        wave_s = min(host_ms(one_wave, 1), host_ms(one_wave, 1)) / 1e3
+        busy_us, wave_prof_ms, _ = profile_frame(
+            "bvh wave", wave_s, one_wave, kernel="bvh_hit_kernel")
+        print(f"[bvh] frame {W}x{H} RenderConfig() mesh_algo='bvh': best of "
+              f"3 {frame_s:.4f} s ({expected} bvh_closest_hit launches, "
+              f"{per_wave} a wave; mean byte {res.image.mean():.2f}, png "
+              f"{png.relative_to(ROOT)}); the same frame on "
+              f"mesh_closest_hit ('auto') {auto_s:.4f} s (one frame)",
+              flush=True)
+        stamp("frames")
+
+        # a 160x120 frame with the kernel and with the plain walk: one
+        # sample wave, one shadow ray a light (the plain walk takes about
+        # 0.8 s a trace here)
+        small = dataclasses.replace(build_scene(box_scene(
+            *SMALL, with_mesh=True, mesh_subdiv=5, light_size=1.0),
+            device=dev), mesh_algo="bvh")
+        stab = scene_tables(small)
+        scfg = wcfg.with_(min_samples=1, max_samples=1, shadow_min=1,
+                          shadow_max=1)
+        B_.launches = 0
+        fk = render(small, scfg, seed=5, device=dev, tables=stab)
+        small_launches = B_.launches
+        B_.launches = 0
+        plain_calls = [0]
+
+        def plain_walk(mesh_, root_, lo, ld, t_init, stats=None):
+            plain_calls[0] += 1
+            return B_.bvh_closest_hit_plain(mesh_, root_, lo, ld, t_init,
+                                            stats)
+        B_.bvh_closest_hit = plain_walk
+        try:
+            fp = render(small, scfg, seed=5, device=dev, tables=stab)
+        finally:
+            B_.bvh_closest_hit = kernel_fn
+        check(B_.launches == 0, "bvh: the plain frame launched the kernel")
+        check(small_launches == plain_calls[0] > 0, f"bvh: the small frame "
+              f"made {small_launches} launches against {plain_calls[0]} "
+              f"plain walks")
+        small_err = float(np.abs(fk.radiance - fp.radiance).max())
+        check(small_err == 0.0 and np.array_equal(fk.z, fp.z)
+              and np.array_equal(fk.sample_count, fp.sample_count),
+              f"bvh: the 160x120 frame differs from the plain walk's by "
+              f"{small_err}")
+        print(f"[bvh] {SMALL[0]}x{SMALL[1]} frame ({small_launches} "
+              f"launches), kernel vs plain walk: max_abs_err="
+              f"{small_err:.3e}", flush=True)
+        stamp("small frames")
+
+        # mesh_algo="dense": the primary rays, and a 160x120 frame
+        lo, ld, t_init = prim
+        n = lo.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt_, df, _, _, _ = _dense_mesh(
+            mesh, lo, ld, t_init, torch.full((n,), -1, dtype=torch.int32,
+                                             device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+            mesh.slot_faces[0])
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        mt, mf, _, _, _ = M_.mesh_closest_hit_rays(
+            lo, ld, t_init, mesh.tri_packed[:, col0:col0 + fpad],
+            mesh.tile_aabb[ar0:ar0 + nt], face0=col0, tree=mesh.hit_tree,
+            slot=0)
+        dhit = df >= 0
+        check(torch.equal(dhit, mf >= 0), "dense: hit masks differ from "
+              "mesh_closest_hit")
+        drel = float(((dt_ - mt).abs() / mt.abs())[dhit].max())
+        check(drel <= 1e-4, f"dense: t beyond rtol 1e-4 ({drel})")
+        dense_scene = dataclasses.replace(build_scene(box_scene(
+            *SMALL, with_mesh=True, mesh_subdiv=5), device=dev),
+            mesh_algo="dense")
+        dcfg = RenderConfig(min_samples=2, max_samples=2, bounces=2,
+                            shadow_min=1, shadow_max=1, split_mode="both")
+        dtab = scene_tables(dense_scene)
+        M_.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dres = render(dense_scene, dcfg, device=dev, tables=dtab)
+        dense_frame_s = time.perf_counter() - t0
+        check(M_.launches == 0 and np.isfinite(dres.radiance).all()
+              and dres.image.mean() > 5.0, "dense frame: a mesh kernel ran,"
+              " or non-finite or black")
+        print(f"[bvh] dense, the primary rays ({n}, {int(dhit.sum())} hit "
+              f"the ball): {dense_s:.3f} s, masks equal to "
+              f"mesh_closest_hit's, t max rel {drel:.3e}; a {SMALL[0]}x"
+              f"{SMALL[1]} dense frame (2 spp, 2 bounces, 'both') "
+              f"{dense_frame_s:.3f} s, finite and lit", flush=True)
+        stamp("dense")
+
+        # tex_filter on the textured box at full width
+        tscene = build_scene(textured_desc(box_scene, W, H), device=dev)
+        ttab = scene_tables(tscene)
+        fcfg = wcfg.with_(tex_filter=True)
+        check(render_path(tscene, fcfg)[0] == "wavefront",
+              "tex_filter takes the wavefront")
+        frames = {}
+        render(tscene, wcfg, seed=2, device=dev, tables=ttab)   # warm-up
+        for name, c in (("unfiltered", wcfg), ("filtered", fcfg)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames[name] = (render(tscene, c, seed=1, device=dev,
+                                   tables=ttab), time.perf_counter() - t0)
+        (fu, fu_s), (ff, ff_s) = frames["unfiltered"], frames["filtered"]
+        changed = float((np.abs(ff.radiance - fu.radiance).max(-1)
+                         > 1e-3).mean())
+        check(np.isfinite(ff.radiance).all() and ff.image.mean() > 5.0
+              and changed > 0.05, f"tex_filter frame: non-finite, black or "
+              f"unchanged ({changed:.4f} of pixels changed)")
+        write_png(str(ROOT / "build" / "chip_smoke_tex_filter.png"),
+                  ff.image)
+        print(f"[bvh] tex_filter {W}x{H} RenderConfig() on the textured "
+              f"box: {ff_s:.4f} s against {fu_s:.4f} s unfiltered; "
+              f"{changed:.4f} of pixels changed, mean byte "
+              f"{ff.image.mean():.2f} against {fu.image.mean():.2f}",
+              flush=True)
+        stamp("tex_filter")
+
+        # render_sharded on a 1x1 NCCL mesh against render_device_host
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        init_multihost(f"localhost:{port}", 1, 0, device=dev)
+        try:
+            mesh11 = make_mesh(1, 1)
+            main = build_scene(box_scene(W, H, with_mesh=True), device=dev)
+            mtab = scene_tables(main)
+            W_.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = render_sharded(main, cfg, mesh11, seed=7, device=dev)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+            check(W_.launches == SPP, f"sharded: {W_.launches} wave "
+                  f"launches, expected {SPP}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = R_.render_device_host(main, cfg, seed=7, device=dev,
+                                        tables=mtab)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            check(same, "sharded: the 1x1 mesh differs from "
+                  "render_device_host")
+        finally:
+            dist.destroy_process_group()
+        print(f"[bvh] render_sharded on a 1x1 NCCL mesh, {W}x{H} {SPP} spp "
+              f"{BOUNCES} bounces: equal bit for bit to render_device_host "
+              f"({sharded_s:.4f} s, first call, against {host_s:.4f} s)",
+              flush=True)
+        # two processes on the one card under gloo, each half the samples
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        out = ROOT / "build" / "chip_smoke_gloo.npz"
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-rank",
+             str(r), str(port), str(out)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p_.communicate(timeout=300)[0] for p_ in procs]
+        finally:
+            for p_ in procs:
+                p_.kill()
+        check(all(p_.returncode == 0 for p_ in procs), "gloo ranks failed:"
+              "\n" + "\n".join(x[-3000:] for x in logs))
+        g = np.load(out)
+        ref = [x.cpu().numpy() for x in R_.render_device_host(
+            main, cfg, seed=7, device=dev, tables=mtab)]
+        gerr = float(np.abs(g["rad"] - ref[0]).max())
+        check(np.array_equal(g["hits"], ref[1])
+              and np.array_equal(g["ns"], ref[3])
+              and np.array_equal(g["z"], ref[2])
+              and np.allclose(g["rad"], ref[0], rtol=1e-5, atol=5e-5),
+              f"gloo 1x2 on one card: differs from render_device_host "
+              f"(radiance {gerr})")
+        gloo_s = float(g["seconds"])
+        print(f"[bvh] render_sharded on a 1x2 gloo mesh, two processes on "
+              f"the one card, each {SPP // 2} of the {SPP} samples: "
+              f"{gloo_s:.4f} s a frame (after a warm-up; {host_s:.4f} s on one "
+              f"process); hits, z and sample counts equal to "
+              f"render_device_host, radiance sums within {gerr:.3e} (the "
+              f"two ranks' sums add in another order)", flush=True)
+        stamp("phase passed")
+        p = kinds["primary"]
+        return {
+            "launches": expected, "max_abs_err": err, "ms": p["ms"],
+            "ms_profiler": prof_ms, "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "library_ms": None, "frame_s": frame_s,
+            "frame_s_mesh_closest_hit": auto_s, "wave_s": wave_s,
+            "wave_ms_profiler": wave_prof_ms,
+            "device_busy_share": busy_us / 1e6 / wave_s,
+            "bvh_build_s": bvh_build_s, "bvh_nodes": walk.nodes.shape[0],
+            "bvh_levels": depth, "small_frame_max_abs_err": small_err,
+            "dense_primary_s": dense_s, "dense_frame_s": dense_frame_s,
+            "tex_filter_frame_s": ff_s, "unfiltered_frame_s": fu_s,
+            "sharded_1x1_exact": True,
+            "sharded_gloo_1x2_s": gloo_s,
+            "sharded_gloo_1x2_rad_max_abs_err": gerr, "per_input": kinds}
 
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
@@ -2369,6 +2907,13 @@ def main(argv):
                "replaces": "rtf_tpu/ops/pallas_mesh.py:330 (the cache's "
                            "first hits and its direct pass)"}],
          drive_cli),
+        # ---- phase 12: the BVH walk, the dense test, footprint filtering
+        # and the sharded render
+        (12, {"name": "bvh_closest_hit",
+              "source": "rtf_tpu_torch/csrc/bvh_hit.cu",
+              "replaces": "rtf_tpu/ops/trace.py:161 (bvh_traverse, no "
+                          "pallas_call)"},
+         drive_bvh),
     ]
     kernels = []
     for ph, entries, fn in runs:
@@ -2388,4 +2933,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main(sys.argv[1:])

@@ -11,6 +11,7 @@ per source, all at once.
   mesh_hit      csrc/mesh_hit.cu      rtf_mesh_hit_launch (ops/mesh_hit.py)
   mesh_hit_mxu  csrc/mesh_hit_mxu.cu  rtf_mesh_hit_mxu_launch
                                                   (ops/mesh_hit_mxu.py)
+  bvh_hit       csrc/bvh_hit.cu       rtf_bvh_hit_launch  (ops/bvh_hit.py)
 """
 from __future__ import annotations
 
@@ -55,6 +56,12 @@ KERNELS = {
     "mesh_hit_mxu": ("mesh_hit_mxu.cu", "rtf_mesh_hit_mxu_launch", [
         _P, _I,                  # rays16, n
         _P, _P, _P, _I, _I,      # frags, rows, fmap, faces, face0
+        _P, _P, _P, _P, _P,      # t, face, front, ba, bb
+        _P, _P]),                # stats, stream
+    "bvh_hit": ("bvh_hit.cu", "rtf_bvh_hit_launch", [
+        _P, _P, _I, _P, _I, _I,  # origins, directions, their row stride,
+                                 # t_init, its stride, n
+        _P, _P, _I, _I,          # nodes, leaf faces, root, stack depth
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
         _P, _P]),                # stats, stream
 }

@@ -10,9 +10,12 @@ Semantics of the reference's scalar generator (scene.h:131-140):
 
 The digit loop runs a fixed count and accumulates in float32 in the same
 order as the JAX version, so camera rays agree with it to rounding.
+`halton_np` is the host version (float64 digits, rounded to float32 at
+the end), which places the footprint filter's taps.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +39,17 @@ def halton(index: torch.Tensor, base: int,
         f = f * inv_base.to(i.device)
         i = i // base
     return r
+
+
+def halton_np(index, base: int):
+    """NumPy host version (rtf_tpu/core/halton.py::halton_np); accepts a
+    scalar or an array index."""
+    index = np.asarray(index, np.int64)
+    r = np.zeros(index.shape, np.float64)
+    f = np.full(index.shape, 1.0 / base)
+    i = index.copy()
+    while np.any(i > 0):
+        r += f * (i % base)
+        f /= base
+        i //= base
+    return r.astype(np.float32)

@@ -8,7 +8,9 @@ the reference's epsilons:
   (objects.h:24-70), with the `zero`, `textbook` and `minroot` variants;
 * plane: unit square z=0 with zero=1e-3 (objects.h:84-111);
 * triangle: dominant-axis barycentric with bias=1e-3, |dz|>=1e-7
-  (objects.h:226-268).
+  (objects.h:226-268);
+* box: the slab test (Box::IntersectRay, Final/scene.cpp:11-65), with
+  the entry distance for ordering a BVH node's children.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from rtf_tpu_torch.core.math import BIGFLOAT, cross, dot, normalize
+from rtf_tpu_torch.core.math import BIGFLOAT, dot, normalize
 
 ZERO = 1e-3  # the reference's `zero`/`bias` epsilon for sphere/plane/triangle
 
@@ -91,24 +93,37 @@ def plane_attributes(o, d, t):
 def intersect_triangle(o, d, a, b, c, t_prev):
     """Ray vs triangle(s); shapes broadcast over leading dims.  Returns
     (t, front, bary_a, bary_b, valid) by the plane test and dominant-axis
-    projected-area barycentrics of TriObj::IntersectTriangle."""
-    n = normalize(cross(b - a, c - a))
-    dz = dot(d, n)
-    pz = dot(o - a, n)
+    projected-area barycentrics of TriObj::IntersectTriangle.  Every sum
+    is written out left to right, the order in which csrc/bvh_hit.cu
+    computes it per ray and face, so the two round alike."""
+    o, d, a, b, c = ([x[..., k] for k in range(3)] for x in (o, d, a, b, c))
+    e1 = [b[k] - a[k] for k in range(3)]
+    e2 = [c[k] - a[k] for k in range(3)]
+    n = [e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+         e1[0] * e2[1] - e1[1] * e2[0]]
+    # normalize (core/math.py), its sum written out
+    x = torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2], min=1e-30)
+    r = torch.where(x > 0, 1.0 / torch.sqrt(x), 0.0)
+    n = [nk * r for nk in n]
+    dz = d[0] * n[0] + d[1] * n[1] + d[2] * n[2]
+    pz = (o[0] - a[0]) * n[0] + (o[1] - a[1]) * n[1] + (o[2] - a[2]) * n[2]
     safe_dz = torch.where(torch.abs(dz) < 1e-7, 1e-7, dz)
     t = -pz / safe_dz
-    p = o + t[..., None] * d
-    axis = torch.argmax(torch.abs(n), dim=-1)
+    p = [o[k] + t * d[k] for k in range(3)]
+    an = [torch.abs(nk) for nk in n]
+    # the first largest component, as argmax
+    axis = torch.where(an[2] > torch.maximum(an[0], an[1]), 2,
+                       torch.where(an[1] > an[0], 1, 0))
 
     def area2(p0, p1, p2):
         # signed double area projected perpendicular to axis, with the
         # reference's sign conventions (TriangleArea, objects.h:146-157)
-        e1 = p1 - p0
-        e2 = p2 - p0
-        ax = e1[..., 1] * e2[..., 2] - e2[..., 1] * e1[..., 2]
-        ay = e1[..., 0] * e2[..., 2] - e2[..., 0] * e1[..., 2]
-        az = e1[..., 0] * e2[..., 1] - e2[..., 0] * e1[..., 1]
-        return torch.where(axis == 0, ax, torch.where(axis == 1, ay, az))
+        f1 = [p1[k] - p0[k] for k in range(3)]
+        f2 = [p2[k] - p0[k] for k in range(3)]
+        return torch.where(
+            axis == 0, f1[1] * f2[2] - f2[1] * f1[2],
+            torch.where(axis == 1, f1[0] * f2[2] - f2[0] * f1[2],
+                        f1[0] * f2[1] - f2[0] * f1[1]))
 
     total = area2(a, b, c)
     s = 1.0 / torch.where(total == 0, 1e-30, total)
@@ -118,3 +133,24 @@ def intersect_triangle(o, d, a, b, c, t_prev):
     valid = (torch.abs(dz) >= 1e-7) & (t > ZERO) & (t < t_prev) & (total != 0)
     valid &= (ba >= 0) & (bb >= 0) & (bc >= 0)
     return torch.where(valid, t, BIGFLOAT), dz <= 0.0, ba, bb, valid
+
+
+def intersect_box(o, d, bmin, bmax, t_max):
+    """Slab test of rays against boxes [..., 3] (Box::IntersectRay,
+    Final/scene.cpp:11-65).  Returns bool.  Unlike the reference it also
+    asks texit >= 0, which only prunes boxes behind the origin."""
+    return intersect_box_enter(o, d, bmin, bmax, t_max)[0]
+
+
+def intersect_box_enter(o, d, bmin, bmax, t_max):
+    """intersect_box and the entry distance (0 for an origin inside the
+    box), for near-child ordering: (hit, tenter)."""
+    tiny = torch.where(d < 0, -1e-30, 1e-30)
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-30, tiny, d)
+    t0 = (bmin - o) * inv
+    t1 = (bmax - o) * inv
+    tenter = torch.amax(torch.minimum(t0, t1), dim=-1)
+    texit = torch.amin(torch.maximum(t0, t1), dim=-1)
+    inside = torch.all((o >= bmin) & (o <= bmax), dim=-1)
+    hit = inside | ((tenter <= texit) & (texit >= 0.0) & (tenter <= t_max))
+    return hit, torch.where(inside, 0.0, tenter)

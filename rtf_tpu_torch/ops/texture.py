@@ -13,13 +13,20 @@ Every function reads the flat texture tables of render/scene_tables.py
 (`texmaps [T, 10]`, `textures [X, 10]`, `atlas [R*W, 4]` with `atlas_w`
 and `has_file_tex`), which the CUDA wave kernel reads too.  Table rows are
 picked with index gathers: rtf_tpu's where-chains over table rows exist
-because a gather is slow on a TPU.  The reference samples once per hit
-(its footprint filter is dead code), and so does this module.
+because a gather is slow on a TPU.  The row-wise `sample_texture` and
+`sample_texmap` ([N,3] uvw in, [N,3] colours out) are the channelwise ones
+stacked.  The reference samples once per hit (its footprint filter is dead
+code); rtf_tpu's cfg.tex_filter revives it on primary rays
+(`sample_texmap_filtered`, with ops/trace.py::footprint_duv).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from rtf_tpu_torch.core.halton import halton_np
 
 from rtf_tpu_torch.scene.build import TEX_FILE
 
@@ -84,6 +91,43 @@ def sample_texmap_ch(tables, tm_id, u, v, w=None):
     return tuple(torch.where(no_map, 1.0, c) for c in cols)
 
 
+def sample_texture(tables, tex_id, uvw):
+    """Texture(s) `tex_id` [N] at uvw [N,3] -> [N,3]
+    (rtf_tpu/ops/texture.py::sample_texture)."""
+    return torch.stack(sample_texture_ch(tables, tex_id, uvw[:, 0],
+                                         uvw[:, 1]), dim=-1)
+
+
+def sample_texmap(tables, tm_id, uvw):
+    """Texture map(s) `tm_id` [N] at uvw [N,3] -> [N,3], 1 where tm_id =
+    -1 (rtf_tpu/ops/texture.py::sample_texmap)."""
+    return torch.stack(sample_texmap_ch(tables, tm_id, uvw[:, 0], uvw[:, 1],
+                                        uvw[:, 2]), dim=-1)
+
+
+def sample_texmap_filtered(tables, tm_id, uvw, duv0, duv1,
+                           n_samples: int = 32):
+    """Elliptic footprint filtering, Texture::Sample(uvw, duvw)
+    (scene.h:331-349, TEXTURE_SAMPLE_COUNT = 32): the mean of `n_samples`
+    taps of `sample_texmap` over the ellipse spanned by duv0 and duv1
+    ([N,2] uv-space footprint vectors, ops/trace.py::footprint_duv), tap 0
+    at uvw and tap i at Halton_2(i), Halton_3(i) mapped to a radius-0.5
+    disk, the reference's mapping (rtf_tpu/ops/texture.py::
+    sample_texmap_filtered)."""
+    zero = torch.zeros_like(uvw[:, :1])
+    d0 = torch.cat([duv0, zero], dim=-1)
+    d1 = torch.cat([duv1, zero], dim=-1)
+    acc = sample_texmap(tables, tm_id, uvw)
+    for i in range(1, n_samples):
+        hx = float(halton_np(i, 2))
+        hy = float(halton_np(i, 3))
+        r = math.sqrt(hx) * 0.5
+        x = r * math.sin(2.0 * math.pi * hy)
+        y = r * math.cos(2.0 * math.pi * hy)
+        acc = acc + sample_texmap(tables, tm_id, uvw + x * d0 + y * d1)
+    return acc / float(n_samples)
+
+
 def _sel_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] with the ids clamped into the table (rtf_tpu's
     where-chain over rows, which exists because a gather is slow on a
@@ -91,13 +135,17 @@ def _sel_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[torch.clamp(idx.to(torch.int64), 0, table.shape[0] - 1)]
 
 
-def sample_textured_color(tables, color, tm_id, uvw):
-    """TexturedColor::Sample without the footprint filter: `color` [3] or
-    [N,3] times texture map(s) `tm_id` [N] at uvw [N,3] (1 where
-    tm_id = -1)."""
-    tex = sample_texmap_ch(tables, tm_id.to(torch.int64), uvw[:, 0],
-                           uvw[:, 1], uvw[:, 2])
-    return color * torch.stack(tex, dim=-1)
+def sample_textured_color(tables, color, tm_id, uvw, duv=None,
+                          n_filter: int = 32):
+    """TexturedColor::Sample: `color` [3] or [N,3] times texture map(s)
+    `tm_id` [N] at uvw [N,3] (1 where tm_id = -1); duv = (duv0, duv1)
+    filters each sample over its footprint (`sample_texmap_filtered`,
+    n_filter taps)."""
+    tm_id = tm_id.to(torch.int64)
+    if duv is not None:
+        return color * sample_texmap_filtered(tables, tm_id, uvw, duv[0],
+                                              duv[1], n_samples=n_filter)
+    return color * sample_texmap(tables, tm_id, uvw)
 
 
 def env_uvw(direction: torch.Tensor, l2: bool = False) -> torch.Tensor:

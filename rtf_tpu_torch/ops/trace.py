@@ -4,30 +4,45 @@
 Spheres and planes: one broadcast intersection of the whole wavefront
 against every instance of the group ([N rays, I instances]), then a min-t
 reduction over instances.  Meshes: per mesh instance, the rays go to the
-instance's local space and through ops/mesh_hit.py::mesh_closest_hit_rays
-over the instance's slot of the packed triangle table (the CUDA kernel on
-the card, its plain version on the CPU).  Hit attributes are reconstructed
-once, for the winning primitive only.
+instance's local space and through the scene's mesh_algo:
+* "auto" (and rtf_tpu's names "pallas", "pallas_interpret"):
+  ops/mesh_hit.py::mesh_closest_hit_rays over the instance's slot of the
+  packed triangle table, what rtf_tpu takes on its accelerator;
+* "bvh": ops/bvh_hit.py::bvh_closest_hit over the slot's BVH (built at the
+  first such trace, scene/build.py::ensure_bvh);
+* "dense": `_dense_mesh`, every face of the slot in tiles, rtf_tpu's
+  default on the CPU; torch ops on any device.
+On the card the first two launch their CUDA kernels, on the CPU they run
+their plain versions.  Hit attributes are reconstructed once, for the
+winning primitive only; `footprint_duv` gives a primary hit's texture
+footprint for filtering.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
 
 from rtf_tpu_torch.core.math import (
-    BIGFLOAT, mat3_apply, mat3_apply_batched, normalize,
+    BIGFLOAT, cross, dot, mat3_apply, mat3_apply_batched, normalize,
 )
 from rtf_tpu_torch.ops.intersect import (
-    intersect_plane, intersect_sphere, plane_attributes, sphere_attributes,
+    intersect_plane, intersect_sphere, intersect_triangle, plane_attributes,
+    sphere_attributes,
 )
-from rtf_tpu_torch.ops import mesh_hit
+from rtf_tpu_torch.ops import bvh_hit, mesh_hit
 from rtf_tpu_torch.ops.texture import _sel_rows
+from rtf_tpu_torch.scene.build import ensure_bvh
 
 KIND_NONE, KIND_SPHERE, KIND_PLANE, KIND_MESH = 0, 1, 2, 3
-# scene.mesh_algo values that run ops/mesh_hit.py::mesh_closest_hit
-MESH_ALGOS = ("auto", "pallas", "pallas_interpret")
+# scene.mesh_algo values: the first three run ops/mesh_hit.py::
+# mesh_closest_hit, "bvh" ops/bvh_hit.py, "dense" `_dense_mesh`
+MESH_ALGOS = ("auto", "pallas", "pallas_interpret", "bvh", "dense")
+# ray x face elements of one `_dense_mesh` step: torch does not fuse its
+# [rays, faces] temporaries, so the rays go in chunks
+_DENSE_CHUNK = 1 << 23
 
 
 @dataclass
@@ -83,38 +98,105 @@ def _scan_group(group, o, d, hit: Hit, kind_code: int, intersect_fn) -> Hit:
         front=torch.where(upd, fr.gather(1, j[:, None])[:, 0], hit.front))
 
 
+def _dense_mesh(mesh, o, d, t_init, face_init, front_init, ba_init,
+                bb_init, face_range: tuple, tile: int = 512,
+                chunk: int = None):
+    """Dense tiled mesh intersection of rays already in the instance's
+    local space (rtf_tpu/ops/trace.py::_dense_mesh): every ray against
+    every face of the arena range `face_range`, in tiles of max(8, min(
+    tile, F)) faces padded with degenerate faces that never validate,
+    keeping per ray the least t (the first face among a tile's ties, as
+    argmin).  Returns (t, face, front, ba, bb), the init values where no
+    face beats t_init.  The rays go `chunk` at a time (default: as many as
+    keep a [rays, tile] temporary within _DENSE_CHUNK elements), which
+    changes no ray's result."""
+    f0, f1 = face_range
+    tris = [x[f0:f1] for x in (mesh.tri_a, mesh.tri_b, mesh.tri_c)]
+    nf = f1 - f0
+    t = max(8, min(tile, nf))
+    pad = (-nf) % t
+    if pad:
+        tris = [torch.cat([x, x.new_zeros((pad, 3))]) for x in tris]
+    ntiles = (nf + pad) // t
+    step = chunk or max(1, _DENSE_CHUNK // t)
+    out = [x.clone() for x in (t_init, face_init, front_init, ba_init,
+                               bb_init)]
+    for s in range(0, o.shape[0], step):
+        sl = slice(s, s + step)
+        t_best, face, front, ba, bb = (x[sl] for x in out)
+        o_b, d_b = o[sl, None, :], d[sl, None, :]
+        for tix in range(ntiles):
+            at, bt, ct = (x[None, tix * t:(tix + 1) * t] for x in tris)
+            tt, fr, tba, tbb, valid = intersect_triangle(
+                o_b, d_b, at, bt, ct, t_best[:, None])
+            tt = torch.where(valid, tt, BIGFLOAT)
+            j = torch.argmin(tt, dim=1, keepdim=True)
+            t_min = tt.gather(1, j)[:, 0]
+            upd = t_min < t_best
+            t_best = torch.where(upd, t_min, t_best)
+            face = torch.where(upd, (f0 + tix * t + j[:, 0])
+                               .to(face.dtype), face)
+            front = torch.where(upd, fr.gather(1, j)[:, 0], front)
+            ba = torch.where(upd, tba.gather(1, j)[:, 0], ba)
+            bb = torch.where(upd, tbb.gather(1, j)[:, 0], bb)
+        for x, v in zip(out, (t_best, face, front, ba, bb)):
+            x[sl] = v
+    return tuple(out)
+
+
+def _bvh_root(mesh, slot: int) -> int:
+    """The BVH root node of a mesh slot (the arena's slot_root), read
+    from the host copy kept with the kernel's tables on the card."""
+    if mesh.slot_root.device.type == "cpu":
+        return int(mesh.slot_root[slot])
+    return bvh_hit.bvh_walk(mesh).roots[slot]
+
+
 def _mesh_instances(scene, o, d, hit: Hit) -> Hit:
-    """Closest mesh hit, one mesh_closest_hit call per mesh instance."""
+    """Closest mesh hit, one closest-hit call per mesh instance by the
+    scene's mesh_algo."""
     algo = scene.mesh_algo
     if algo not in MESH_ALGOS:
         raise NotImplementedError(
-            f"mesh_algo={algo!r} is not ported (the port runs "
+            f"mesh_algo={algo!r} is not a mesh algorithm (the port runs "
             f"{', '.join(MESH_ALGOS)})")
     mesh = scene.mesh
+    if algo == "bvh":
+        ensure_bvh(mesh)
     nr = o.shape[0]
     perm = mesh.tri_perm.to(torch.int64)
     for i, slot in enumerate(scene.mesh_inst_slots):
         lo, ld = _to_local(scene.mesh_inst.itm[i], scene.mesh_inst.pos[i],
                            o, d)
-        col0, fpad, ar0, nt, _ = mesh.slot_pack[slot]
-        tp, face_p, fr_p, ba_p, bb_p = mesh_hit.mesh_closest_hit_rays(
-            lo, ld, hit.t, mesh.tri_packed[:, col0:col0 + fpad],
-            mesh.tile_aabb[ar0:ar0 + nt], face0=col0, tree=mesh.hit_tree,
-            slot=slot)
-        got = face_p[:nr] >= 0
-        # packed (Morton) id -> arena face id
-        face_a = perm[torch.clamp(face_p[:nr].to(torch.int64), 0,
-                                  perm.shape[0] - 1)].to(torch.int32)
-        t = torch.where(got, tp[:nr], BIGFLOAT)
+        if algo == "bvh":
+            t, face_a, fr, ba, bb = bvh_hit.bvh_closest_hit(
+                mesh, _bvh_root(mesh, slot), lo, ld, hit.t)
+            front = fr > 0.5
+        elif algo == "dense":
+            t, face_a, front, ba, bb = _dense_mesh(
+                mesh, lo, ld, hit.t, hit.face, hit.front, hit.ba, hit.bb,
+                mesh.slot_faces[slot])
+        else:
+            col0, fpad, ar0, nt, _ = mesh.slot_pack[slot]
+            tp, face_p, fr_p, ba_p, bb_p = mesh_hit.mesh_closest_hit_rays(
+                lo, ld, hit.t, mesh.tri_packed[:, col0:col0 + fpad],
+                mesh.tile_aabb[ar0:ar0 + nt], face0=col0,
+                tree=mesh.hit_tree, slot=slot)
+            got = face_p[:nr] >= 0
+            # packed (Morton) id -> arena face id
+            face_a = perm[torch.clamp(face_p[:nr].to(torch.int64), 0,
+                                      perm.shape[0] - 1)].to(torch.int32)
+            t = torch.where(got, tp[:nr], BIGFLOAT)
+            front, ba, bb = fr_p[:nr] > 0.5, ba_p[:nr], bb_p[:nr]
         upd = t < hit.t
         hit = Hit(
             t=torch.where(upd, t, hit.t),
             kind=torch.where(upd, KIND_MESH, hit.kind),
             inst=torch.where(upd, i, hit.inst),
             face=torch.where(upd, face_a, hit.face),
-            ba=torch.where(upd, ba_p[:nr], hit.ba),
-            bb=torch.where(upd, bb_p[:nr], hit.bb),
-            front=torch.where(upd, fr_p[:nr] > 0.5, hit.front))
+            ba=torch.where(upd, ba, hit.ba),
+            bb=torch.where(upd, bb, hit.bb),
+            front=torch.where(upd, front, hit.front))
     return hit
 
 
@@ -205,6 +287,79 @@ def resolve_surface(scene, o, d, hit: Hit) -> Surface:
 
     return Surface(p=p_world, n=nrm_w, uvw=uvw, mtl=mtl, front=hit.front,
                    t=hit.t, valid=hit.is_hit)
+
+
+def footprint_duv(scene, o, d, hit: Hit, surf: Surface, xang: float,
+                  yang: float):
+    """Texture-space footprint derivatives (duv0, duv1), each [N,2]
+    (rtf_tpu/ops/trace.py::footprint_duv, the analog of the reference's
+    disabled `calculateduvw`, RayTracingProj7 objects.h:81-87, :152-158):
+    the pixel's angular extent (xang, yang: per-pixel width and height at
+    unit distance) projected onto the hit's tangent plane,
+    f0 = t * yang * normalize(d x N), f1 = t * xang * normalize((d x N) x
+    N) stretched by 1 / max(|N.d|, 0.05) at grazing incidence, then taken
+    to uv space by each primitive's parameterization (plane uv =
+    (local.xy + 1) / 2, the sphere's angular map, a mesh face's uv
+    density, attr_t[:, 9]).  Head-on rays (d parallel to N) take any
+    tangent frame of N.  Zero where nothing was hit."""
+    n_rays = o.shape[0]
+    nw = surf.n
+    yhat = cross(d, nw)
+    ylen = torch.linalg.vector_norm(yhat, dim=-1, keepdim=True)
+    alt = torch.where(torch.abs(nw[:, :1]) < 0.9,
+                      torch.tensor([1.0, 0.0, 0.0], device=o.device),
+                      torch.tensor([0.0, 1.0, 0.0], device=o.device))
+    fallback = normalize(cross(nw, alt))
+    yhat = torch.where(ylen > 1e-6, yhat / torch.clamp(ylen, min=1e-12),
+                       fallback)
+    xhat = normalize(cross(yhat, nw))
+    t = hit.t[:, None]
+    stretch = 1.0 / torch.clamp(torch.abs(dot(d, nw))[:, None], min=0.05)
+    f0 = t * yang * yhat
+    f1 = t * xang * xhat * stretch
+    duv0 = torch.zeros((n_rays, 2), dtype=o.dtype, device=o.device)
+    duv1 = torch.zeros_like(duv0)
+
+    def local_pair(group):
+        itm = _sel_rows(group.itm, hit.inst)
+        return mat3_apply_batched(itm, f0), mat3_apply_batched(itm, f1)
+
+    if scene.num_planes > 0:
+        lf0, lf1 = local_pair(scene.planes)
+        m = (hit.kind == KIND_PLANE)[:, None]
+        duv0 = torch.where(m, lf0[:, :2] * 0.5, duv0)
+        duv1 = torch.where(m, lf1[:, :2] * 0.5, duv1)
+
+    if scene.num_spheres > 0:
+        itm = _sel_rows(scene.spheres.itm, hit.inst)
+        lp = mat3_apply_batched(
+            itm, surf.p - _sel_rows(scene.spheres.pos, hit.inst))
+        lf0, lf1 = local_pair(scene.spheres)
+        r2xy = torch.clamp(lp[:, 0] ** 2 + lp[:, 1] ** 2, min=1e-8)
+        vden = math.pi * torch.sqrt(torch.clamp(1.0 - lp[:, 2] ** 2,
+                                                min=1e-8))
+
+        def sph_duv(lf):
+            du = (lp[:, 0] * lf[:, 1] - lp[:, 1] * lf[:, 0]) \
+                / (2.0 * math.pi * r2xy)
+            return torch.stack([du, lf[:, 2] / vden], dim=-1)
+
+        m = (hit.kind == KIND_SPHERE)[:, None]
+        duv0 = torch.where(m, sph_duv(lf0), duv0)
+        duv1 = torch.where(m, sph_duv(lf1), duv1)
+
+    if scene.mesh is not None and scene.num_mesh_inst > 0:
+        lf0, lf1 = local_pair(scene.mesh_inst)
+        uvscale = scene.mesh.attr_t[hit.face.to(torch.int64), 9]
+        s0 = torch.linalg.vector_norm(lf0, dim=-1) * uvscale
+        s1 = torch.linalg.vector_norm(lf1, dim=-1) * uvscale
+        z = torch.zeros_like(s0)
+        m = (hit.kind == KIND_MESH)[:, None]
+        duv0 = torch.where(m, torch.stack([s0, z], -1), duv0)
+        duv1 = torch.where(m, torch.stack([z, s1], -1), duv1)
+
+    ok = surf.valid[:, None]
+    return torch.where(ok, duv0, 0.0), torch.where(ok, duv1, 0.0)
 
 
 def trace_shadow(scene, o: torch.Tensor, d: torch.Tensor,

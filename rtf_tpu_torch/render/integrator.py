@@ -43,7 +43,7 @@ from rtf_tpu_torch.core.math import cross, dot, luma, normalize, \
 from rtf_tpu_torch.gi.grid import estimate_irradiance
 from rtf_tpu_torch.gi.volume import IrradianceVolume, sample_volume
 from rtf_tpu_torch.ops.texture import sample_environment
-from rtf_tpu_torch.ops.trace import resolve_surface, trace
+from rtf_tpu_torch.ops.trace import footprint_duv, resolve_surface, trace
 from rtf_tpu_torch.render.shade import (
     direct_lighting, draw_gloss_uniforms, draw_shadow_uniforms,
     fresnel_split, sample_material,
@@ -116,7 +116,17 @@ def shade_lanes(scene, cfg, tables, o, d, tput, absorb, pixel, alive, rtype,
     hit_mask = surf.valid & alive
     atten = torch.exp(-absorb * surf.t[:, None])
     k_eff = tput * torch.where(surf.front[:, None], 1.0, atten)
-    mtl = sample_material(scene, tables, surf.mtl, surf.uvw)
+    duv = None
+    if cfg.tex_filter and scene.tm_channels:
+        # ray-differential footprint filtering, primary rays only (the
+        # reference sets xangle/yangle on camera rays only, RayTracingProj7
+        # main.cpp:141-142; a secondary ray's duvw stays 0)
+        pix = 2.0 * math.tan(math.radians(scene.fov) * 0.5) / scene.height
+        duv0, duv1 = footprint_duv(scene, o, d, hit, surf, pix, pix)
+        prim = (rtype == RT_PRIMARY)[:, None]
+        duv = (torch.where(prim, duv0, 0.0), torch.where(prim, duv1, 0.0))
+    mtl = sample_material(scene, tables, surf.mtl, surf.uvw, duv=duv,
+                          n_filter=cfg.tex_filter_samples)
     view = -d
     if cfg.gi_mode == "pm_direct":
         # the photon estimate is all of the diffuse lighting

@@ -19,7 +19,8 @@ at uvw = (x/W, y/H, 0)), z-buffer and sample-count AOVs.
 `render` is `render_device_host` (the raw accumulators in pixel order;
 the CLI's `watch` accumulates passes with its `sample_base` and
 `progress_cb`) and `finalize`; `preview` is the flat-shaded single trace
-the CLI writes before a render.
+the CLI writes before a render.  `adaptive_ladder` is the ladder of one
+device or of one shard of parallel/mesh.py::render_sharded.
 
 Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed,
 and the wavefront's draws (soft shadows, glossy normals, Russian
@@ -60,7 +61,8 @@ from rtf_tpu_torch.render.config import RenderConfig
 from rtf_tpu_torch.render.gi import gi_wave
 from rtf_tpu_torch.render.integrator import render_wave
 from rtf_tpu_torch.render.scene_tables import (
-    MAX_FACES, WaveTables, mesh_mode, render_path, scene_tables,
+    MAX_FACES, WaveTables, fused_reason, mesh_mode, render_path,
+    scene_tables, wavefront_reason,
 )
 from rtf_tpu_torch.render.wave import wave
 from rtf_tpu_torch.scene.build import Scene, resolve_device
@@ -121,12 +123,14 @@ def _phase_bounds(cfg) -> list:
 
 
 def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
-                 gi: WaveInputs, wavefront: bool = False):
+                 gi: WaveInputs, wavefront: bool = False, blk0: int = 0):
     """One sample wave over the lanes (px, py): (contrib [3,n], hit_count
     [n], z_min [n]) in lane space.  On the fused path one wave-kernel
     launch, or a GI sample wave when cfg.gi_mode is not 'none' or a
     caustic volume is given; on the wavefront render_wave with local lane
-    ids as pixels, so its output is lane space."""
+    ids as pixels, so its output is lane space.  blk0: the lanes' first
+    global 1024-lane block, which keys the wave kernel's random streams
+    (a tile of a sharded frame passes its own, as rtf_tpu does)."""
     n = px.shape[0]
     j = torch.tensor(j, dtype=torch.int64)
     bases = (cfg.halton_base_x, cfg.halton_base_y)
@@ -145,7 +149,7 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
     o3, d3 = primary_rays_ch(scene, px, py, j, halton_bases=bases,
                              lens_u=lens_u)
     if cfg.gi_mode == "none" and gi.caustic is None:
-        rad3, hitl, zl = wave(cfg, tables, o3, d3, mask, seed)
+        rad3, hitl, zl = wave(cfg, tables, o3, d3, mask, seed, blk0=blk0)
     else:
         # (u_phi, ysq) of each hemisphere sample
         uniforms = torch.rand((cfg.hemisphere_samples, 2, n),
@@ -155,21 +159,39 @@ def wave_contrib(scene, cfg, tables: WaveTables, px, py, mask, j, seed,
     return rad3, hitl.to(torch.int32), torch.where(hitl, zl, BIGFLOAT)
 
 
-def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
-                 order: torch.Tensor, seed: int, gi_map=None,
-                 caustic=None, wavefront: bool = False,
-                 sample_base: int = 0, progress_cb=None):
-    """The adaptive ladder in lane space: (rad [3,P], hits [P], z [P],
-    nsamples [P]) with lane k = pixel order[k], every sample wave a
-    `wave_contrib` on the fused path or on the wavefront.  Wave j of the
-    ladder takes Halton index sample_base + j; progress_cb(done, total)
-    is called after each wave (see `render_device_host`)."""
+def adaptive_ladder(scene: Scene, cfg: RenderConfig, tables: WaveTables,
+                    order: torch.Tensor, seed: int, gi_map=None,
+                    caustic=None, wavefront: bool = False,
+                    sample_base: int = 0, progress_cb=None,
+                    spp_rank: int = 0, n_spp: int = 1, group=None,
+                    blk0: int = 0):
+    """The adaptive ladder in lane space (rtf_tpu/render/renderer.py::
+    adaptive_ladder): (rad [3,P], hits [P], z [P], nsamples [P]) with lane
+    k = pixel order[k], every sample wave a `wave_contrib` on the fused
+    path or on the wavefront.  Wave j of the ladder takes Halton index
+    sample_base + j; progress_cb(done, total) is called after each wave
+    (see `render_device_host`).
+
+    Sharding (parallel/mesh.py::render_sharded): sample j runs on rank
+    j % n_spp of the spp group.  Every rank draws the host seed of every
+    j, so a wave's kernel seed does not depend on the rank that renders
+    it; with n_spp > 1 each rank's device generator (the wavefront's
+    draws, the lens, the hemisphere directions) is seeded from (seed,
+    rank), so ranks do not repeat each other's draws.  Before every
+    variance decision, and for the result, rad, rad2 and hits are summed
+    and z minimised over `group` (a torch.distributed process group), so
+    every rank takes the same refinement mask, as rtf_tpu's psum over its
+    "spp" axis.  blk0 goes to the wave kernel (see `wave_contrib`).  With
+    the defaults (n_spp 1, no group, blk0 0) it is the single-device
+    frame."""
     dev = tables.device
     px, py = order % scene.width, order // scene.width
     n = order.shape[0]
     gen = torch.Generator().manual_seed(int(seed))
+    dev_seed = int(seed) if n_spp == 1 else int(np.random.SeedSequence(
+        [int(seed), int(spp_rank)]).generate_state(1)[0])
     gi = WaveInputs(gi_map, caustic,
-                  torch.Generator(device=dev).manual_seed(int(seed)))
+                    torch.Generator(device=dev).manual_seed(dev_seed))
     rad = torch.zeros((3, n), dtype=torch.float32, device=dev)
     rad2 = torch.zeros_like(rad)
     hits = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -182,9 +204,11 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
         nonlocal rad, rad2, hits, z, done
         for j in range(lo, hi):
             s = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+            if j % n_spp != spp_rank:
+                continue
             contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
                                            mask, sample_base + j, s, gi,
-                                           wavefront)
+                                           wavefront, blk0)
             rad = rad + contrib
             rad2 = rad2 + contrib * contrib
             hits = hits + hc
@@ -194,6 +218,16 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
                 done += 1
                 progress_cb(done, bounds[-1])
 
+    def combined():
+        if group is None:
+            return rad, rad2, hits, z
+        from torch import distributed as dist
+        out = [x.clone() for x in (rad, rad2, hits, z)]
+        for x in out[:3]:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(out[3], op=dist.ReduceOp.MIN, group=group)
+        return out
+
     all_px = torch.ones(n, dtype=torch.bool, device=dev)
     run(all_px, 0, bounds[0])
     nsamples = torch.full((n,), bounds[0], dtype=torch.int32, device=dev)
@@ -201,10 +235,12 @@ def render_lanes(scene: Scene, cfg: RenderConfig, tables: WaveTables,
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         # variance over ALL accumulated hit samples (colorlist grows
         # across rungs, main.cpp:273); a pixel that stops never resumes
-        need = need & _need_mask(cfg, rad, rad2, hits)
+        c_rad, c_rad2, c_hits, _ = combined()
+        need = need & _need_mask(cfg, c_rad, c_rad2, c_hits)
         run(need, lo, hi)
         nsamples = nsamples + torch.where(need, hi - lo, 0).to(torch.int32)
-    return rad, hits, z, nsamples
+    c_rad, _, c_hits, c_z = combined()
+    return c_rad, c_hits, c_z, nsamples
 
 
 def lanes_to_pixels(rad, hits, z, nsamples, order):
@@ -305,19 +341,30 @@ def _on_device(scene: Scene, cfg: RenderConfig, dev: torch.device,
     return scene, tables
 
 
-def _frame(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
-           tables: WaveTables, gi_grid, caustic_grid, sample_base: int = 0,
-           progress_cb=None):
-    """One frame's accumulators (`render_device_host`), with the scene on
-    `dev` and its tables: (scene, tables, (rad, hits, z, nsamples))."""
+def _prepare(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
+             tables: WaveTables, gi_grid, caustic_grid, path=None):
+    """What a frame's ladder needs: the scene on `dev` with its tables,
+    the seed, the path ('fused' or 'wavefront': render_path's, or the
+    caller's) and the photon and caustic maps in the form that path reads
+    (a photon map shot here where photon GI gets none, volumes baked from
+    grids where they are read)."""
     if gi_grid is not None and cfg.gi_mode not in ("photon", "pm_direct"):
         raise ValueError(f"a photon map is read only by gi_mode 'photon' "
                          f"and 'pm_direct', not {cfg.gi_mode!r}")
     seed = cfg.seed if seed is None else seed
-    path, why = render_path(scene, cfg, caustic_grid)
+    auto, why = render_path(scene, cfg, caustic_grid)
     if path is None:
-        raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
-                                  f"{why}")
+        if auto is None:
+            raise NotImplementedError(f"not supported by rtf_tpu_torch yet: "
+                                      f"{why}")
+        path = auto
+    elif path == "fused" and fused_reason(scene, cfg, caustic_grid):
+        raise ValueError(f"the fused path does not take this scene and "
+                         f"config: {fused_reason(scene, cfg, caustic_grid)}")
+    elif path == "wavefront" and wavefront_reason(scene, cfg, caustic_grid):
+        raise NotImplementedError(
+            f"not supported by rtf_tpu_torch yet: "
+            f"{wavefront_reason(scene, cfg, caustic_grid)}")
     if path == "fused":
         label = ("fused, the wave kernel's MXU-table mesh variant "
                  f"({scene.mesh.tri_a.shape[0]} faces > {MAX_FACES})"
@@ -341,11 +388,21 @@ def _frame(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
     # gathers from the caustic grid)
     caustic = volume(caustic_grid, cfg.caustic_radius) \
         if path == "fused" else caustic_grid
+    return scene, tables, seed, path, gi_map, caustic
+
+
+def _frame(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
+           tables: WaveTables, gi_grid, caustic_grid, sample_base: int = 0,
+           progress_cb=None):
+    """One frame's accumulators (`render_device_host`), with the scene on
+    `dev` and its tables: (scene, tables, (rad, hits, z, nsamples))."""
+    scene, tables, seed, path, gi_map, caustic = _prepare(
+        scene, cfg, seed, dev, tables, gi_grid, caustic_grid)
     order = torch.as_tensor(pixel_order(scene.width, scene.height),
                             device=dev).to(torch.int64)
-    acc = render_lanes(scene, cfg, tables, order, seed, gi_map, caustic,
-                       wavefront=path == "wavefront",
-                       sample_base=sample_base, progress_cb=progress_cb)
+    acc = adaptive_ladder(scene, cfg, tables, order, seed, gi_map, caustic,
+                          wavefront=path == "wavefront",
+                          sample_base=sample_base, progress_cb=progress_cb)
     return scene, tables, lanes_to_pixels(*acc, order)
 
 

@@ -74,7 +74,6 @@ from rtf_tpu_torch.gi.volume import IrradianceVolume
 from rtf_tpu_torch.ops.mxu_pack import (  # noqa: F401 (TILE_PAD)
     MXU_TILE, NODE_W, TILE_PAD, mesh_mxu_pack, packed_hierarchy,
     walk_tables)
-from rtf_tpu_torch.ops.trace import MESH_ALGOS
 from rtf_tpu_torch.scene.build import (
     LIGHT_AMBIENT, LIGHT_DIRECT, LIGHT_POINT, Scene,
 )
@@ -138,17 +137,10 @@ def wavefront_reason(scene: Scene, cfg, caustic=None):
     scene+config, else why not."""
     if cfg.gi_mode not in WAVEFRONT_GI_MODES:
         return f"gi_mode={cfg.gi_mode!r} is not a mode of rtf_tpu"
-    if cfg.tex_filter:
-        return ("tex_filter (footprint_duv and sample_texmap_filtered are "
-                "not ported)")
     if isinstance(caustic, IrradianceVolume):
         return ("a caustic volume on the wavefront (its caustic term is "
                 "the exact photon gather from a caustic grid, as in "
                 "rtf_tpu)")
-    if scene.mesh is not None and scene.num_mesh_inst > 0 \
-            and scene.mesh_algo not in MESH_ALGOS:
-        return (f"mesh_algo={scene.mesh_algo!r} (the port runs "
-                f"{', '.join(MESH_ALGOS)}; bvh_traverse is not ported)")
     return None
 
 

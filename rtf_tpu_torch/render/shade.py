@@ -42,10 +42,14 @@ class MtlSample(NamedTuple):
 
 
 def sample_material(scene, tables, mtl_id: torch.Tensor,
-                    uvw: torch.Tensor) -> MtlSample:
+                    uvw: torch.Tensor, duv=None,
+                    n_filter: int = 32) -> MtlSample:
     """Per-lane material attributes; kd and ks are sampled through their
     texture maps (render/scene_tables.py's tables) only when some
-    material maps that channel (scene.tm_channels)."""
+    material maps that channel (scene.tm_channels).  duv = (duv0, duv1)
+    [N,2] filters every textured channel over its footprint with n_filter
+    taps (TexturedColor::Sample with hInfo.duvw, Final/main.cpp:531-532,
+    scene.h:331-349)."""
     m = scene.materials
 
     def chan(color_tbl, tm_tbl, name):
@@ -53,7 +57,7 @@ def sample_material(scene, tables, mtl_id: torch.Tensor,
         if name not in scene.tm_channels:
             return col
         return sample_textured_color(tables, col, _sel_rows(tm_tbl, mtl_id),
-                                     uvw)
+                                     uvw, duv=duv, n_filter=n_filter)
 
     return MtlSample(
         kd=chan(m.diffuse, m.diffuse_tm, "diffuse"),

@@ -5,7 +5,9 @@ the node hierarchy is flattened into per-instance world<->local
 transforms grouped by primitive type, materials become a table, and
 meshes become per-face SoA plus the Morton-packed triangle table of
 ops/pack.py and, for csrc/mesh_hit.cu, a box hierarchy over each slot's
-packed columns (ops/mesh_hit.py::MeshTree).  There is no BVH.
+packed columns (ops/mesh_hit.py::MeshTree).  The per-slot BVH that
+mesh_algo="bvh" walks (ops/bvh_hit.py) is built at the first trace that
+asks for it (`ensure_bvh`), so no other path pays for it.
 File textures are stacked into one row atlas, as rtf_tpu/scene/build.py does.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from rtf_tpu_torch.core.transform import Transform
+from rtf_tpu_torch.ops.bvh import build_mesh_bvh
 from rtf_tpu_torch.ops.mesh_hit import MeshTree, mesh_tree
 from rtf_tpu_torch.ops.pack import pack_triangles
 from rtf_tpu_torch.scene.model import (
@@ -80,6 +83,20 @@ class MeshArena:
     slot_pack: tuple = ()
     # the box hierarchy that mesh_closest_hit's kernel walks
     hit_tree: Optional[MeshTree] = None
+    # the BVH arena of mesh_algo="bvh" (rtf_tpu/scene/build.py:65-73):
+    # None until `ensure_bvh` builds it, or carried across from rtf_tpu
+    bvh_min: Optional[torch.Tensor] = None    # [N,3]
+    bvh_max: Optional[torch.Tensor] = None
+    bvh_child: Optional[torch.Tensor] = None  # [N] int32 first child
+    # (arena-global), -1 = leaf
+    bvh_eoff: Optional[torch.Tensor] = None   # [N] int32 offset into elems
+    bvh_ecnt: Optional[torch.Tensor] = None   # [N] int32
+    bvh_elems: Optional[torch.Tensor] = None  # [E] int32 arena face ids
+    slot_root: Optional[torch.Tensor] = None  # [S] int32 root node per slot
+    max_leaf: int = 8
+    max_depth: int = 32
+    # the kernel's packed copy of the BVH (ops/bvh_hit.py::BvhWalk)
+    bvh_walk: Optional[object] = None
 
 
 @dataclass
@@ -467,6 +484,44 @@ class _Builder:
                 pos=self.t(np.stack([tr.pos for _, tr in self.texmaps])),
             )
         return tex_table, tmap
+
+
+def ensure_bvh(mesh: MeshArena) -> MeshArena:
+    """Build the arena's BVH in place unless it has one: per slot
+    build_mesh_bvh over the slot's faces (rtf_tpu/scene/build.py:370-383),
+    concatenated as rtf_tpu lays them out (child ids arena-global, elems
+    arena face ids, one root per slot), on the arena's device."""
+    if mesh.bvh_min is not None:
+        return mesh
+    corners = np.stack([getattr(mesh, k).cpu().numpy()
+                        for k in ("tri_a", "tri_b", "tri_c")], axis=1)
+    parts = {k: [] for k in ("bmin", "bmax", "child", "eoff", "ecnt",
+                             "elems")}
+    roots = []
+    node_base = elem_base = 0
+    for f0, f1 in mesh.slot_faces:
+        nf = f1 - f0
+        bvh = build_mesh_bvh(corners[f0:f1].reshape(-1, 3),
+                             np.arange(3 * nf).reshape(nf, 3), mesh.max_leaf)
+        child = bvh.child.copy()
+        child[child >= 0] += node_base
+        for k, v in (("bmin", bvh.bmin), ("bmax", bvh.bmax),
+                     ("child", child), ("eoff", bvh.elem_off + elem_base),
+                     ("ecnt", bvh.elem_cnt), ("elems", bvh.elems + f0)):
+            parts[k].append(v)
+        roots.append(node_base + 1)
+        node_base += len(bvh.bmin)
+        elem_base += len(bvh.elems)
+    dev = mesh.tri_a.device
+
+    def cat(k, dtype):
+        return torch.as_tensor(np.concatenate(parts[k]).astype(dtype),
+                               device=dev)
+    mesh.bvh_min, mesh.bvh_max = cat("bmin", F32), cat("bmax", F32)
+    mesh.bvh_child, mesh.bvh_eoff = cat("child", I32), cat("eoff", I32)
+    mesh.bvh_ecnt, mesh.bvh_elems = cat("ecnt", I32), cat("elems", I32)
+    mesh.slot_root = torch.as_tensor(np.array(roots, I32), device=dev)
+    return mesh
 
 
 def camera_basis(cam) -> np.ndarray:

@@ -4,10 +4,11 @@
 numpy arrays keyed by their tree path ("spheres.itm", "mesh.tri_packed",
 "bg_color", ...) and its static fields by name ("width", "light_kinds",
 "mesh.slot_pack", ...), and returns the port's `Scene`.  Nothing here
-imports JAX: the caller flattens the GpuScene.  Leaves the port has no
-field for (the BVH arena) are ignored; the mesh's box hierarchy for
-csrc/mesh_hit.cu (MeshArena.hit_tree) is built here from the packed
-table.
+imports JAX: the caller flattens the GpuScene.  The BVH arena's leaves
+(mesh.bvh_*, mesh.slot_root) come across with the rest, so the port's
+walk can run on rtf_tpu's own tree; leaves the port has no field for are
+ignored.  The mesh's box hierarchy for csrc/mesh_hit.cu
+(MeshArena.hit_tree) is built here from the packed table.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def scene_from_arrays(arrays: dict, statics: dict, device="cuda") -> Scene:
         for f in dataclasses.fields(cls):
             key = f"{name}.{f.name}"
             if _is_tensor_field(f):
-                sub[f.name] = tensor(key)
+                if key in arrays or not f.type.startswith("Optional"):
+                    sub[f.name] = tensor(key)
             elif key in statics:
                 sub[f.name] = statics[key]
         kw[name] = cls(**sub)

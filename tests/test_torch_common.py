@@ -320,21 +320,20 @@ def test_entry_points_default_to_the_card(tmp_path):
         main(["view", xml, str(tmp_path / "s.npz")])
 
 
-@pytest.mark.parametrize("case", [
-    "tex_filter", "tex_filter_wavefront", "caustic_wavefront", "bvh"])
+@pytest.mark.parametrize("case", ["caustic_wavefront"])
 def test_unsupported_scenes_raise(case):
-    """What neither path of the port renders yet.  The cases this test
-    had before the wavefront was ported (the 'both' split, DOF, more than
-    2 lights, more than 16 materials, emission texture maps) render now
+    """What neither path of the port renders.  The cases this test had
+    before the wavefront was ported (the 'both' split, DOF, more than 2
+    lights, more than 16 materials, emission texture maps) render now
     (test_torch_wavefront_render.py::test_formerly_refused_scenes_render),
     and so do its large-mesh cases since the MXU variant was ported
-    (test_large_mesh_scenes_render) and its photon cases since the photon
+    (test_large_mesh_scenes_render), its photon cases since the photon
     pass was ported (test_torch_photon_render.py::
-    test_formerly_refused_photon_scenes_render).  A caustic volume on the
-    wavefront stays refused: rtf_tpu's wavefront gathers caustics only
-    from a photon grid."""
-    import dataclasses
-
+    test_formerly_refused_photon_scenes_render) and its tex_filter and bvh
+    cases since footprint filtering and the BVH walk were ported
+    (test_torch_wavefront_render.py::test_formerly_refused_filter_scenes_
+    render).  A caustic volume on the wavefront stays refused: rtf_tpu's
+    wavefront gathers caustics only from a photon grid."""
     from rtf_tpu_torch.gi.volume import load_volume
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
@@ -343,23 +342,12 @@ def test_unsupported_scenes_raise(case):
     from test_torch_gi_volume import VOLUME
     desc = box_scene(8, 6, mesh_subdiv=0)
     cfg = RenderConfig(min_samples=8, max_samples=8, bounces=0,
-                       shadow_min=1, shadow_max=1)
-    both = cfg.with_(split_mode="both")
-    kw, match = {}, None
-    if case == "tex_filter":
-        cfg, match = cfg.with_(tex_filter=True), "tex_filter"
-    elif case == "tex_filter_wavefront":
-        cfg, match = both.with_(tex_filter=True), "footprint_duv"
-    elif case == "caustic_wavefront":
-        cfg, match = both, "caustic volume on the wavefront"
-        kw = dict(caustic_vol=load_volume(VOLUME, device="cpu"))
-    else:                          # bvh_traverse is not ported
-        cfg, match = both, "bvh"
+                       shadow_min=1, shadow_max=1, split_mode="both")
     scene = build_scene(desc, device="cpu")
-    if case == "bvh":
-        scene = dataclasses.replace(scene, mesh_algo="bvh")
-    with pytest.raises(NotImplementedError, match=match):
-        render(scene, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError,
+                       match="caustic volume on the wavefront"):
+        render(scene, cfg, device="cpu",
+               caustic_vol=load_volume(VOLUME, device="cpu"))
 
 
 @pytest.mark.parametrize("case", ["faces", "faces_rr_gi"])

@@ -1,5 +1,6 @@
-"""The kernels (csrc/wave_kernel.cu, mesh_hit.cu, mesh_hit_mxu.cu) against
-their plain PyTorch versions on the card, and the wrapper's device rules.
+"""The kernels (csrc/wave_kernel.cu, mesh_hit.cu, mesh_hit_mxu.cu,
+bvh_hit.cu) against their plain PyTorch versions on the card, and the
+wrapper's device rules.
 
 Tests marked `cuda` need a CUDA card and nvcc; they skip elsewhere.  On
 the card run them with `python -m pytest --noconftest
@@ -866,3 +867,59 @@ def test_cache_evaluator_exact(cuda_dev, name):
         assert getattr(W, counter) - before == (4 if fn is None else 0)
     assert torch.equal(out[0], out[1]), float((out[0] - out[1]).abs().max())
     assert float(out[0].mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdiv", [2, 5])
+@pytest.mark.parametrize("kind", ["camera", "scattered", "capped"])
+def test_bvh_kernel_matches_plain(cuda_dev, subdiv, kind):
+    """csrc/bvh_hit.cu against bvh_closest_hit_plain on the 320- and
+    20,480-face balls (mesh_subdiv 2 and 5): the 160x120 camera's rays in
+    the ball's local space, seeded scattered rays about the ball, and the
+    camera's rays with seeded t_init caps.  Faces equal, t, front, ba and
+    bb with max abs error 0.0 (one thread walks a ray's pops and tests in
+    the plain version's order and rounds as torch does), the work counters
+    equal to the plain walk's, one launch counted."""
+    from rtf_tpu_torch.ops import bvh_hit as B
+    from rtf_tpu_torch.ops.trace import _to_local
+    from rtf_tpu_torch.render.camera import pixel_order, primary_rays
+    from rtf_tpu_torch.scene.build import build_scene, ensure_bvh
+    from rtf_tpu_torch.scene.procedural import box_scene
+    from test_torch_common import dense_rays
+    scene = build_scene(box_scene(160, 120, mesh_subdiv=subdiv),
+                        device=cuda_dev)
+    mesh = ensure_bvh(scene.mesh)
+    if kind == "scattered":
+        f0, f1 = mesh.slot_faces[0]
+        o, d = (torch.as_tensor(x, device=cuda_dev) for x in dense_rays(
+            "scattered", *(getattr(mesh, k)[f0:f1].cpu().numpy()
+                           for k in ("tri_a", "tri_b", "tri_c")),
+            seed=subdiv, n=20000))
+    else:
+        order = torch.as_tensor(pixel_order(160, 120),
+                                device=cuda_dev).to(torch.int64)
+        wo, wd = primary_rays(scene, order % 160, order // 160,
+                              torch.tensor(1))
+        o, d = _to_local(scene.mesh_inst.itm[0], scene.mesh_inst.pos[0],
+                         wo, wd)
+    t_init = torch.full((o.shape[0],), 1e30, device=cuda_dev)
+    if kind == "capped":
+        g = torch.Generator(cuda_dev).manual_seed(3)
+        t_init = torch.where(torch.rand(o.shape[0], generator=g,
+                                        device=cuda_dev) < 0.5,
+                             20.0 + 8.0 * torch.rand(o.shape[0], generator=g,
+                                                     device=cuda_dev),
+                             t_init)
+    root = int(mesh.slot_root[0])
+    sk, sp = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
+              for _ in range(2))
+    before = B.launches
+    kern = B.bvh_closest_hit(mesh, root, o, d, t_init, stats=sk)
+    plain = B.bvh_closest_hit_plain(mesh, root, o, d, t_init, stats=sp)
+    torch.cuda.synchronize()
+    assert B.launches == before + 1
+    assert torch.equal(kern[1], plain[1])
+    assert int((kern[1] >= 0).sum()) > 20
+    for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
+        assert torch.equal(k, p), float((k - p).abs().max())
+    assert torch.equal(sk, sp), (sk.tolist(), sp.tolist())

@@ -40,12 +40,16 @@ def _descs(name):
 @pytest.mark.parametrize("name", ["box", "checker", "textured"])
 def test_build_scene_matches_jax(name):
     from rtf_tpu.scene.build import build_scene as jbuild
-    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.build import build_scene, ensure_bvh
     from rtf_tpu_torch.scene.convert import scene_from_arrays
     jdesc, pdesc = _descs(name)
     arrays, statics = jax_scene_arrays(jbuild(jdesc))
     ref = scene_from_arrays(arrays, statics, device="cpu")
     port = build_scene(pdesc, device="cpu")
+    if port.mesh is not None:
+        # the BVH arena is built at the first "bvh" trace; rtf_tpu's comes
+        # across with the rest
+        ensure_bvh(port.mesh)
     ref_leaves, port_leaves = scene_leaves(ref), scene_leaves(port)
     assert ref_leaves.keys() == port_leaves.keys()
     assert len(port_leaves) > 40

@@ -210,13 +210,16 @@ def test_built_scene_file_matches_jax(tmp_path, capsys):
     """load_scene then build_scene in each package: the same tables."""
     from rtf_tpu.scene.build import build_scene as jbuild
     from rtf_tpu.scene.xml_loader import load_scene as jload
-    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.build import build_scene, ensure_bvh
     from rtf_tpu_torch.scene.convert import scene_from_arrays
     from rtf_tpu_torch.scene.xml_loader import load_scene
     xml = str(write_scene_set(tmp_path))
     arrays, statics = jax_scene_arrays(jbuild(jload(xml)))
     ref = scene_from_arrays(arrays, statics, device="cpu")
     port = build_scene(load_scene(xml), device="cpu")
+    # the BVH arena is built at the first "bvh" trace; rtf_tpu's comes
+    # across with the rest
+    ensure_bvh(port.mesh)
     capsys.readouterr()
     ref_leaves, port_leaves = scene_leaves(ref), scene_leaves(port)
     assert ref_leaves.keys() == port_leaves.keys()

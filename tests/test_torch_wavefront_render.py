@@ -174,3 +174,38 @@ def test_formerly_refused_scenes_render(case):
     assert render_path(scene, cfg)[0] == path
     res = render(scene, cfg, device="cpu")
     assert np.isfinite(res.radiance).all() and res.image.mean() > 5.0
+
+
+@pytest.mark.parametrize("case", ["tex_filter", "tex_filter_wavefront",
+                                  "bvh"])
+def test_formerly_refused_filter_scenes_render(case):
+    """The cases test_torch_common.py::test_unsupported_scenes_raise
+    refused before footprint filtering and the BVH walk were ported:
+    tex_filter on the 'rr' split (the fused gate refuses it, so the
+    wavefront takes it, as in rtf_tpu) and on the 'both' split, on the
+    textured box, and mesh_algo="bvh" on the box: each takes the
+    wavefront and gives a finite, lit frame."""
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.render.scene_tables import render_path
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    from test_torch_common import textured_desc
+    cfg = RenderConfig(min_samples=8, max_samples=8, bounces=0,
+                       shadow_min=1, shadow_max=1)
+    if case == "bvh":
+        scene = dataclasses.replace(
+            build_scene(box_scene(8, 6, mesh_subdiv=0), device="cpu"),
+            mesh_algo="bvh")
+        cfg = cfg.with_(split_mode="both")
+    else:
+        scene = build_scene(textured_desc(8, 6, mesh_subdiv=0),
+                            device="cpu")
+        cfg = cfg.with_(tex_filter=True)
+        if case == "tex_filter_wavefront":
+            cfg = cfg.with_(split_mode="both")
+        else:
+            assert cfg.resolved_split_mode() == "rr"
+    assert render_path(scene, cfg)[0] == "wavefront"
+    res = render(scene, cfg, device="cpu")
+    assert np.isfinite(res.radiance).all() and res.image.mean() > 5.0
