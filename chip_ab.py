@@ -2,6 +2,7 @@
 """Compare versions of the port's kernels in turns on one card.
 
     python3 chip_ab.py [PARENT_DIR] [--dense] [--out FILE]
+    python3 chip_ab.py [PARENT_DIR] --bvh [--out FILE]
     python3 chip_ab.py --emulate
 
 Run from the root of a checkout (the change), on a host with a CUDA card
@@ -66,6 +67,28 @@ launches are chip_smoke.py's, on the same inputs:
    the arguments it does not take are dropped (those before the stream).
    The parent's mesh_closest_hit(_rays) is its own ops/mesh_hit.py on its
    own library, with the change's arguments that it takes.
+
+--bvh runs only this: bvh_closest_hit on phase 12's three ray sets
+(chip_smoke.py::bvh_sets: one wave's primary rays and first shadow batch
+of RenderConfig() with mesh_algo="bvh" on box_scene(800, 600,
+mesh_subdiv=5, light_size=1.0), 480,000 scattered rays) and a fourth
+set, "miss" (the scattered rays moved 300 units out along their
+directions, each missing the root's boxes: the launch's floor) in turns:
+with PARENT_DIR the parent's bvh_closest_hit (its own ops/bvh_hit.py on
+its own csrc/bvh_hit.cu, built with its own flags) and the change's walk as
+the wrapper launches it, in the order parent, change, change, parent; each
+side's outputs held against the lock-step plain walk's under the tie rule
+(hit masks and t equal, other differences only at near ties, ops/bvh_hit.py::
+near_ties); each side's counters (pops, box and face tests; the most pops
+of a ray) and profiler time; one wave of that frame (105 walks) per side,
+in turns, the walk kernel's device time over it (profiler; a pass whose
+profile caught another count of launches than the wave's walks is taken
+again, up to 3 times, else the script fails); and with PARENT_DIR the
+`"bvh"` frame in turns parent, change, change, parent (best of 2 each).
+The design steps that this walk does not keep (persistent threads, the
+stack in shared memory, one face at a time, no leaf prefetch, the top
+levels staged, an 8-wide tree) were measured in the same way, as launch
+options of an earlier version of the kernel (PERF.md §6).
 
 A launch's time is the mean of 20 by CUDA events (the queue filled first;
 5 for the dense closest hit) and of 5 by the profiler (kernel only); a
@@ -186,6 +209,263 @@ def emulate():
               f"{tiles * 128 / (rays16.shape[0] * f):.6f}", flush=True)
 
 
+def bvh_ab(parent, out_path):
+    """--bvh: the BVH walk's A/B (the module docstring)."""
+    import dataclasses
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    check(parent is None
+          or (parent / "rtf_tpu_torch" / "csrc" / "bvh_hit.cu").is_file(),
+          f"{parent} holds no checkout of the port with csrc/bvh_hit.cu")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    from rtf_tpu_torch import _build
+    from rtf_tpu_torch.ops import bvh_hit as B_
+    from rtf_tpu_torch.render.camera import pixel_order, primary_rays
+    from rtf_tpu_torch.render.config import RenderConfig
+    from rtf_tpu_torch.render.integrator import render_wave
+    from rtf_tpu_torch.render.renderer import render
+    from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.scene.build import build_scene, ensure_bvh
+    from rtf_tpu_torch.scene.procedural import box_scene
+
+    dev = torch.device("cuda")
+    card = CS.card_line()
+    print(f"[chip_ab] torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    jobs = {}
+    if parent is not None:
+        pb = load_module("parent_build",
+                         parent / "rtf_tpu_torch" / "_build.py")
+        jobs["parent_bvh_hit"] = (parent / "rtf_tpu_torch" / "csrc"
+                                  / "bvh_hit.cu", pb.NVCC_FLAGS)
+    dlls, plogs = nvcc_all(jobs, ROOT / "build" / "ab")
+    logs.update(plogs)
+    print(f"[chip_ab] built in {time.perf_counter() - t0:.2f} s", flush=True)
+    regs = {}
+    for name in ("bvh_hit", "parent_bvh_hit"):
+        fn = None
+        for line in logs.get(name, "").splitlines():
+            if "entry function" in line:
+                fn = line.split("'")[1]
+            if fn and ("registers" in line or "spill" in line):
+                regs.setdefault(f"{name} {fn}", []).append(line.strip())
+                print(f"[build] {name} {fn}: {line.strip()}", flush=True)
+    orig_load = _build.load
+    PB = pdll = None
+    if parent is not None:
+        pdll = bind(dlls["parent_bvh_hit"], "rtf_bvh_hit_launch",
+                    pb.KERNELS["bvh_hit"][2])
+        PB = load_module("parent_bvh_hit",
+                         parent / "rtf_tpu_torch" / "ops" / "bvh_hit.py")
+
+    def as_parent(fn):
+        """fn() with the parent's library behind _build.load."""
+        def call(*a, **k):
+            _build.load = (lambda name="wave": pdll if name == "bvh_hit"
+                           else orig_load(name))
+            try:
+                return fn(*a, **k)
+            finally:
+                _build.load = orig_load
+        return call
+
+    def events_ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def profiled_ms(fn, key, reps=5):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and key in ev.key]
+        count = sum(ev.count for ev in evs)
+        return (sum(ev.self_device_time_total for ev in evs) / count / 1e3
+                if count else float("nan"))
+
+    wcfg = RenderConfig()
+    scene = dataclasses.replace(build_scene(box_scene(
+        W, H, with_mesh=True, mesh_subdiv=5, light_size=1.0), device=dev),
+        mesh_algo="bvh")
+    tables = scene_tables(scene)
+    mesh = ensure_bvh(scene.mesh)
+    walk = B_.bvh_walk(mesh)
+    root = walk.roots[0]
+    pmesh = dataclasses.replace(mesh, bvh_walk=None)
+    order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+    o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
+    ids = torch.arange(W * H, device=dev)
+    per_wave = (1 + wcfg.shadow_min + wcfg.shadow_max) * (1 + wcfg.bounces)
+
+    def one_wave():
+        return render_wave(
+            scene, wcfg, tables, o, d, ids,
+            torch.ones(W * H, dtype=torch.bool, device=dev),
+            torch.Generator(device=dev).manual_seed(3), W * H, inv_pixel=ids)
+    sets = CS.bvh_sets(B_, scene, one_wave, per_wave, dev)
+    # the launch's floor: as many rays, each missing the ball's root boxes
+    # (origins 100 ball radii out, pointing away): one pop, its box tests,
+    # the rays read and the outputs written
+    lo, ld, _ = sets["scattered"]
+    far = ld * 300.0
+    sets["miss"] = (lo + far, ld, torch.full_like(lo[:, 0], 1e30))
+    print(f"[chip_ab] bvh: {mesh.bvh_min.shape[0]} binary nodes, "
+          f"{walk.levels} levels; {B_.WIDTH}-wide {walk.wnodes.shape[0]} "
+          f"nodes, stack {walk.stack}", flush=True)
+    # name: (launch(o, d, t_init, stats=None), profiler key)
+    sides = {
+        "change": (lambda *a, **k: B_.bvh_closest_hit(mesh, root, *a, **k),
+                   "bvh_wide_kernel"),
+    }
+    if parent is not None:
+        sides = {"parent": (as_parent(lambda *a, **k: PB.bvh_closest_hit(
+            pmesh, root, *a, **k)), "bvh_hit_kernel"), **sides}
+    names = list(sides)
+    turns = names + names[::-1]
+    result = {"card": card, "device": torch.cuda.get_device_name(0),
+              "registers": regs, "bvh": {}}
+    for label, (lo, ld, t_init) in sets.items():
+        n = lo.shape[0]
+        ref = B_.bvh_closest_hit_plain(mesh, root, lo, ld, t_init)
+        rec = {"rays": n, "hits": int((ref[1] >= 0).sum())}
+        outs = {}
+        for name, (fn, key) in sides.items():
+            stats = torch.zeros(max(B_.NSTAT, 6), dtype=torch.int64,
+                                device=dev)
+            out = fn(lo, ld, t_init, stats=stats)
+            torch.cuda.synchronize()
+            outs[name] = out
+            st = stats.tolist()
+            check(torch.equal(out[1] >= 0, ref[1] >= 0)
+                  and torch.equal(out[0], ref[0]),
+                  f"bvh {label} {name}: hit masks or t differ from the "
+                  f"lock-step walk's")
+            idx, tie = B_.near_ties(mesh, lo, ld, out, ref)
+            check(bool(tie.all()), f"bvh {label} {name}: "
+                  f"{int((~tie).sum())} rays differ beyond a near tie")
+            boxes = st[5] if name != "parent" else st[0] + 2 * st[1]
+            rec[name] = {"pops": st[0], "pops_a_ray": st[0] / n,
+                         "most_pops": st[4], "box_tests": boxes,
+                         "box_tests_a_ray": boxes / n, "face_tests": st[3],
+                         "face_tests_a_ray": st[3] / n,
+                         "near_ties": idx.numel(), "ms": [],
+                         "ms_profiler": profiled_ms(
+                             lambda _f=fn: _f(lo, ld, t_init), key)}
+        for name in turns:
+            fn = sides[name][0]
+            rec[name]["ms"].append(events_ms(
+                lambda _f=fn: _f(lo, ld, t_init)))
+        for name in names:
+            r = rec[name]
+            print(f"[chip_ab] bvh {label} {name}: {fmt(r['ms'])} ms "
+                  f"(events), {r['ms_profiler']:.4f} ms (profiler); "
+                  f"{r['pops_a_ray']:.3f} pops a ray (most "
+                  f"{r['most_pops']}), {r['box_tests_a_ray']:.3f} box "
+                  f"tests, {r['face_tests_a_ray']:.3f} face tests a ray; "
+                  f"{r['near_ties']} near ties against the lock-step walk",
+                  flush=True)
+        result["bvh"][label] = rec
+        del outs, ref
+    # one wave of the "bvh" frame (105 walks) per side, in turns: the walk
+    # kernel's device time summed over the wave (profiler)
+    kernel_fn = B_.bvh_closest_hit
+    parent_walk = None if parent is None else as_parent(
+        lambda mesh_, root_, *a, **k: PB.bvh_closest_hit(pmesh, root_, *a,
+                                                         **k))
+
+    def route(name):
+        B_.bvh_closest_hit = parent_walk if name == "parent" else kernel_fn
+
+    def wave_ms(name):
+        """One wave's walks on side `name`: (device ms, launches the
+        profile caught), taken again until it caught all per_wave."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        route(name)
+        try:
+            one_wave()
+            torch.cuda.synchronize()
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    one_wave()
+                    torch.cuda.synchronize()
+                evs = [ev for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA
+                       and sides[name][1] in ev.key]
+                count = sum(ev.count for ev in evs)
+                ms = sum(ev.self_device_time_total for ev in evs) / 1e3
+                if count == per_wave:
+                    break
+                print(f"[chip_ab] bvh one wave {name}: the profile caught "
+                      f"{count} of {per_wave} launches; again", flush=True)
+        finally:
+            route("change")
+        check(count == per_wave, f"bvh one wave {name}: the profile caught "
+              f"{count} of {per_wave} launches in 3 tries")
+        return ms, count
+    wave = {}
+    for name in names + names[::-1]:
+        ms, count = wave_ms(name)
+        w = wave.setdefault(name, {"ms": [], "launches": [],
+                                   "ms_a_launch": []})
+        w["ms"].append(ms)
+        w["launches"].append(count)
+        w["ms_a_launch"].append(ms / count)
+    for name in names:
+        w = wave[name]
+        print(f"[chip_ab] bvh one wave {name}: the walk's device time "
+              f"{fmt(w['ms'])} ms over {w['launches']} launches "
+              f"({fmt(w['ms_a_launch'])} ms a launch)", flush=True)
+    result["bvh"]["wave"] = wave
+    if parent is not None:
+        frames = {}
+        render(scene, wcfg, device=dev, tables=tables)      # warm-up
+        for tag in ("parent", "change", "change", "parent"):
+            route(tag)
+            try:
+                best = float("inf")
+                for rep in range(2):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    render(scene, wcfg, seed=1 + rep, device=dev,
+                           tables=tables)
+                    best = min(best, time.perf_counter() - t1)
+            finally:
+                route("change")
+            frames.setdefault(tag, []).append(best)
+        print(f"[chip_ab] bvh frame {W}x{H} RenderConfig(): parent "
+              f"{fmt(frames['parent'])} s, change {fmt(frames['change'])} s",
+              flush=True)
+        result["bvh"]["frame_s"] = frames
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(result, indent=1))
+    print(card, flush=True)
+    print(json.dumps(result), flush=True)
+
+
+def fmt(xs):
+    return ", ".join(f"{x:.4f}" for x in xs)
+
+
 def main(argv):
     if "--emulate" in argv:
         return emulate()
@@ -194,6 +474,8 @@ def main(argv):
     rest = [a for k, a in enumerate(argv) if not a.startswith("--")
             and (k == 0 or argv[k - 1] != "--out")]
     parent = Path(rest[0]).resolve() if rest else None
+    if "--bvh" in argv:
+        return bvh_ab(parent, out_path)
     dense_only = "--dense" in argv
     import torch
     if not torch.cuda.is_available():
@@ -365,9 +647,6 @@ def main(argv):
             elif x is not None:
                 parts.append(x.reshape(-1).float())
         return torch.cat(parts)
-
-    def fmt(xs):
-        return ", ".join(f"{x:.4f}" for x in xs)
 
     result = {"card": card, "device": torch.cuda.get_device_name(0),
               "counters": {}, "scene_smem": {}, "launches": {},

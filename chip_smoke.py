@@ -151,21 +151,33 @@ those phases only (for iterating on one path):
 12. bvh     the BVH walk, the dense mesh test, footprint filtering and the
             sharded render on box_scene(800, 600, mesh_subdiv=5,
             light_size=1.0), the 20,480-face ball: bvh_closest_hit
-            (csrc/bvh_hit.cu) against its plain lock-step walk on one
-            wave's 480,000 primary rays and first shadow batch and on a
-            seeded scattered set about the ball (faces, counters and every
-            output equal), and against mesh_closest_hit (hit masks equal,
-            t within rtol 1e-4 and atol 1e-6, faces equal but at equal-t
-            ties, counted; rays through a shared edge, a barycentric below
-            1e-5 in either test, may slip between its two faces in one of
-            the two triangle tests: counted, at most 1 in 10,000 rays);
-            its time (CUDA events, profiler), counters (nodes, box and face
-            tests), bound and the plain walk's time; RenderConfig() with
-            mesh_algo="bvh" through `render` (a warm-up, best of 3, 840
-            launches a frame counted, beside the same frame on
-            mesh_closest_hit, one frame; one wave profiled) and a 160x120
-            frame (1 spp, one shadow ray a light) against the same frame
-            on the plain walk (exact);
+            (csrc/bvh_hit.cu's wide walk, the walk the depth rule takes
+            on the ball) on one wave's 480,000 primary rays and first
+            shadow batch and on a seeded scattered set about the ball
+            against its plain twin bvh_wide_closest_hit_plain (every
+            output and the counters equal) and against the lock-step
+            walk bvh_closest_hit_plain (hit masks and t equal; faces,
+            front, ba and bb equal but at near ties, each printed with
+            both faces, at most 1 in 10^5 rays), and against
+            mesh_closest_hit (hit masks equal, t within rtol 1e-4 and
+            atol 1e-6, faces equal but at equal-t ties, counted; rays
+            through a shared edge, a barycentric below 1e-5 in either
+            test, may slip between its two faces in one of the two
+            triangle tests: counted, at most 1 in 10,000 rays); its time
+            (CUDA events, profiler), counters (pops, box and face tests,
+            the most pops of a ray), its bound over the wide tables and
+            over the binary walk's, and the plain walks' times; the
+            binary walk on the ball with max_depth two below its levels
+            (a capped tree)
+            against the lock-step walk on the primary rays (every output
+            and the counters equal); RenderConfig() with mesh_algo="bvh"
+            through `render` (a warm-up, best of 3, 840 launches a frame
+            counted, beside the same frame on mesh_closest_hit, one
+            frame; one wave profiled) and 160x120 frames (1 spp, one
+            shadow ray a light) against the same frames on the plain
+            walks (exact): the wide walk against its twin, and on the
+            capped tree the binary walk against the lock-step walk (its
+            launches counted from 0 over that frame);
             mesh_algo="dense" on the primary rays against
             mesh_closest_hit (hit masks equal, t within rtol 1e-4) and a
             160x120 dense frame (finite, lit, timed); tex_filter on the
@@ -175,7 +187,16 @@ those phases only (for iterating on one path):
             the main path's config, bit for bit, and on a 1x2 gloo mesh of
             two processes that share the card (`--gloo-rank`), each half
             the samples: hits, z and sample counts equal, radiance within
-            rtol 1e-5 (atol 5e-5; the ranks' sums add in another order).
+            rtol 1e-5 (atol 5e-5; the ranks' sums add in another order);
+            then the same two processes on a 2x1 mesh, two tiles of 1536
+            lanes (not a multiple of the wave kernel's 1024-lane blocks)
+            of box_scene(64, 48) against one process (TILE_CFGS): the
+            wavefront's adaptive frame and the fused `rr` frame at bounce
+            0 per pixel (hits, z and sample counts equal, radiance within
+            atol 5e-5), and the fused frame at 2 bounces with Russian
+            roulette, whose streams move with the tile's first block
+            (blk0), on its mean radiance (within 1%) with hits, z and
+            sample counts equal.
 
 Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
 atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
@@ -221,10 +242,13 @@ HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 # hit's sign filter a pair (csrc/mesh_hit_mxu.cu: 3 adds, 3 logic
 # operations).  The BVH walk (csrc/bvh_hit.cu): inv is a ray's 1/d with
 # its guards, once a ray; box a slab test with its entry distance; bvh_tri
-# intersect_triangle with its normalisation, one projected area per call.
+# intersect_triangle with its normalisation, one projected area per call
+# (the binary walk); wide_tri the wide walk's test on a face row (the plane
+# distance, one division, the projected point, two projected areas, the
+# validity tests).
 OPS = dict(sphere=73, plane=46, inst=42, slab=26, tri=40, shade=250,
            shadow=12, tex_file=62, tex_checker=22, env=19, pair=39, cross=9,
-           filter=6, inv=12, box=40, bvh_tri=105)
+           filter=6, inv=12, box=40, bvh_tri=105, wide_tri=52)
 # the wave kernel's counters (csrc/wave_kernel.cu, STAT_*): work, then on
 # the MXU variants the walk's slab tests, cycles by part (summed over
 # lanes) and warp-iterations with their active lanes
@@ -340,6 +364,41 @@ def sass_fast_path(text, kernel):
     fast = [t for a, t in span if not any(x < a < y for x, y in skips)]
     return (len(fast), sum(t.startswith("VOTE.ANY P") for t in fast),
             sum("HMMA" in t for t in fast))
+
+
+def bvh_sets(B_, scene, one_wave, per_wave, dev):
+    """Phase 12's three ray sets for bvh_closest_hit on the scene's one
+    mesh slot, as the wavefront hands them to it: one wave's primary rays
+    and its first shadow batch (one_wave() run once, its walks captured),
+    and W*H seeded scattered rays about the mesh: {name: (o, d, t_init)}."""
+    import numpy as np
+    import torch
+    captured, calls = {}, [0]
+    kernel_fn = B_.bvh_closest_hit
+
+    def capture(mesh_, root_, lo, ld, t_init, stats=None):
+        if calls[0] in (0, 1):
+            captured[calls[0]] = (lo, ld, t_init)
+        calls[0] += 1
+        return kernel_fn(mesh_, root_, lo, ld, t_init, stats)
+    B_.bvh_closest_hit = capture
+    try:
+        one_wave()
+    finally:
+        B_.bvh_closest_hit = kernel_fn
+    check(calls[0] == per_wave, f"bvh: one wave made {calls[0]} walks, "
+          f"expected {per_wave}")
+    mesh = scene.mesh
+    v = torch.cat([mesh.tri_a, mesh.tri_b, mesh.tri_c]).cpu().numpy()
+    rng = np.random.RandomState(12)
+    so = (v.min(0) + v.max(0)) / 2 + (v.max(0) - v.min(0)) * \
+        rng.uniform(-1.0, 1.0, (W * H, 3))
+    sd = rng.normal(size=(W * H, 3))
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    return {"primary": captured[0], "shadow": captured[1],
+            "scattered": (torch.as_tensor(so.astype(np.float32), device=dev),
+                          torch.as_tensor(sd.astype(np.float32), device=dev),
+                          torch.full((W * H,), 1e30, device=dev))}
 
 
 def checker_desc(box_scene, w, h):
@@ -637,11 +696,27 @@ def write_photon_scene(directory, w, h, seed=0):
     return path
 
 
+# phase 12's frames of two tile shards of 1536 lanes (64x48 over two
+# ranks, not a multiple of the wave kernel's 1024-lane blocks): the
+# adaptive config of tests/test_torch_sharded.py on the wavefront, and the
+# fused `rr` path at bounce 0 and at 2 bounces with Russian roulette
+TILE_W, TILE_H = 64, 48
+TILE_CFGS = {
+    "adaptive": dict(min_samples=2, max_samples=4, variance_threshold=1e-4,
+                     bounces=2, shadow_min=1, shadow_max=1, gi_mode="none"),
+    "rr0": dict(min_samples=2, max_samples=2, bounces=0, shadow_min=1,
+                shadow_max=1, gi_mode="none", split_mode="rr"),
+    "rr": dict(min_samples=16, max_samples=16, bounces=2, shadow_min=1,
+               shadow_max=1, gi_mode="none", split_mode="rr"),
+}
+
+
 def gloo_rank(rank, port, out):
     """One of phase 12's two processes that share the card under gloo:
     render_sharded on a (1, 2) mesh (the two ranks split the samples) of
-    the main path's config at 800x600, rank 0 saving the frame and its
-    time to `out` (an .npz)."""
+    the main path's config at 800x600, then on a (2, 1) mesh (two tiles of
+    1536 lanes) the TILE_CFGS frames of box_scene(64, 48, with_mesh=False);
+    rank 0 saves the frames and the first one's time to `out` (an .npz)."""
     import numpy as np
     import torch
     from torch import distributed as dist
@@ -666,10 +741,18 @@ def gloo_rank(rank, port, out):
         acc = render_sharded(scene, cfg, mesh, seed=7, device="cuda")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        res = {k: x.cpu().numpy() for k, x in zip(("rad", "hits", "z", "ns"),
+                                                   acc)}
+        tiles = make_mesh(2, 1)
+        small = build_scene(box_scene(TILE_W, TILE_H, with_mesh=False),
+                            device="cuda")
+        for name, kw in TILE_CFGS.items():
+            acc = render_sharded(small, RenderConfig(**kw), tiles, seed=0,
+                                 device="cuda")
+            res.update({f"{name}_{k}": x.cpu().numpy() for k, x in zip(
+                ("rad", "hits", "z", "ns"), acc)})
         if rank == 0:
-            np.savez(out, seconds=dt,
-                     **{k: x.cpu().numpy() for k, x in zip(
-                         ("rad", "hits", "z", "ns"), acc)})
+            np.savez(out, seconds=dt, **res)
     finally:
         dist.destroy_process_group()
 
@@ -2421,25 +2504,21 @@ def main(argv):
         walk = B_.bvh_walk(mesh)
         torch.cuda.synchronize()
         bvh_build_s = time.perf_counter() - t0
-        child = mesh.bvh_child.cpu().numpy()
-        depth, level = 0, [int(mesh.slot_root[0])]
-        while level:
-            depth += 1
-            level = [c + k for i in level if child[i] >= 0
-                     for c in (int(child[i]),) for k in (0, 1)]
+        check(walk.walk == "wide", f"bvh: the depth rule took the "
+              f"{walk.walk} walk on the ball")
+        depth = walk.levels
+        binary = B_.build_walk(mesh, "binary")
         print(f"[bvh] BVH of {mesh.tri_a.shape[0]} faces: "
-              f"{walk.nodes.shape[0]} nodes, {depth} levels, built in "
-              f"{bvh_build_s:.3f} s (the NumPy builder and the kernel's "
-              f"tables, once per arena)", flush=True)
+              f"{mesh.bvh_min.shape[0]} binary nodes in {depth} levels, "
+              f"{walk.wnodes.shape[0]} {B_.WIDTH}-wide nodes, a stack of "
+              f"{walk.stack} entries; built in {bvh_build_s:.3f} s (the "
+              f"NumPy builder, the collapse and the face rows, once per "
+              f"arena)", flush=True)
         root = walk.roots[0]
         per_shade = (1 + wcfg.shadow_min + wcfg.shadow_max) \
             * scene.num_mesh_inst
         per_wave = per_shade * (1 + wcfg.bounces)
         expected = per_wave * wcfg.max_samples
-
-        # one wave's primary and first shadow rays, as the trace hands
-        # them to bvh_closest_hit
-        captured, calls = {}, [0]
         kernel_fn = B_.bvh_closest_hit
         order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
         o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
@@ -2451,56 +2530,49 @@ def main(argv):
                 torch.ones(W * H, dtype=torch.bool, device=dev),
                 torch.Generator(device=dev).manual_seed(3), W * H,
                 inv_pixel=ids)
-
-        def capture(mesh_, root_, lo, ld, t_init, stats=None):
-            if calls[0] in (0, 1):
-                captured[calls[0]] = (lo, ld, t_init)
-            calls[0] += 1
-            return kernel_fn(mesh_, root_, lo, ld, t_init, stats)
-        B_.bvh_closest_hit = capture
-        try:
-            one_wave()
-        finally:
-            B_.bvh_closest_hit = kernel_fn
-        check(calls[0] == per_wave, f"bvh: one wave made {calls[0]} walks, "
-              f"expected {per_wave}")
-        v = torch.cat([mesh.tri_a, mesh.tri_b, mesh.tri_c]).cpu().numpy()
-        rng = np.random.RandomState(12)
-        so = (v.min(0) + v.max(0)) / 2 + (v.max(0) - v.min(0)) * \
-            rng.uniform(-1.0, 1.0, (W * H, 3))
-        sd = rng.normal(size=(W * H, 3))
-        sd /= np.linalg.norm(sd, axis=1, keepdims=True)
-        sets = {"primary": captured[0], "shadow": captured[1],
-                "scattered": (torch.as_tensor(so.astype(np.float32),
-                                              device=dev),
-                              torch.as_tensor(sd.astype(np.float32),
-                                              device=dev),
-                              torch.full((W * H,), 1e30, device=dev))}
+        sets = bvh_sets(B_, scene, one_wave, per_wave, dev)
         col0, fpad, ar0, nt, _ = mesh.slot_pack[0]
         perm = mesh.tri_perm.to(torch.int64)
-        node_bytes = walk.nodes.numel() * 4 + walk.leaf_tris.numel() * 4
-        kinds, err = {}, 0.0
+        tbytes = {"wide": walk.wnodes.numel() * 4 + walk.face_rows.numel() * 4,
+                  "binary": binary.nodes.numel() * 4
+                  + binary.leaf_tris.numel() * 4}
+        kinds, err, ties_all = {}, 0.0, 0
         for label, (lo, ld, t_init) in sets.items():
-            sk, sp = (torch.zeros(B_.NSTAT, dtype=torch.int64, device=dev)
-                      for _ in range(2))
+            sk, sw, sp = (torch.zeros(B_.NSTAT, dtype=torch.int64,
+                                      device=dev) for _ in range(3))
             kern = B_.bvh_closest_hit(mesh, root, lo, ld, t_init, stats=sk)
+            twin = B_.bvh_wide_closest_hit_plain(walk, root, lo, ld, t_init,
+                                                 stats=sw)
             plain = B_.bvh_closest_hit_plain(mesh, root, lo, ld, t_init,
                                              stats=sp)
             torch.cuda.synchronize()
-            check(torch.equal(kern[1], plain[1]),
-                  f"bvh {label}: faces differ on "
-                  f"{int((kern[1] != plain[1]).sum())} rays")
-            e = max(float((k - p).abs().max())
-                    for k, p in zip(kern[0:1] + kern[2:],
-                                    plain[0:1] + plain[2:]))
-            check(e == 0.0, f"bvh {label}: max abs err {e} against the "
-                  "plain walk")
-            check(torch.equal(sk, sp), f"bvh {label}: counters "
-                  f"{sk.tolist()} against the plain walk's {sp.tolist()}")
-            err = max(err, e)
+            e = max(float((k.float() - p.float()).abs().max())
+                    for k, p in zip(kern, twin))
+            check(e == 0.0 and torch.equal(kern[1], twin[1]),
+                  f"bvh {label}: max abs err {e} against the wide twin")
+            check(torch.equal(sk, sw), f"bvh {label}: counters "
+                  f"{sk.tolist()} against the wide twin's {sw.tolist()}")
             n = lo.shape[0]
             hit = kern[1] >= 0
-            fig = dict(rays=n, hits=int(hit.sum()), max_abs_err=e)
+            check(torch.equal(hit, plain[1] >= 0)
+                  and torch.equal(kern[0], plain[0]),
+                  f"bvh {label}: hit masks or t differ from the lock-step "
+                  f"walk's on {int((kern[0] != plain[0]).sum())} rays")
+            idx, tie = B_.near_ties(mesh, lo, ld, kern, plain)
+            for i, ok_ in zip(idx.tolist()[:16], tie.tolist()[:16]):
+                kind_ = "near tie" if ok_ else "NOT A TIE"
+                print(f"[bvh] {label} ray {i}: {kind_}: wide walk t "
+                      f"{float(kern[0][i]):.9g} face {int(kern[1][i])}, "
+                      f"lock-step t "
+                      f"{float(plain[0][i]):.9g} face {int(plain[1][i])}",
+                      flush=True)
+            check(bool(tie.all()) and idx.numel() <= n // 100000,
+                  f"bvh {label}: {idx.numel()} rays differ from the "
+                  f"lock-step walk, {int((~tie).sum())} of them no near tie")
+            ties_all += idx.numel()
+            err = max(err, e)
+            fig = dict(rays=n, hits=int(hit.sum()), max_abs_err=e,
+                       near_ties=idx.numel())
             if label != "shadow":
                 mt, mf, _, mba, mbb = M_.mesh_closest_hit_rays(
                     lo, ld, t_init, mesh.tri_packed[:, col0:col0 + fpad],
@@ -2550,56 +2622,121 @@ def main(argv):
                            edge_rays=int(edge.sum()),
                            t_max_rel_vs_mesh_closest_hit=float(rel.max()))
                 del mt, mf
-            nodes, inner, leaves, faces, most = sk.tolist()
+            pops, inner, leaves, faces, most, boxes = sk.tolist()
+            lpops, _, _, lfaces, lmost, lboxes = sp.tolist()
             ms = events_ms(lambda: B_.bvh_closest_hit(mesh, root, lo, ld,
                                                       t_init))
-            pms = host_ms(lambda: B_.bvh_closest_hit_plain(
+            pms = host_ms(lambda: B_.bvh_wide_closest_hit_plain(
+                walk, root, lo, ld, t_init), 1)
+            lms = host_ms(lambda: B_.bvh_closest_hit_plain(
                 mesh, root, lo, ld, t_init), 1)
-            boxes = nodes + 2 * inner
             flops = n * OPS["inv"] + boxes * OPS["box"] \
-                + faces * OPS["bvh_tri"]
-            # each input once (28 B a ray in, the tree), each output once
-            # (20 B a ray)
-            nbytes = n * 48 + node_bytes
-            bytes_ms = nbytes / HBM_BPS * 1e3
-            ops_ms = flops / FP32_FLOPS * 1e3
-            fig.update(ms=ms, plain_ms=pms, nodes_popped=nodes,
-                       inner_entered=inner, leaves_entered=leaves,
-                       face_tests=faces, box_tests=boxes, most_pops=most,
-                       flops=flops, bytes=nbytes,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms
-                       else "bytes")
+                + faces * OPS["wide_tri"]
+            # each input once (28 B a ray in, the tables), each output once
+            # (20 B a ray); the bound over the wide tables and over the
+            # binary walk's
+            bound = {}
+            for lay, nb in tbytes.items():
+                bms = (n * 48 + nb) / HBM_BPS * 1e3
+                ops_ms = flops / FP32_FLOPS * 1e3
+                bound[lay] = dict(bytes=n * 48 + nb, bytes_ms=bms,
+                                  ops_ms=ops_ms, bound_ms=max(bms, ops_ms),
+                                  bound_by="operations" if ops_ms >= bms
+                                  else "bytes")
+            fig.update(ms=ms, plain_ms=pms, lockstep_ms=lms,
+                       nodes_popped=pops, pops_a_ray=pops / n,
+                       most_pops=most, inner_entered=inner,
+                       leaves_entered=leaves, face_tests=faces,
+                       box_tests=boxes, lockstep_pops=lpops,
+                       lockstep_most_pops=lmost, lockstep_box_tests=lboxes,
+                       lockstep_face_tests=lfaces, flops=flops,
+                       bound_ms=bound["wide"]["bound_ms"],
+                       bound_by=bound["wide"]["bound_by"], bound=bound)
             kinds[label] = fig
-            print(f"[bvh] bvh_closest_hit vs plain, {label}: {n} rays "
-                  f"({fig['hits']} hit), faces, counters and hit masks "
-                  f"equal, max_abs_err={e:.3e}; "
+            print(f"[bvh] bvh_closest_hit (wide walk) vs its twin, {label}: "
+                  f"{n} rays ({fig['hits']} hit), every output and the "
+                  f"counters equal, max_abs_err={e:.3e}; against the "
+                  f"lock-step walk: masks and t equal, {idx.numel()} near "
+                  f"ties; "
                   + (f"against mesh_closest_hit: masks equal, t max rel "
                      f"{fig['t_max_rel_vs_mesh_closest_hit']:.3e}, "
                      f"{fig['faces_differing_at_ties']} faces differ at "
                      f"equal-t ties, {fig['edge_slips']} of "
                      f"{fig['edge_rays']} rays through a shared edge slip "
                      f"through in one test; " if label != "shadow" else "")
-                  + f"{ms:.4f} ms (mean of 20, CUDA events), plain "
-                  f"{pms:.1f} ms ({most} lock steps); {nodes} nodes popped"
-                  f" ({nodes / n:.2f} a ray), {boxes} box tests, {leaves} "
-                  f"leaves, {faces} face tests ({faces / n:.2f} a ray); "
-                  f"{flops:.4e} FP32 ops, {nbytes} bytes; bound "
-                  f"{max(bytes_ms, ops_ms):.5f} ms (ops {ops_ms:.5f}, "
-                  f"bytes {bytes_ms:.5f})", flush=True)
-            del kern, plain
+                  + f"{ms:.4f} ms (mean of 20, CUDA events), twin "
+                  f"{pms:.1f} ms ({most} lock steps), lock-step walk "
+                  f"{lms:.1f} ms ({lmost}); {pops} pops ({pops / n:.3f} a "
+                  f"ray, most {most}; lock-step {lpops / n:.3f}, most "
+                  f"{lmost}), {boxes} box tests ({boxes / n:.3f} a ray; "
+                  f"lock-step {lboxes / n:.3f}), {faces} face tests "
+                  f"({faces / n:.3f} a ray; lock-step {lfaces / n:.3f}); "
+                  f"{flops:.4e} FP32 ops; bound "
+                  f"{bound['wide']['bound_ms']:.5f} ms over the wide tables "
+                  f"({bound['wide']['bytes']} bytes, ops "
+                  f"{bound['wide']['ops_ms']:.5f}), "
+                  f"{bound['binary']['bound_ms']:.5f} ms over the binary "
+                  f"walk's ({bound['binary']['bytes']} bytes)", flush=True)
+            del kern, twin, plain
+
+        # the binary walk on a capped tree (max_depth two levels below the
+        # ball's, where bvh_traverse's clamp drops nodes): the primary rays
+        capped = dataclasses.replace(mesh, max_depth=depth - 2,
+                                     bvh_walk=None)
+        check(B_.bvh_walk(capped).walk == "binary",
+              "bvh: the capped tree did not take the binary walk")
+        lo, ld, t_init = sets["primary"]
+        sk, sp = (torch.zeros(B_.NSTAT, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        kern = B_.bvh_closest_hit(capped, root, lo, ld, t_init, stats=sk)
+        plain = B_.bvh_closest_hit_plain(capped, root, lo, ld, t_init,
+                                         stats=sp)
+        torch.cuda.synchronize()
+        cap_err = max(float((k.float() - p.float()).abs().max())
+                      for k, p in zip(kern, plain))
+        check(cap_err == 0.0 and torch.equal(kern[1], plain[1])
+              and torch.equal(sk, sp), f"bvh capped: the binary walk differs "
+              f"from the lock-step walk by {cap_err}, counters "
+              f"{sk.tolist()} against {sp.tolist()}")
+        n = lo.shape[0]
+        cap_ms = events_ms(lambda: B_.bvh_closest_hit(capped, root, lo, ld,
+                                                      t_init))
+        cap_pms = host_ms(lambda: B_.bvh_closest_hit_plain(
+            capped, root, lo, ld, t_init), 1)
+        cpops, cinner, _, cfaces, cmost, cboxes = sk.tolist()
+        cflops = n * OPS["inv"] + cboxes * OPS["box"] \
+            + cfaces * OPS["bvh_tri"]
+        cbytes = n * 48 + tbytes["binary"]
+        cap = dict(rays=n, hits=int((kern[1] >= 0).sum()),
+                   max_abs_err=cap_err, ms=cap_ms, plain_ms=cap_pms,
+                   nodes_popped=cpops, most_pops=cmost, box_tests=cboxes,
+                   face_tests=cfaces, bytes=cbytes, flops=cflops,
+                   bound_ms=max(cbytes / HBM_BPS, cflops / FP32_FLOPS) * 1e3,
+                   bound_by="bytes" if cbytes / HBM_BPS
+                   >= cflops / FP32_FLOPS else "operations")
+        print(f"[bvh] the binary walk on the capped tree (max_depth "
+              f"{depth - 2}, {depth} levels), the primary rays: every "
+              f"output and the counters equal to the lock-step walk's; "
+              f"{cap_ms:.4f} ms (events), plain {cap_pms:.1f} ms; {cpops} "
+              f"pops (most {cmost}), {cfaces} face tests; bound "
+              f"{cap['bound_ms']:.5f} ms ({cap['bound_by']})", flush=True)
+        del kern, plain
         prim = sets["primary"]
         prof_ms = profiled_ms(lambda: B_.bvh_closest_hit(mesh, root, *prim),
-                              key="bvh_hit_kernel")
+                              key="bvh_wide_kernel")
+        cap_prof_ms = profiled_ms(lambda: B_.bvh_closest_hit(
+            capped, root, *prim), key="bvh_hit_kernel")
         stamp("kernel against plain and mesh_closest_hit, timed")
 
         # RenderConfig() with the walk, through `render`
         def bvh_counts():
-            return {"bvh_closest_hit": B_.launches, **mesh_counts()}
+            return {"bvh_closest_hit": B_.launches,
+                    "bvh_closest_hit_binary": B_.launches_binary,
+                    **mesh_counts()}
         render(scene, wcfg, device=dev, tables=tables)    # warm-up frame
         frame_s, res = float("inf"), None
         for rep in range(3):
-            B_.launches = M_.launches = 0
+            B_.launches = B_.launches_binary = M_.launches = 0
             for c in counters:
                 setattr(W_, c, 0)
             torch.cuda.synchronize()
@@ -2625,7 +2762,7 @@ def main(argv):
         auto_s = time.perf_counter() - t0
         wave_s = min(host_ms(one_wave, 1), host_ms(one_wave, 1)) / 1e3
         busy_us, wave_prof_ms, _ = profile_frame(
-            "bvh wave", wave_s, one_wave, kernel="bvh_hit_kernel")
+            "bvh wave", wave_s, one_wave, kernel="bvh_wide_kernel")
         print(f"[bvh] frame {W}x{H} RenderConfig() mesh_algo='bvh': best of "
               f"3 {frame_s:.4f} s ({expected} bvh_closest_hit launches, "
               f"{per_wave} a wave; mean byte {res.image.mean():.2f}, png "
@@ -2634,42 +2771,59 @@ def main(argv):
               flush=True)
         stamp("frames")
 
-        # a 160x120 frame with the kernel and with the plain walk: one
-        # sample wave, one shadow ray a light (the plain walk takes about
-        # 0.8 s a trace here)
+        # 160x120 frames, one sample wave, one shadow ray a light: the wide
+        # walk's kernel against its twin, and on a capped tree (the path
+        # of trees deeper than max_depth - 2) the binary walk against the
+        # lock-step walk, its launches counted from 0 over the frame
         small = dataclasses.replace(build_scene(box_scene(
             *SMALL, with_mesh=True, mesh_subdiv=5, light_size=1.0),
             device=dev), mesh_algo="bvh")
         stab = scene_tables(small)
         scfg = wcfg.with_(min_samples=1, max_samples=1, shadow_min=1,
                           shadow_max=1)
-        B_.launches = 0
-        fk = render(small, scfg, seed=5, device=dev, tables=stab)
-        small_launches = B_.launches
-        B_.launches = 0
-        plain_calls = [0]
+        small_capped = dataclasses.replace(
+            small, mesh=dataclasses.replace(ensure_bvh(small.mesh),
+                                            max_depth=depth - 2,
+                                            bvh_walk=None))
+        small_err = {}
+        for tag, sc, plain_of in (
+                ("wide", small, lambda m: lambda mesh_, root_, *a, **k:
+                 B_.bvh_wide_closest_hit_plain(B_.bvh_walk(mesh_), root_,
+                                               *a, **k)),
+                ("binary", small_capped, lambda m: B_.bvh_closest_hit_plain)):
+            B_.launches = B_.launches_binary = 0
+            fk = render(sc, scfg, seed=5, device=dev, tables=stab)
+            small_launches = (B_.launches, B_.launches_binary)
+            B_.launches = B_.launches_binary = 0
+            plain_calls = [0]
+            plain_walk_fn = plain_of(sc.mesh)
 
-        def plain_walk(mesh_, root_, lo, ld, t_init, stats=None):
-            plain_calls[0] += 1
-            return B_.bvh_closest_hit_plain(mesh_, root_, lo, ld, t_init,
-                                            stats)
-        B_.bvh_closest_hit = plain_walk
-        try:
-            fp = render(small, scfg, seed=5, device=dev, tables=stab)
-        finally:
-            B_.bvh_closest_hit = kernel_fn
-        check(B_.launches == 0, "bvh: the plain frame launched the kernel")
-        check(small_launches == plain_calls[0] > 0, f"bvh: the small frame "
-              f"made {small_launches} launches against {plain_calls[0]} "
-              f"plain walks")
-        small_err = float(np.abs(fk.radiance - fp.radiance).max())
-        check(small_err == 0.0 and np.array_equal(fk.z, fp.z)
-              and np.array_equal(fk.sample_count, fp.sample_count),
-              f"bvh: the 160x120 frame differs from the plain walk's by "
-              f"{small_err}")
-        print(f"[bvh] {SMALL[0]}x{SMALL[1]} frame ({small_launches} "
-              f"launches), kernel vs plain walk: max_abs_err="
-              f"{small_err:.3e}", flush=True)
+            def plain_walk(*a, **k):
+                plain_calls[0] += 1
+                return plain_walk_fn(*a, **k)
+            B_.bvh_closest_hit = plain_walk
+            try:
+                fp = render(sc, scfg, seed=5, device=dev, tables=stab)
+            finally:
+                B_.bvh_closest_hit = kernel_fn
+            check(B_.launches == B_.launches_binary == 0,
+                  "bvh: the plain frame launched a kernel")
+            want = (plain_calls[0], 0) if tag == "wide" \
+                else (0, plain_calls[0])
+            check(small_launches == want and plain_calls[0] > 0,
+                  f"bvh {tag}: the small frame made {small_launches} "
+                  f"launches against {plain_calls[0]} plain walks")
+            if tag == "binary":
+                binary_frame_launches = small_launches[1]
+            e = float(np.abs(fk.radiance - fp.radiance).max())
+            check(e == 0.0 and np.array_equal(fk.z, fp.z)
+                  and np.array_equal(fk.sample_count, fp.sample_count),
+                  f"bvh {tag}: the 160x120 frame differs from its plain "
+                  f"walk's by {e}")
+            small_err[tag] = e
+            print(f"[bvh] {SMALL[0]}x{SMALL[1]} frame, the {tag} walk "
+                  f"({plain_calls[0]} launches) vs its plain walk: "
+                  f"max_abs_err={e:.3e}", flush=True)
         stamp("small frames")
 
         # mesh_algo="dense": the primary rays, and a 160x120 frame
@@ -2808,9 +2962,42 @@ def main(argv):
               f"process); hits, z and sample counts equal to "
               f"render_device_host, radiance sums within {gerr:.3e} (the "
               f"two ranks' sums add in another order)", flush=True)
+        # two tiles of 1536 lanes against one process: the wavefront's
+        # adaptive frame and the fused frame at bounce 0 per pixel
+        # (tests/test_torch_sharded.py's tolerances: hits and sample counts
+        # equal, radiance within atol 5e-5, z within 1e-5); past bounce 0
+        # a tile that does not start on a 1024-lane block draws other
+        # Russian-roulette streams (blk0), so the rr frame is held on its
+        # mean radiance (within MEAN_TOL relative) with hits, z and sample
+        # counts equal
+        small = build_scene(box_scene(TILE_W, TILE_H, with_mesh=False),
+                            device=dev)
+        tiles = {}
+        for name, kw in TILE_CFGS.items():
+            ref = [x.cpu().numpy() for x in R_.render_device_host(
+                small, RenderConfig(**kw), seed=0, device=dev)]
+            got = [g[f"{name}_{k}"] for k in ("rad", "hits", "z", "ns")]
+            same = (np.array_equal(got[1], ref[1])
+                    and np.array_equal(got[3], ref[3])
+                    and np.allclose(got[2], ref[2], rtol=0, atol=1e-5))
+            rad_err = float(np.abs(got[0] - ref[0]).max())
+            mean_rel = float(abs(got[0].mean() - ref[0].mean())
+                             / ref[0].mean())
+            ok_ = same and (mean_rel <= MEAN_TOL if name == "rr"
+                            else rad_err <= 5e-5)
+            tiles[name] = dict(rad_max_abs_err=rad_err, mean_rel=mean_rel,
+                               hits_z_counts_equal=bool(same))
+            check(ok_, f"gloo 2x1 tiles {name}: against one process, hits, "
+                  f"z and counts equal {same}, radiance {rad_err:.3e}, "
+                  f"mean {mean_rel:.3e} relative")
+            print(f"[bvh] render_sharded on two tiles of 1536 lanes (gloo, "
+                  f"two processes on the card), {name} ({TILE_W}x{TILE_H}, "
+                  f"{kw}): hits, z and sample counts equal to one process, "
+                  f"radiance max abs err {rad_err:.3e}, mean "
+                  f"{mean_rel:.3e} relative", flush=True)
         stamp("phase passed")
         p = kinds["primary"]
-        return {
+        return [{
             "launches": expected, "max_abs_err": err, "ms": p["ms"],
             "ms_profiler": prof_ms, "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
@@ -2818,13 +3005,23 @@ def main(argv):
             "frame_s_mesh_closest_hit": auto_s, "wave_s": wave_s,
             "wave_ms_profiler": wave_prof_ms,
             "device_busy_share": busy_us / 1e6 / wave_s,
-            "bvh_build_s": bvh_build_s, "bvh_nodes": walk.nodes.shape[0],
-            "bvh_levels": depth, "small_frame_max_abs_err": small_err,
+            "bvh_build_s": bvh_build_s,
+            "bvh_nodes": mesh.bvh_min.shape[0],
+            "wide_nodes": walk.wnodes.shape[0], "stack": walk.stack,
+            "bvh_levels": depth, "near_ties": ties_all,
+            "small_frame_max_abs_err": small_err["wide"],
             "dense_primary_s": dense_s, "dense_frame_s": dense_frame_s,
             "tex_filter_frame_s": ff_s, "unfiltered_frame_s": fu_s,
             "sharded_1x1_exact": True,
             "sharded_gloo_1x2_s": gloo_s,
-            "sharded_gloo_1x2_rad_max_abs_err": gerr, "per_input": kinds}
+            "sharded_gloo_1x2_rad_max_abs_err": gerr,
+            "sharded_gloo_2x1_tiles": tiles, "per_input": kinds}, {
+            "launches": binary_frame_launches, "max_abs_err": cap_err,
+            "ms": cap_ms, "ms_profiler": cap_prof_ms,
+            "plain_ms": cap_pms, "bound_ms": cap["bound_ms"],
+            "bound_by": cap["bound_by"], "library_ms": None,
+            "small_frame_max_abs_err": small_err["binary"],
+            "capped_max_depth": depth - 2, "primary": cap}]
 
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
@@ -2909,10 +3106,15 @@ def main(argv):
          drive_cli),
         # ---- phase 12: the BVH walk, the dense test, footprint filtering
         # and the sharded render
-        (12, {"name": "bvh_closest_hit",
-              "source": "rtf_tpu_torch/csrc/bvh_hit.cu",
-              "replaces": "rtf_tpu/ops/trace.py:161 (bvh_traverse, no "
-                          "pallas_call)"},
+        (12, [{"name": "bvh_closest_hit",
+               "source": "rtf_tpu_torch/csrc/bvh_hit.cu",
+               "replaces": "rtf_tpu/ops/trace.py:161 (bvh_traverse, no "
+                           "pallas_call; the wide walk)"},
+              {"name": "bvh_closest_hit_binary",
+               "source": "rtf_tpu_torch/csrc/bvh_hit.cu",
+               "replaces": "rtf_tpu/ops/trace.py:161 (bvh_traverse, no "
+                           "pallas_call; the binary walk, trees deeper than "
+                           "max_depth - 2)"}],
          drive_bvh),
     ]
     kernels = []

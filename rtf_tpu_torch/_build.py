@@ -11,7 +11,8 @@ per source, all at once.
   mesh_hit      csrc/mesh_hit.cu      rtf_mesh_hit_launch (ops/mesh_hit.py)
   mesh_hit_mxu  csrc/mesh_hit_mxu.cu  rtf_mesh_hit_mxu_launch
                                                   (ops/mesh_hit_mxu.py)
-  bvh_hit       csrc/bvh_hit.cu       rtf_bvh_hit_launch  (ops/bvh_hit.py)
+  bvh_hit       csrc/bvh_hit.cu       rtf_bvh_hit_launch, rtf_bvh_wide_launch
+                                                  (ops/bvh_hit.py)
 """
 from __future__ import annotations
 
@@ -64,6 +65,16 @@ KERNELS = {
         _P, _P, _I, _I,          # nodes, leaf faces, root, stack depth
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
         _P, _P]),                # stats, stream
+}
+# a library's further launch functions and their argtypes
+MORE = {
+    "bvh_hit": {"rtf_bvh_wide_launch": [
+        _P, _P, _I, _P, _I, _I,  # origins, directions, their row stride,
+                                 # t_init, its stride, n
+        _P, _P, _I, _I,          # wide nodes, face rows, wide root, stack
+                                 # need
+        _P, _P, _P, _P, _P,      # t, face, front, ba, bb
+        _P, _P]},                # stats, stream
 }
 
 _LIBS = {}
@@ -126,8 +137,9 @@ def load(name: str = "wave"):
             build()
         lib = ctypes.CDLL(str(library_path(name)))
         _, fn, argtypes = KERNELS[name]
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        for f, a in {fn: argtypes, **MORE.get(name, {})}.items():
+            getattr(lib, f).argtypes = a
+            getattr(lib, f).restype = ctypes.c_int
         lib.rtf_error_string.argtypes = [ctypes.c_int]
         lib.rtf_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

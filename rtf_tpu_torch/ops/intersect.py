@@ -90,13 +90,23 @@ def plane_attributes(o, d, t):
     return p, n, torch.stack([u, v, torch.zeros_like(u)], dim=-1)
 
 
-def intersect_triangle(o, d, a, b, c, t_prev):
-    """Ray vs triangle(s); shapes broadcast over leading dims.  Returns
-    (t, front, bary_a, bary_b, valid) by the plane test and dominant-axis
-    projected-area barycentrics of TriObj::IntersectTriangle.  Every sum
-    is written out left to right, the order in which csrc/bvh_hit.cu
-    computes it per ray and face, so the two round alike."""
-    o, d, a, b, c = ([x[..., k] for k in range(3)] for x in (o, d, a, b, c))
+def _area2(axis, p0, p1, p2):
+    """Signed double area of (p0, p1, p2) (lists of 3 components)
+    projected perpendicular to `axis`, with the reference's sign
+    conventions (TriangleArea, objects.h:146-157)."""
+    f1 = [p1[k] - p0[k] for k in range(3)]
+    f2 = [p2[k] - p0[k] for k in range(3)]
+    return torch.where(
+        axis == 0, f1[1] * f2[2] - f2[1] * f1[2],
+        torch.where(axis == 1, f1[0] * f2[2] - f2[0] * f1[2],
+                    f1[0] * f2[1] - f2[0] * f1[1]))
+
+
+def triangle_face(a, b, c):
+    """The ray-independent part of intersect_triangle for faces given as
+    lists of 3 components: (n, axis, total), the unit normal (a list of 3),
+    the dominant axis and the projected double area.  ops/bvh_hit.py::
+    face_rows keeps them per face for the wide walk."""
     e1 = [b[k] - a[k] for k in range(3)]
     e2 = [c[k] - a[k] for k in range(3)]
     n = [e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
@@ -105,30 +115,29 @@ def intersect_triangle(o, d, a, b, c, t_prev):
     x = torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2], min=1e-30)
     r = torch.where(x > 0, 1.0 / torch.sqrt(x), 0.0)
     n = [nk * r for nk in n]
+    an = [torch.abs(nk) for nk in n]
+    # the first largest component, as argmax
+    axis = torch.where(an[2] > torch.maximum(an[0], an[1]), 2,
+                       torch.where(an[1] > an[0], 1, 0))
+    return n, axis, _area2(axis, a, b, c)
+
+
+def intersect_triangle(o, d, a, b, c, t_prev):
+    """Ray vs triangle(s); shapes broadcast over leading dims.  Returns
+    (t, front, bary_a, bary_b, valid) by the plane test and dominant-axis
+    projected-area barycentrics of TriObj::IntersectTriangle.  Every sum
+    is written out left to right, the order in which csrc/bvh_hit.cu
+    computes it per ray and face, so the two round alike."""
+    o, d, a, b, c = ([x[..., k] for k in range(3)] for x in (o, d, a, b, c))
+    n, axis, total = triangle_face(a, b, c)
     dz = d[0] * n[0] + d[1] * n[1] + d[2] * n[2]
     pz = (o[0] - a[0]) * n[0] + (o[1] - a[1]) * n[1] + (o[2] - a[2]) * n[2]
     safe_dz = torch.where(torch.abs(dz) < 1e-7, 1e-7, dz)
     t = -pz / safe_dz
     p = [o[k] + t * d[k] for k in range(3)]
-    an = [torch.abs(nk) for nk in n]
-    # the first largest component, as argmax
-    axis = torch.where(an[2] > torch.maximum(an[0], an[1]), 2,
-                       torch.where(an[1] > an[0], 1, 0))
-
-    def area2(p0, p1, p2):
-        # signed double area projected perpendicular to axis, with the
-        # reference's sign conventions (TriangleArea, objects.h:146-157)
-        f1 = [p1[k] - p0[k] for k in range(3)]
-        f2 = [p2[k] - p0[k] for k in range(3)]
-        return torch.where(
-            axis == 0, f1[1] * f2[2] - f2[1] * f1[2],
-            torch.where(axis == 1, f1[0] * f2[2] - f2[0] * f1[2],
-                        f1[0] * f2[1] - f2[0] * f1[1]))
-
-    total = area2(a, b, c)
     s = 1.0 / torch.where(total == 0, 1e-30, total)
-    ba = area2(p, b, c) * s
-    bb = area2(p, c, a) * s
+    ba = _area2(axis, p, b, c) * s
+    bb = _area2(axis, p, c, a) * s
     bc = 1.0 - ba - bb
     valid = (torch.abs(dz) >= 1e-7) & (t > ZERO) & (t < t_prev) & (total != 0)
     valid &= (ba >= 0) & (bb >= 0) & (bc >= 0)

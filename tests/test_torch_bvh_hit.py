@@ -116,10 +116,12 @@ def test_walk_matches_mesh_closest_hit():
     hit = face >= 0
     assert torch.equal(hit, mface >= 0) and 0.1 < float(hit.float().mean())
     np.testing.assert_allclose(t[hit].numpy(), mt[hit].numpy(), rtol=1e-4)
-    nodes, inner, leaves, faces, most = stats.tolist()
+    nodes, inner, leaves, faces, most, boxes = stats.tolist()
     assert leaves <= faces <= 8 * leaves and most <= nodes
-    # a ray pops its root, then two nodes for every inner node it enters
+    # a ray pops its root, then two nodes for every inner node it enters;
+    # a pop tests one box, an inner node its two children's
     assert nodes == o.shape[0] + 2 * inner
+    assert boxes == nodes + 2 * inner
 
 
 def test_bvh_frame_matches_jax_per_pixel(monkeypatch):

@@ -1,6 +1,6 @@
 """The kernels (csrc/wave_kernel.cu, mesh_hit.cu, mesh_hit_mxu.cu,
-bvh_hit.cu) against their plain PyTorch versions on the card, and the
-wrapper's device rules.
+bvh_hit.cu's two walks) against their plain PyTorch versions on the card,
+and the wrapper's device rules.
 
 Tests marked `cuda` need a CUDA card and nvcc; they skip elsewhere.  On
 the card run them with `python -m pytest --noconftest
@@ -869,18 +869,8 @@ def test_cache_evaluator_exact(cuda_dev, name):
     assert float(out[0].mean()) > 0.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("subdiv", [2, 5])
-@pytest.mark.parametrize("kind", ["camera", "scattered", "capped"])
-def test_bvh_kernel_matches_plain(cuda_dev, subdiv, kind):
-    """csrc/bvh_hit.cu against bvh_closest_hit_plain on the 320- and
-    20,480-face balls (mesh_subdiv 2 and 5): the 160x120 camera's rays in
-    the ball's local space, seeded scattered rays about the ball, and the
-    camera's rays with seeded t_init caps.  Faces equal, t, front, ba and
-    bb with max abs error 0.0 (one thread walks a ray's pops and tests in
-    the plain version's order and rounds as torch does), the work counters
-    equal to the plain walk's, one launch counted."""
-    from rtf_tpu_torch.ops import bvh_hit as B
+def _bvh_rays(cuda_dev, subdiv, kind):
+    """test_bvh_kernel_matches_plain's scene, mesh and local rays."""
     from rtf_tpu_torch.ops.trace import _to_local
     from rtf_tpu_torch.render.camera import pixel_order, primary_rays
     from rtf_tpu_torch.scene.build import build_scene, ensure_bvh
@@ -910,16 +900,78 @@ def test_bvh_kernel_matches_plain(cuda_dev, subdiv, kind):
                              20.0 + 8.0 * torch.rand(o.shape[0], generator=g,
                                                      device=cuda_dev),
                              t_init)
+    return mesh, o, d, t_init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdiv", [2, 5])
+@pytest.mark.parametrize("kind", ["camera", "scattered", "capped"])
+def test_bvh_kernel_matches_plain(cuda_dev, subdiv, kind):
+    """csrc/bvh_hit.cu's wide walk (the walk bvh_walk takes on these
+    trees) against its plain twin bvh_wide_closest_hit_plain and the
+    lock-step bvh_closest_hit_plain on the 320- and 20,480-face balls
+    (mesh_subdiv 2 and 5): the 160x120 camera's rays in the ball's local
+    space, seeded scattered rays about the ball, and the camera's rays with
+    seeded t_init caps.  Against the twin: every output and the work
+    counters with max abs error 0.0 (per ray the same pops and tests, and
+    the kernel rounds as torch does), one launch counted.  Against the
+    lock-step walk: hit masks and t equal; face, front, ba and bb equal
+    but on near ties (ops/bvh_hit.py::near_ties), at most 1 in 10^5
+    rays."""
+    from rtf_tpu_torch.ops import bvh_hit as B
+    mesh, o, d, t_init = _bvh_rays(cuda_dev, subdiv, kind)
+    walk = B.bvh_walk(mesh)
+    assert walk.walk == "wide"
     root = int(mesh.slot_root[0])
-    sk, sp = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
+    sk, sw = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
               for _ in range(2))
-    before = B.launches
+    before = B.launches, B.launches_binary
     kern = B.bvh_closest_hit(mesh, root, o, d, t_init, stats=sk)
-    plain = B.bvh_closest_hit_plain(mesh, root, o, d, t_init, stats=sp)
+    twin = B.bvh_wide_closest_hit_plain(walk, root, o, d, t_init, stats=sw)
+    lock = B.bvh_closest_hit_plain(mesh, root, o, d, t_init)
     torch.cuda.synchronize()
-    assert B.launches == before + 1
-    assert torch.equal(kern[1], plain[1])
+    assert (B.launches, B.launches_binary) == (before[0] + 1, before[1])
     assert int((kern[1] >= 0).sum()) > 20
-    for k, p in zip(kern[0:1] + kern[2:], plain[0:1] + plain[2:]):
-        assert torch.equal(k, p), float((k - p).abs().max())
-    assert torch.equal(sk, sp), (sk.tolist(), sp.tolist())
+    for k, p in zip(kern, twin):
+        assert torch.equal(k, p), float((k.float() - p.float()).abs().max())
+    assert torch.equal(sk, sw), (sk.tolist(), sw.tolist())
+    assert torch.equal(kern[1] >= 0, lock[1] >= 0)
+    assert torch.equal(kern[0], lock[0])
+    idx, tie = B.near_ties(mesh, o, d, kern, lock)
+    assert bool(tie.all()) and idx.numel() <= max(1, o.shape[0] // 100000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdiv", [2, 5])
+@pytest.mark.parametrize("kind", ["camera", "scattered", "capped"])
+def test_bvh_binary_walk_on_capped_tree(cuda_dev, subdiv, kind):
+    """csrc/bvh_hit.cu's binary walk on test_bvh_kernel_matches_plain's
+    rays: on the ball's own tree (the walk forced), and on a tree deeper
+    than max_depth - 2 (max_depth set to 2 levels below the ball's, so
+    bvh_traverse's stack clamp drops nodes), where bvh_walk takes it by the
+    depth rule.  Each launch equals the lock-step bvh_closest_hit_plain
+    bit for bit, outputs and counters, and is counted in
+    launches_binary."""
+    from rtf_tpu_torch.ops import bvh_hit as B
+    mesh, o, d, t_init = _bvh_rays(cuda_dev, subdiv, kind)
+    root = int(mesh.slot_root[0])
+    levels = B.tree_levels(mesh.bvh_child.cpu().numpy(), root)
+    full = B.build_walk(mesh, "binary")
+    for capped in (False, True):
+        if capped:
+            mesh.max_depth = levels - 2
+            assert B.bvh_walk(mesh).walk == "binary"
+        sk, sp = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
+                  for _ in range(2))
+        before = B.launches, B.launches_binary
+        kern = (B.bvh_closest_hit(mesh, root, o, d, t_init, stats=sk)
+                if capped else
+                B.launch_walk(full, root, o, d, t_init, stats=sk))
+        plain = B.bvh_closest_hit_plain(mesh, root, o, d, t_init, stats=sp)
+        torch.cuda.synchronize()
+        assert (B.launches, B.launches_binary) == (before[0], before[1] + 1)
+        assert int((kern[1] >= 0).sum()) > 20
+        for k, p in zip(kern, plain):
+            assert torch.equal(k, p), \
+                (capped, float((k.float() - p.float()).abs().max()))
+        assert torch.equal(sk, sp), (capped, sk.tolist(), sp.tolist())
