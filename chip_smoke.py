@@ -13,7 +13,9 @@ those phases only (for iterating on one path):
             textured, with or without GI rows, the immediates mesh or the
             MXU tables), mesh_closest_hit, mesh_closest_hit_mxu and
             bvh_closest_hit, from the sources in the checkout, and prints
-            the build time and register counts;
+            the build time and register counts; then loads the host
+            library (native/bvh_builder.cpp, built with the system C++
+            compiler if missing);
 2. kernel   holds the kernel against its plain PyTorch version on the card
             at 160x120 (box scene at bounces 0 and 4, soft shadows, a
             checker scene, glossy materials, waves with every other lane
@@ -196,7 +198,27 @@ those phases only (for iterating on one path):
             atol 5e-5), and the fused frame at 2 bounces with Russian
             roulette, whose streams move with the tile's first block
             (blk0), on its mean radiance (within 1%) with hits, z and
-            sample counts equal.
+            sample counts equal;
+13. large   a large user scene from files to a frame: write_large_scene
+            writes into build/large_scene an XML with the box's planes and
+            its sized point light, a 327,680-face icosphere (subdivision
+            7) as an OBJ and a 2048x2048 RGB PNG on the back wall's kd,
+            its rows cycling through the five filters; each part timed
+            alone: the host library's build, load_scene (the XML, the
+            OBJ, the PNG inside it), the PNG decoded with the host library
+            and with unfilter_plain (equal), build_scene, ensure_bvh with
+            the C++ and the NumPy builder (every array equal), the walk
+            (its levels, the walk the depth rule takes, its stack need);
+            RenderConfig() at 800x600 with mesh_algo="bvh" on the
+            wavefront: a first frame with its set-up, best of 3 (840
+            bvh_closest_hit launches a frame, counted), and on one wave's
+            primary and shadow rays the wide walk against its twin
+            bvh_wide_closest_hit_plain (every output and the counters
+            equal); a fresh process's start-up split (import torch, the
+            port's modules, the card's context, the ctypes libraries, the
+            scene load) and one `python -m rtf_tpu_torch.cli render` of
+            the scene (the CLI's default profile), its wall time and
+            "Render time" line.  It adds no entry to the kernels line.
 
 Tolerances: phase 2 at bounce 0 the hit masks are equal, radiance within
 atol 2e-4 and z within rtol 1e-4 on hits; past bounce 0 a rounding
@@ -213,7 +235,7 @@ every row is finite and the query weight is zero on dead lanes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The frames are written to
 build/chip_smoke_{main,textured,gi,hybrid,wavefront,mxu,hybrid_mxu,
-photons,bvh,tex_filter}.png, phase 11's files to build/cli/.
+photons,bvh,tex_filter,large}.png, phase 11's files to build/cli/.
 """
 import json
 import os
@@ -696,6 +718,132 @@ def write_photon_scene(directory, w, h, seed=0):
     return path
 
 
+def write_png_filtered(path, img):
+    """Write img [H, W, 3] uint8 as an RGB PNG whose row y carries filter
+    y % 5 (None, Sub, Up, Average, Paeth), each row filtered at once in
+    numpy from the image's own bytes."""
+    import struct
+    import zlib
+
+    import numpy as np
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)                 # left
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)                 # up
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)                # up-left
+    ul[1:, c:] = x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    f = np.arange(h) % 5
+    pred = np.select([f[:, None] == k for k in range(5)],
+                     [np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    raw = np.concatenate([f[:, None].astype(np.uint8),
+                          ((x - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b""))
+
+
+def write_large_scene(directory, w, h, subdiv=7, tex=2048, seed=0):
+    """Phase 13's scene-file set in `directory`: the box's 5 planes and its point light (size 1, as box_scene's
+    light_size=1.0), the back wall's kd a tex x tex RGB PNG (a gradient
+    with noise from numpy seed `seed`, rows cycling through the five
+    filters), and icosphere_mesh(subdiv) (327,680 faces at 7) as an OBJ
+    with uv and normals; the camera at w x h.  Returns the XML's path and
+    the texture's pixels."""
+    import numpy as np
+    from rtf_tpu_torch.scene.procedural import icosphere_mesh
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    u = np.linspace(0.0, 1.0, tex, dtype=np.float32)
+    img = np.stack([u[None, :] * np.ones((tex, 1), np.float32),
+                    u[:, None] * np.ones((1, tex), np.float32),
+                    0.5 + 0.5 * np.sin(12.0 * (u[:, None] + u[None, :]))],
+                   -1) * 200.0 + rng.uniform(0.0, 55.0, (tex, tex, 3))
+    img = img.astype(np.uint8)
+    write_png_filtered(directory / "wall.png", img)
+    m = icosphere_mesh(subdiv)
+    v = m.v.astype(np.float64)
+    vt = np.stack([0.5 + np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi),
+                   0.5 + np.arcsin(np.clip(v[:, 2], -1, 1)) / np.pi], 1)
+    f = m.f + 1
+    lines = [f"v {x:.7f} {y:.7f} {z:.7f}" for x, y, z in m.v]
+    lines += [f"vt {a:.7f} {b:.7f}" for a, b in vt]
+    lines += [f"vn {x:.7f} {y:.7f} {z:.7f}" for x, y, z in m.vn]
+    lines += [f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}" for a, b, c in f]
+    (directory / "ball.obj").write_text("\n".join(lines) + "\n")
+
+    def plane(name, mtl, tf):
+        return (f'<object type="plane" name="{name}" material="{mtl}">'
+                f'<scale value="32"/>{tf}</object>')
+    xml = f"""<xml><scene>
+<object name="box"><translate z="12"/>
+{plane("floor", "wall", '<translate z="-12"/>')}
+{plane("ceiling", "wall", '<rotate x="1" angle="180"/><translate z="12"/>')}
+{plane("back", "back", '<rotate x="1" angle="90"/><translate y="20"/>')}
+{plane("left", "wallRed", '<rotate y="1" angle="90"/><translate x="-15"/>')}
+{plane("right", "wallBlue",
+       '<rotate y="1" angle="-90"/><translate x="15"/>')}
+</object>
+<object type="obj" name="ball.obj" material="ball">
+<scale value="6"/><translate x="0" y="4" z="6"/></object>
+<material type="blinn" name="wall">
+<diffuse value="0.8"/><specular value="0"/></material>
+<material type="blinn" name="back">
+<diffuse value="1" texture="wall.png"/><specular value="0"/></material>
+<material type="blinn" name="wallRed">
+<diffuse r="1" g="0.5" b="0.5"/><specular value="0"/></material>
+<material type="blinn" name="wallBlue">
+<diffuse r="0.5" g="0.5" b="1"/><specular value="0"/></material>
+<material type="blinn" name="ball">
+<diffuse r="1" g="0.3" b="0.3"/><specular value="0.7"/>
+<glossiness value="20"/></material>
+<light type="point" name="L1"><intensity value="100.5"/>
+<position x="0" y="0" z="22"/><size value="1"/></light>
+</scene><camera><position x="0" y="-60" z="12"/>
+<target x="0" y="0" z="12"/><up x="0" y="0" z="1"/><fov value="30"/>
+<width value="{w}"/><height value="{h}"/></camera></xml>
+"""
+    path = directory / "large.xml"
+    path.write_text(xml)
+    return path, img
+
+
+# phase 13's start-up split: one fresh process, run from the root of the
+# checkout with the scene file's path as its argument
+STARTUP = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import rtf_tpu_torch.cli
+from rtf_tpu_torch import _build
+from rtf_tpu_torch.scene.xml_loader import load_scene
+t2 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+for name in _build.KERNELS:
+    _build.load(name)
+_build.load_host()
+t4 = time.perf_counter()
+load_scene(sys.argv[1])
+t5 = time.perf_counter()
+print(json.dumps(dict(import_torch_s=t1 - t0, import_port_s=t2 - t1,
+                      context_s=t3 - t2, libraries_s=t4 - t3,
+                      scene_load_s=t5 - t4)))
+"""
+
+
 # phase 12's frames of two tile shards of 1536 lanes (64x48 over two
 # ranks, not a multiple of the wave kernel's 1024-lane blocks): the
 # adaptive config of tests/test_torch_sharded.py on the wavefront, and the
@@ -759,7 +907,7 @@ def gloo_rank(rank, port, out):
 
 def main(argv):
     # no arguments: every phase; phase numbers: the build and those only
-    phases = {int(a) for a in argv} or set(range(1, 13))
+    phases = {int(a) for a in argv} or set(range(1, 14))
     try:
         import torch
     except ImportError:
@@ -811,6 +959,11 @@ def main(argv):
     print(f"[build] built "
           f"{', '.join(_build.library_path(k).name for k in logs)} in "
           f"{build_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    _build.load_host()      # the host library (C++ BVH builder, PNG unfilter)
+    print(f"[build] host library {_build.host_library_path().name} loaded "
+          f"(built if missing) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     def rays(scene, j=0):
         order = torch.as_tensor(pixel_order(scene.width, scene.height),
@@ -2512,7 +2665,7 @@ def main(argv):
               f"{mesh.bvh_min.shape[0]} binary nodes in {depth} levels, "
               f"{walk.wnodes.shape[0]} {B_.WIDTH}-wide nodes, a stack of "
               f"{walk.stack} entries; built in {bvh_build_s:.3f} s (the "
-              f"NumPy builder, the collapse and the face rows, once per "
+              f"C++ builder, the collapse and the face rows, once per "
               f"arena)", flush=True)
         root = walk.roots[0]
         per_shade = (1 + wcfg.shadow_min + wcfg.shadow_max) \
@@ -3023,6 +3176,231 @@ def main(argv):
             "small_frame_max_abs_err": small_err["binary"],
             "capped_max_depth": depth - 2, "primary": cap}]
 
+    def drive_large():
+        """Phase 13: a large user scene from files to a frame, on the card
+        host: the scene-file set of write_large_scene (the 327,680-face
+        ball, the 2048x2048 texture) loaded with load_scene and each part
+        of the load timed alone, the PNG decoded with the host library and
+        with unfilter_plain (equal), build_scene, ensure_bvh with the C++
+        and the NumPy builder (equal), the walk; RenderConfig() at 800x600
+        with mesh_algo="bvh": a first frame with its set-up, best of 3
+        (840 bvh_closest_hit launches a frame, counted), the wide walk
+        against its twin on one wave's primary and shadow rays (exact);
+        the host library's build; a fresh process's start-up split and one
+        CLI render of the scene.  Adds no kernels-line entry."""
+        import dataclasses
+        import re
+
+        from rtf_tpu_torch.ops import bvh_hit as B_
+        from rtf_tpu_torch.scene import xml_loader as XL_
+        from rtf_tpu_torch.scene.build import ensure_bvh
+        from rtf_tpu_torch.utils.png import read_png
+        t_phase = time.perf_counter()
+        fig = {}
+
+        def stamp(what):
+            print(f"[large] {time.perf_counter() - t_phase:.1f} s: {what}",
+                  flush=True)
+
+        def timed(key, fn, *a, **k):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out_ = fn(*a, **k)
+            torch.cuda.synchronize()
+            fig[key] = time.perf_counter() - t0_
+            return out_
+
+        directory = ROOT / "build" / "large_scene"
+        xml, pixels = timed("write_s", write_large_scene, directory, W, H)
+        stamp(f"wrote {sorted(p.name for p in directory.iterdir())}")
+        timed("library_build_s", _build.build_host)
+
+        # ---- load, each part alone: the OBJ and the PNG inside load_scene
+        # timed by wrapping the loader's two readers
+        parts = {"obj_s": 0.0, "png_s": 0.0}
+
+        def timing(key, fn):
+            def wrapped(*a, **k):
+                t0_ = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    parts[key] += time.perf_counter() - t0_
+            return wrapped
+        load_obj, read_png_ = XL_.load_obj, XL_.read_png
+        XL_.load_obj = timing("obj_s", load_obj)
+        XL_.read_png = timing("png_s", read_png_)
+        try:
+            desc = timed("load_scene_s", XL_.load_scene, str(xml))
+        finally:
+            XL_.load_obj, XL_.read_png = load_obj, read_png_
+        fig.update(parts)
+        fig["xml_s"] = fig["load_scene_s"] - parts["obj_s"] - parts["png_s"]
+        tex = desc.materials["back"].diffuse.texmap.texture.data
+        check(tex.shape == (2048, 2048, 3), f"large: the texture is "
+              f"{tex.shape}")
+        png = str(directory / "wall.png")
+        img = timed("png_native_s", read_png, png)
+        img_plain = timed("png_plain_s", read_png, png, use_native=False)
+        check(np.array_equal(img, img_plain) and img.dtype == np.uint8
+              and np.array_equal(img, pixels), "large: the host library's "
+              "PNG decode, unfilter_plain's and the pixels written differ")
+        print(f"[large] load_scene {fig['load_scene_s']:.3f} s: the XML "
+              f"{fig['xml_s']:.3f} s, the OBJ {parts['obj_s']:.3f} s, the "
+              f"PNG {parts['png_s']:.3f} s; the 2048x2048 PNG alone "
+              f"{fig['png_native_s']:.3f} s with the host library, "
+              f"{fig['png_plain_s']:.3f} s with unfilter_plain (both equal "
+              f"to the pixels written)", flush=True)
+
+        # ---- build: the scene, the BVH with each builder, the walk
+        scene = timed("build_scene_s", build_scene, desc, device=dev)
+        nf = scene.mesh.tri_a.shape[0]
+        check(nf == 327680 and scene.num_mesh_inst == 1,
+              f"large: {nf} faces, {scene.num_mesh_inst} instances")
+        mesh_plain = dataclasses.replace(scene.mesh)
+        timed("ensure_bvh_native_s", ensure_bvh, scene.mesh)
+        timed("ensure_bvh_plain_s", ensure_bvh, mesh_plain, use_native=False)
+        for k in ("bvh_min", "bvh_max", "bvh_child", "bvh_eoff", "bvh_ecnt",
+                  "bvh_elems", "slot_root"):
+            a, b = getattr(scene.mesh, k), getattr(mesh_plain, k)
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"large: {k} of the C++ builder differs from the NumPy "
+                  f"builder's")
+        walk = timed("build_walk_s", B_.bvh_walk, scene.mesh)
+        fig.update(levels=walk.levels, walk=walk.walk, stack=walk.stack,
+                   bvh_nodes=scene.mesh.bvh_min.shape[0],
+                   wide_nodes=walk.wnodes.shape[0])
+        check(walk.walk == "wide", f"large: the depth rule took the "
+              f"{walk.walk} walk")
+        print(f"[large] build_scene {fig['build_scene_s']:.3f} s; "
+              f"ensure_bvh on {nf} faces {fig['ensure_bvh_native_s']:.3f} s "
+              f"with the C++ builder, {fig['ensure_bvh_plain_s']:.3f} s with "
+              f"the NumPy builder (all arrays equal); build_walk "
+              f"{fig['build_walk_s']:.3f} s: {fig['bvh_nodes']} binary nodes "
+              f"in {walk.levels} levels, the {walk.walk} walk, "
+              f"{fig['wide_nodes']} {B_.WIDTH}-wide nodes, a stack need of "
+              f"{walk.stack}", flush=True)
+        stamp("loaded and built")
+
+        # ---- RenderConfig() with mesh_algo="bvh": a first frame with its
+        # set-up (a new build_scene, the tables, the BVH and the walk at
+        # the first trace), then best of 3, each frame's launches counted
+        wcfg = RenderConfig()
+        per_wave = (1 + wcfg.shadow_min + wcfg.shadow_max) * (1 + wcfg.bounces)
+        expected = per_wave * wcfg.max_samples
+
+        def first():
+            sc = dataclasses.replace(build_scene(desc, device=dev),
+                                     mesh_algo="bvh")
+            return sc, render(sc, wcfg, device=dev)
+        scene, _ = timed("first_frame_s", first)
+        tables = scene_tables(scene)
+        check(render_path(scene, wcfg)[0] == "wavefront",
+              "large: RenderConfig() takes the wavefront")
+        frame_s, res = float("inf"), None
+        for rep in range(3):
+            B_.launches = B_.launches_binary = M_.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
+            dt = time.perf_counter() - t0
+            counts = (B_.launches, B_.launches_binary, M_.launches)
+            check(counts == (expected, 0, 0), f"large frame {rep}: launches "
+                  f"(wide, binary, mesh_closest_hit) {counts}, expected "
+                  f"{expected} of the wide walk")
+            check(np.isfinite(out.radiance).all() and out.image.mean() > 5.0,
+                  "large frame: non-finite or black")
+            if dt < frame_s:
+                frame_s, res = dt, out
+        fig.update(frame_s=frame_s, launches=expected)
+        frame_png = ROOT / "build" / "chip_smoke_large.png"
+        write_png(str(frame_png), res.image)
+        print(f"[large] frame {W}x{H} RenderConfig() mesh_algo='bvh': first "
+              f"frame with its set-up {fig['first_frame_s']:.3f} s, best of "
+              f"3 {frame_s:.4f} s ({expected} bvh_closest_hit launches a "
+              f"frame; mean byte {res.image.mean():.2f}, png "
+              f"{frame_png.relative_to(ROOT)})", flush=True)
+
+        # ---- the wide walk against its twin on one wave's rays
+        order = torch.as_tensor(pixel_order(W, H), device=dev).to(torch.int64)
+        o, d = primary_rays(scene, order % W, order // W, torch.tensor(0))
+        ids = torch.arange(W * H, device=dev)
+
+        def one_wave():
+            return render_wave(
+                scene, wcfg, tables, o, d, ids,
+                torch.ones(W * H, dtype=torch.bool, device=dev),
+                torch.Generator(device=dev).manual_seed(3), W * H,
+                inv_pixel=ids)
+        sets = bvh_sets(B_, scene, one_wave, per_wave, dev)
+        walk = B_.bvh_walk(scene.mesh)
+        root = walk.roots[0]
+        for label in ("primary", "shadow"):
+            lo, ld, t_init = sets[label]
+            sk, sw = (torch.zeros(B_.NSTAT, dtype=torch.int64, device=dev)
+                      for _ in range(2))
+            kern = B_.bvh_closest_hit(scene.mesh, root, lo, ld, t_init,
+                                      stats=sk)
+            twin = B_.bvh_wide_closest_hit_plain(walk, root, lo, ld, t_init,
+                                                 stats=sw)
+            torch.cuda.synchronize()
+            e = max(float((k.float() - p.float()).abs().max())
+                    for k, p in zip(kern, twin))
+            check(e == 0.0 and torch.equal(kern[1], twin[1])
+                  and torch.equal(sk, sw), f"large {label}: max abs err {e}, "
+                  f"counters {sk.tolist()} against the twin's {sw.tolist()}")
+            fig[f"{label}_rays"] = lo.shape[0]
+            fig[f"{label}_hits"] = int((kern[1] >= 0).sum())
+            print(f"[large] bvh_closest_hit on the frame's {label} rays "
+                  f"({lo.shape[0]}, {fig[f'{label}_hits']} hit the ball) "
+                  f"against bvh_wide_closest_hit_plain: every output and the "
+                  f"counters equal, max_abs_err={e:.3e}", flush=True)
+        stamp("frames and the walk against its twin")
+
+        # ---- a fresh process's start-up split, then one CLI render
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", STARTUP, str(xml)],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"large: the start-up process failed:\n"
+              f"{proc.stdout}{proc.stderr}")
+        split = json.loads(proc.stdout.strip().splitlines()[-1])
+        # the interpreter's start and exit: the wall time outside the parts
+        split["interpreter_s"] = wall - sum(split.values())
+        split["process_wall_s"] = wall
+        fig["startup"] = split
+        print(f"[large] start-up of a fresh process: {wall:.3f} s wall: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()
+                          if k != "process_wall_s"), flush=True)
+        out_png = ROOT / "build" / "large_scene" / "cli.png"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rtf_tpu_torch.cli", "render", str(xml),
+             "--out", str(out_png)], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, flush=True)
+        check(proc.returncode == 0, f"large: cli render exit code "
+              f"{proc.returncode}")
+        times = re.findall(r"Render time is \d+:\d\d:\d\d", proc.stdout)
+        for line in proc.stdout.splitlines()[-40:]:     # its own lines
+            print(f"[large]   cli: {line}", flush=True)
+        cli_img = read_png(str(out_png))
+        check(cli_img.shape[:2] == (H, W) and float(cli_img.std()) > 0.0,
+              f"large: cli.png is {cli_img.shape}, or constant")
+        fig.update(cli_wall_s=wall, cli_render_time=times[-1] if times
+                   else None)
+        print(f"[large] cli render {xml.relative_to(ROOT)} (its default "
+              f"profile, final): exit 0, {wall:.1f} s wall; "
+              f"{times[-1] if times else 'no Render time line'}", flush=True)
+        print(f"[large] host library built in {fig['library_build_s']:.2f} s "
+              f"({_build.host_library_path().name}); figures "
+              + json.dumps(fig), flush=True)
+        stamp("phase passed")
+        return []
+
     gi_cfg = RenderConfig(min_samples=8, max_samples=8, bounces=2,
                           shadow_min=1, shadow_max=1, gi_mode="hemisphere",
                           hemisphere_samples=4, queue_factor=1.0)
@@ -3116,6 +3494,9 @@ def main(argv):
                            "pallas_call; the binary walk, trees deeper than "
                            "max_depth - 2)"}],
          drive_bvh),
+        # ---- phase 13: a large user scene from files to a frame (the host
+        # library: the C++ BVH builder and PNG unfilter; no kernel entry)
+        (13, [], drive_large),
     ]
     kernels = []
     for ph, entries, fn in runs:

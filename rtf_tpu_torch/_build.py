@@ -13,6 +13,11 @@ per source, all at once.
                                                   (ops/mesh_hit_mxu.py)
   bvh_hit       csrc/bvh_hit.cu       rtf_bvh_hit_launch, rtf_bvh_wide_launch
                                                   (ops/bvh_hit.py)
+
+The host library native/bvh_builder.cpp (rtf_bvh_build, rtf_png_unfilter;
+native/binding.py) builds the same way with the system C++ compiler
+(`build_host`, `load_host`), on any host: a failed build or load raises
+RuntimeError with the compiler's output, and nothing falls back.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ ROOT = Path(__file__).resolve().parent
 BUILD_DIR = ROOT.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+HOST_SOURCE = ROOT / "native" / "bvh_builder.cpp"
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # per library: its source, its launch function and that function's argtypes
@@ -75,6 +82,17 @@ MORE = {
                                  # need
         _P, _P, _P, _P, _P,      # t, face, front, ba, bb
         _P, _P]},                # stats, stream
+}
+
+# the host library's functions: (argtypes, restype)
+HOST_FUNCS = {
+    "rtf_bvh_build": ([
+        _P, _P, _P, _I, _I,      # bmin, bmax, centers, n, max_elems
+        _P, _P, _P, _P, _P,      # node_min, node_max, child, eoff, ecnt
+        _P],                     # elems
+        ctypes.c_int),
+    "rtf_png_unfilter": ([_P, _P, _I, _I, _I],  # raw, out, h, stride, bpp
+                         ctypes.c_int),
 }
 
 _LIBS = {}
@@ -148,3 +166,58 @@ def load(name: str = "wave"):
 
 def error_string(code: int, name: str = "wave") -> str:
     return load(name).rtf_error_string(code).decode()
+
+
+def cxx() -> str:
+    """The system C++ compiler: $CXX, else c++, else g++."""
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError(f"no C++ compiler found ($CXX, c++, g++): the host "
+                       f"library {HOST_SOURCE} builds with one")
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(HOST_SOURCE.read_bytes()
+                       + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"librtf_native_{h}.so"
+
+
+def build_host() -> str:
+    """Compile the host library into build/ (written to a temporary file and
+    renamed, so processes that build at once never load half a file);
+    returns the compiler's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = host_library_path()
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{' '.join(cmd)} did not run: {e}") from None
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{' '.join(cmd)} failed (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load_host():
+    """The host library, built on first use."""
+    if "native" not in _LIBS:
+        path = host_library_path()
+        if not path.exists():
+            build_host()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise RuntimeError(f"cannot load the host library {path}: "
+                               f"{e}") from None
+        for f, (argtypes, restype) in HOST_FUNCS.items():
+            getattr(lib, f).argtypes = argtypes
+            getattr(lib, f).restype = restype
+        _LIBS["native"] = lib
+    return _LIBS["native"]

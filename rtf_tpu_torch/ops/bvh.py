@@ -1,12 +1,16 @@
-"""BVH builder on the host (rtf_tpu/ops/bvh.py's NumPy builder).
+"""BVH builder on the host (rtf_tpu/ops/bvh.py's builders).
 
 It reproduces cy::BVH (cyBVH.h:122-142, 242-328): a binary tree over
 element boxes, a mean split on the widest axis that falls back to the next
 axes and then to an arbitrary halving, at most `max_elems` elements a leaf
 (up to 8 where no split separates them), children stored adjacently
-(child2 = child1 + 1), the root at index 1 (node 0 unused).  It gives the
-same arrays as rtf_tpu's NumPy builder and its native one.  The walk over
-the tree is ops/bvh_hit.py.
+(child2 = child1 + 1), the root at index 1 (node 0 unused).  `build_bvh`
+takes the C++ builder of the port's host library (native/binding.py), as
+rtf_tpu takes its own; use_native=False runs the NumPy builder below, the
+plain version the tests hold it against.  Both give the same arrays as
+rtf_tpu's NumPy builder, and as its native one but where that one splits
+otherwise (tests/test_torch_native.py).  The walk over the tree is
+ops/bvh_hit.py.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import sys
 from typing import NamedTuple
 
 import numpy as np
+
+from rtf_tpu_torch.native.binding import native_build_bvh
 
 
 class BvhArrays(NamedTuple):
@@ -36,10 +42,15 @@ class _Tmp:
 
 
 def build_bvh(centers: np.ndarray, boxes_min: np.ndarray,
-              boxes_max: np.ndarray, max_elems: int = 8) -> BvhArrays:
+              boxes_max: np.ndarray, max_elems: int = 8,
+              use_native: bool = True) -> BvhArrays:
     """Build over element bounds; `centers` are the split keys
-    (GetElementCenter)."""
+    (GetElementCenter).  The C++ builder unless use_native=False; a build
+    or load failure of the host library raises."""
     n = len(centers)
+    if use_native and n > 0:
+        return BvhArrays(*native_build_bvh(centers, boxes_min, boxes_max,
+                                           max_elems))
     elems = np.arange(n, dtype=np.int32)
     if n == 0:
         z3 = np.zeros((2, 3), np.float32)
@@ -124,7 +135,7 @@ def build_bvh(centers: np.ndarray, boxes_min: np.ndarray,
 
 
 def build_mesh_bvh(verts: np.ndarray, faces: np.ndarray,
-                   max_elems: int = 8) -> BvhArrays:
+                   max_elems: int = 8, use_native: bool = True) -> BvhArrays:
     """BVH over triangles: element bounds are the faces' boxes, centers the
     boxes' centers (cyBVHTriMesh::GetElementBounds/Center,
     cyBVH.h:339-379)."""
@@ -132,4 +143,5 @@ def build_mesh_bvh(verts: np.ndarray, faces: np.ndarray,
     bmin = tri.min(axis=1)
     bmax = tri.max(axis=1)
     centers = 0.5 * (bmin + bmax)
-    return build_bvh(centers.astype(np.float64), bmin, bmax, max_elems)
+    return build_bvh(centers.astype(np.float64), bmin, bmax, max_elems,
+                     use_native)

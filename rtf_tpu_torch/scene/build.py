@@ -486,11 +486,12 @@ class _Builder:
         return tex_table, tmap
 
 
-def ensure_bvh(mesh: MeshArena) -> MeshArena:
+def ensure_bvh(mesh: MeshArena, use_native: bool = True) -> MeshArena:
     """Build the arena's BVH in place unless it has one: per slot
-    build_mesh_bvh over the slot's faces (rtf_tpu/scene/build.py:370-383),
-    concatenated as rtf_tpu lays them out (child ids arena-global, elems
-    arena face ids, one root per slot), on the arena's device."""
+    build_mesh_bvh over the slot's faces (rtf_tpu/scene/build.py:370-383;
+    the C++ builder unless use_native=False), concatenated as rtf_tpu lays
+    them out (child ids arena-global, elems arena face ids, one root per
+    slot), on the arena's device."""
     if mesh.bvh_min is not None:
         return mesh
     corners = np.stack([getattr(mesh, k).cpu().numpy()
@@ -502,7 +503,8 @@ def ensure_bvh(mesh: MeshArena) -> MeshArena:
     for f0, f1 in mesh.slot_faces:
         nf = f1 - f0
         bvh = build_mesh_bvh(corners[f0:f1].reshape(-1, 3),
-                             np.arange(3 * nf).reshape(nf, 3), mesh.max_leaf)
+                             np.arange(3 * nf).reshape(nf, 3), mesh.max_leaf,
+                             use_native)
         child = bvh.child.copy()
         child[child >= 0] += node_base
         for k, v in (("bmin", bvh.bmin), ("bmax", bvh.bmax),

@@ -1,13 +1,15 @@
-"""Minimal pure-Python PNG codec (zlib + struct only), a copy of
-rtf_tpu/utils/png.py: encodes a rendered frame and decodes texture files
-(8/16-bit grey, grey+alpha, RGB, RGBA, palette with tRNS) without an image
-library."""
+"""Minimal PNG codec (zlib + struct, the scanline unfilter in the port's
+host library), a copy of rtf_tpu/utils/png.py: encodes a rendered frame and
+decodes texture files (8/16-bit grey, grey+alpha, RGB, RGBA, palette with
+tRNS) without an image library."""
 from __future__ import annotations
 
 import struct
 import zlib
 
 import numpy as np
+
+from rtf_tpu_torch.native.binding import native_png_unfilter
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -38,10 +40,12 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(_SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat) + _chunk(b"IEND", b""))
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, use_native: bool = True) -> np.ndarray:
     """Decode an 8/16-bit PNG into a uint8 array [H,W,C] (palette expanded;
     16-bit samples keep their high byte), as rtf_tpu/utils/png.py::read_png
-    does without its native unfilter."""
+    does.  The scanlines are unfiltered by the port's host library
+    (native/binding.py::native_png_unfilter), whose build or load failure
+    raises RuntimeError; use_native=False takes `unfilter_plain`."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -76,6 +80,16 @@ def read_png(path: str) -> np.ndarray:
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(idat), np.uint8)
     raw = raw.reshape(h, stride + 1)
+    out = (native_png_unfilter(raw, h, stride, bpp) if use_native
+           else unfilter_plain(raw, h, stride, bpp))
+    return _expand(out, h, w, nchan, depth, ctype, palette, trns)
+
+
+def unfilter_plain(raw: np.ndarray, h: int, stride: int,
+                   bpp: int) -> np.ndarray:
+    """Undo the scanline filters of `raw` [h, stride + 1] (a filter byte,
+    then the row) row by row in Python: [h, stride] uint8.  The plain
+    version of native_png_unfilter, which read_png takes."""
     filters = raw[:, 0]
     lines = raw[:, 1:]
     out = np.zeros((h, stride), np.uint8)
@@ -109,7 +123,7 @@ def read_png(path: str) -> np.ndarray:
                 row[x] = (int(cur[x]) + pred) & 0xFF
         else:
             raise ValueError(f"bad filter {f}")
-    return _expand(out, h, w, nchan, depth, ctype, palette, trns)
+    return out
 
 
 def _expand(out, h, w, nchan, depth, ctype, palette, trns):

@@ -3,9 +3,10 @@ rtf_tpu/utils/png.py::read_png on PNGs this file encodes with zlib: every
 colour type (grey, grey+alpha, RGB, RGBA, palette with and without tRNS)
 at 8 and 16 bits where PNG allows them, each image's rows cycling through
 the five filter types (None, Sub, Up, Average, Paeth), its IDAT split
-into several chunks.  The decoded arrays must be equal (dtype, shape,
-values), and equal to the pixels encoded; an interlaced file raises
-NotImplementedError in both."""
+into several chunks, the port's scanlines unfiltered by its host library
+or by unfilter_plain (use_native True and False).  The decoded arrays must
+be equal (dtype, shape, values), and equal to the pixels encoded; an
+interlaced file raises NotImplementedError in both."""
 import struct
 import zlib
 
@@ -71,8 +72,10 @@ def encode_png(path, samples, ctype, depth, palette=None, trns=None,
     path.write_bytes(out + _chunk(b"IEND", b""))
 
 
+@pytest.mark.parametrize("use_native", [False, True])
 @pytest.mark.parametrize("ctype,depth,nchan,with_trns", CASES)
-def test_read_png_matches_jax(tmp_path, ctype, depth, nchan, with_trns):
+def test_read_png_matches_jax(tmp_path, ctype, depth, nchan, with_trns,
+                              use_native):
     from rtf_tpu.utils.png import read_png as jread
     from rtf_tpu_torch.utils.png import read_png
     rng = np.random.RandomState(ctype * 100 + depth)
@@ -88,7 +91,7 @@ def test_read_png_matches_jax(tmp_path, ctype, depth, nchan, with_trns):
         samples = rng.randint(0, hi, (h, w, nchan))
     path = tmp_path / "t.png"
     encode_png(path, samples, ctype, depth, palette, trns)
-    got, want = read_png(str(path)), jread(str(path))
+    got, want = read_png(str(path), use_native), jread(str(path))
     assert got.dtype == want.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
     if ctype == 3:
