@@ -928,6 +928,15 @@ def main(argv):
     from rtf_tpu_torch.ops import mesh_hit_mxu as X_
     from rtf_tpu_torch.ops.trace import _to_local
     from rtf_tpu_torch.render import renderer as R_
+    from rtf_tpu_torch.utils import tracing as T_
+    # launch counters of the tracing registry
+    WAVE = "launches.wave_kernel"
+    WAVE_TEX, WAVE_MXU = WAVE + ".textured", WAVE + ".mxu"
+    WAVE_TEX_MXU = WAVE + ".textured_mxu"
+    MESH = "launches.mesh_closest_hit"
+    MESH_MXU = MESH + "_mxu"
+    BVH = "launches.bvh_closest_hit"
+    BVH_BINARY = BVH + ".binary"
     from rtf_tpu_torch.render.camera import (
         pixel_order, primary_rays, primary_rays_ch)
     from rtf_tpu_torch.render.integrator import render_wave
@@ -1079,8 +1088,7 @@ def main(argv):
     cfg = RenderConfig(min_samples=SPP, max_samples=SPP, bounces=BOUNCES,
                        shadow_min=1, shadow_max=1, gi_mode="none")
     check(cfg.resolved_split_mode() == "rr", "main path must run split rr")
-    counters = ("launches", "launches_textured", "launches_mxu",
-                "launches_textured_mxu")
+    counters = (WAVE, WAVE_TEX, WAVE_MXU, WAVE_TEX_MXU)
 
     def profile_frame(tag, frame_s, fn, kernel="wave_kernel"):
         """Where one frame's device time goes (torch.profiler over fn):
@@ -1230,13 +1238,12 @@ def main(argv):
         render(scene, cfg, device=dev, tables=tables)     # warm-up frame
         frame_s, res = float("inf"), None
         for rep in range(3):
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(*counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render(scene, cfg, seed=1 + rep, device=dev, tables=tables)
             dt = time.perf_counter() - t0
-            counts = {c: getattr(W_, c) for c in counters}
+            counts = {c: T_.counter(c) for c in counters}
             launches = counts[counter]
             check(launches == SPP and sum(counts.values()) == SPP,
                   f"{tag} frame {rep}: launches {counts}, expected {SPP} "
@@ -1394,13 +1401,12 @@ def main(argv):
         render(scene, gcfg, **rkw)                         # warm-up frame
         frame_s, res = float("inf"), None
         for rep in range(3):
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(*counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render(scene, gcfg, seed=1 + rep, **rkw)
             dt = time.perf_counter() - t0
-            counts = {c: getattr(W_, c) for c in counters}
+            counts = {c: T_.counter(c) for c in counters}
             launches = counts[counter]
             check(launches == expected and sum(counts.values()) == expected,
                   f"{tag} frame {rep}: launches {counts}, expected "
@@ -1464,8 +1470,8 @@ def main(argv):
             "per_launch_kind": kinds}
 
     def mesh_counts():
-        return {"mesh_closest_hit": M_.launches,
-                **{c: getattr(W_, c) for c in counters}}
+        return {"mesh_closest_hit": T_.counter(MESH),
+                **{c: T_.counter(c) for c in counters}}
 
     def plain_fn(lo, ld, t_init, tris, aabb, face0=0, stats=None, **k):
         """mesh_closest_hit's plain version on a trace's rays (packed for
@@ -1610,9 +1616,7 @@ def main(argv):
         render(scene, wcfg, device=dev, tables=tables)    # warm-up frame
         frame_s, res = float("inf"), None
         for rep in range(3):
-            M_.launches = 0
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(MESH, *counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
@@ -1669,16 +1673,17 @@ def main(argv):
                                       light_size=1.0), device=dev)
         stab = scene_tables(small)
         scfg = wcfg.with_(min_samples=2, max_samples=2)
-        M_.launches = 0
+        T_.reset_counters(MESH)
         fk = render(small, scfg, seed=5, device=dev, tables=stab)
-        check(M_.launches == 2 * per_wave, "the small frame ran the kernel")
-        M_.launches = 0
+        check(T_.counter(MESH) == 2 * per_wave,
+              "the small frame ran the kernel")
+        T_.reset_counters(MESH)
         M_.mesh_closest_hit_rays = plain_fn
         try:
             fp = render(small, scfg, seed=5, device=dev, tables=stab)
         finally:
             M_.mesh_closest_hit_rays = kernel_fn
-        check(M_.launches == 0, "the plain frame launched the kernel")
+        check(T_.counter(MESH) == 0, "the plain frame launched the kernel")
         check(np.array_equal(fk.sample_count, fp.sample_count)
               and np.array_equal(fk.z >= 1e29, fp.z >= 1e29),
               "small frame: hit masks or sample counts differ")
@@ -1711,12 +1716,12 @@ def main(argv):
         g_expected = gcfg.max_samples * 2 * (
             1 + gcfg.hemisphere_samples * max(gcfg.bounces - 1, 0)
             + gcfg.bounces)
-        M_.launches = 0
+        T_.reset_counters(MESH)
         t0 = time.perf_counter()
         gi_res = render(gscene, gcfg, device=dev, tables=gtab)
         gi_s = time.perf_counter() - t0
-        check(M_.launches == g_expected,
-              f"GI frame: {M_.launches} launches, expected {g_expected}")
+        check(T_.counter(MESH) == g_expected,
+              f"GI frame: {T_.counter(MESH)} launches, expected {g_expected}")
         direct = render(gscene, gcfg.with_(gi_mode="none"), device=dev,
                         tables=gtab)
         gain = gi_res.radiance.mean() / direct.radiance.mean()
@@ -1751,11 +1756,11 @@ def main(argv):
         stab = scene_tables(scene)
         check(W_.launch_counter(stab) == counter,
               f"{tag}: wrong kernel variant")
-        setattr(W_, counter, 0)
+        T_.reset_counters(counter)
         fk = render(scene, fcfg, seed=5, device=dev, tables=stab, **rkw)
-        check(getattr(W_, counter) == (launches or fcfg.max_samples),
+        check(T_.counter(counter) == (launches or fcfg.max_samples),
               f"{tag}: the small frame ran the kernel")
-        setattr(W_, counter, 0)
+        T_.reset_counters(counter)
         kernel_fns = R_.wave, R_.gi_wave
         R_.wave = (lambda cfg_, tables_, *a, stats=None, **k:
                    W_.wave_plain(cfg_, tables_, *a, **k))
@@ -1765,7 +1770,7 @@ def main(argv):
             fp = render(scene, fcfg, seed=5, device=dev, tables=stab, **rkw)
         finally:
             R_.wave, R_.gi_wave = kernel_fns
-        check(getattr(W_, counter) == 0, f"{tag}: the plain frame launched "
+        check(T_.counter(counter) == 0, f"{tag}: the plain frame launched "
               "the kernel")
         check(np.array_equal(fk.sample_count, fp.sample_count)
               and np.array_equal(fk.z >= 1e29, fp.z >= 1e29),
@@ -1794,11 +1799,11 @@ def main(argv):
         t_phase = time.perf_counter()
         wave_res = drive("mxu", box_scene(W, H, with_mesh=True, mesh_subdiv=5),
                          box_scene(*SMALL, with_mesh=True, mesh_subdiv=5),
-                         "launches_mxu")
+                         WAVE_MXU)
         wave_res["small_frame_subdiv6_max_abs_err"] = small_frame_vs_plain(
             "mxu", box_scene(*SMALL, with_mesh=True, mesh_subdiv=6),
             cfg.with_(min_samples=4, max_samples=4, split_mode="rr"),
-            "launches_mxu")
+            WAVE_MXU)
         check(wave_res["small_frame_subdiv6_max_abs_err"] == 0.0,
               "mxu: the subdiv-6 frame is not exact")
         print(f"[mxu] {time.perf_counter() - t_phase:.1f} s: wave kernel "
@@ -1813,10 +1818,10 @@ def main(argv):
         pack = X_.pack_faces(trim)
         torch.cuda.synchronize()
         pack_ms = (time.perf_counter() - t0) * 1e3
-        X_.launches = 0
+        T_.reset_counters(MESH_MXU)
         kern = {k: X_.mesh_closest_hit_mxu(r, trim) for k, r in sets.items()}
         torch.cuda.synchronize()
-        launches = X_.launches
+        launches = T_.counter(MESH_MXU)
         check(launches == len(sets), f"mesh_closest_hit_mxu: {launches} "
               f"launches for {len(sets)} ray sets")
         err, res = 0.0, {}
@@ -1979,9 +1984,7 @@ def main(argv):
             return out, time.perf_counter() - t0_
 
         def zero_counts():
-            M_.launches = X_.launches = 0
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(MESH, MESH_MXU, *counters)
             torch.cuda.synchronize()
 
         xml = write_photon_scene(ROOT / "build" / "photon_scene", W, H)
@@ -2015,11 +2018,11 @@ def main(argv):
         first_s = time.perf_counter() - t0
         counts = mesh_counts()
         check(counts["mesh_closest_hit"] == mesh_expected
-              and counts["launches_textured"] == wave_expected
+              and counts[WAVE_TEX] == wave_expected
               and sum(counts.values()) == mesh_expected + wave_expected
-              and X_.launches == 0,
+              and T_.counter(MESH_MXU) == 0,
               f"photons: launches {counts}, expected {mesh_expected} of "
-              f"mesh_closest_hit and {wave_expected} of launches_textured")
+              f"mesh_closest_hit and {wave_expected} of {WAVE_TEX}")
         check(np.isfinite(first.radiance).all()
               and first.image.shape == (H, W, 3)
               and (first.sample_count == pcfg.max_samples).all()
@@ -2091,7 +2094,7 @@ def main(argv):
             out = render(scene, pcfg, seed=1 + rep, **rkw)
             dt = time.perf_counter() - t0
             counts = mesh_counts()
-            check(counts["launches_textured"] == wave_expected
+            check(counts[WAVE_TEX] == wave_expected
                   and sum(counts.values()) == wave_expected,
                   f"photon frame {rep}: launches {counts}")
             check(np.isfinite(out.radiance).all()
@@ -2141,10 +2144,10 @@ def main(argv):
                 M_.mesh_closest_hit_rays = kernel_fn
         zero_counts()
         (kmap, kvol) = one_chunk(capture)
-        check(M_.launches == pcfg.photon_bounces + 1,
-              f"the chunk launched the kernel {M_.launches} times")
+        check(T_.counter(MESH) == pcfg.photon_bounces + 1,
+              f"the chunk launched the kernel {T_.counter(MESH)} times")
         (pmap, pvol) = one_chunk(plain_fn)
-        check(M_.launches == pcfg.photon_bounces + 1,
+        check(T_.counter(MESH) == pcfg.photon_bounces + 1,
               "the plain chunk launched the kernel")
         chunk_err = max(float((a.float() - b.float()).abs().max())
                         for a, b in zip(tuple(kmap) + (kvol.table,),
@@ -2165,7 +2168,7 @@ def main(argv):
         scfg = pcfg.with_(min_samples=2, max_samples=2,
                           hemisphere_samples=4)
         small_err = small_frame_vs_plain(
-            "photons", small_desc, scfg, "launches_textured",
+            "photons", small_desc, scfg, WAVE_TEX,
             launches=2 * 5, gi_grid=kvol, caustic_grid=cvol)
         check(small_err == 0.0, f"photons: the 160x120 hybrid frame "
               f"differs from the plain wave's by {small_err}")
@@ -2404,9 +2407,7 @@ def main(argv):
             M_.mesh_closest_hit_rays
 
         def zero_counts():
-            M_.launches = X_.launches = 0
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(MESH, MESH_MXU, *counters)
             torch.cuda.synchronize()
 
         def spy(scene_, cfg_, tables_, p, n, mask, draws, level,
@@ -2441,11 +2442,11 @@ def main(argv):
                 fused_fn, mesh_fn
         counts = mesh_counts()
         wave_expected = hemi * len(levels)
-        check(counts["launches_textured"] == wave_expected > 0
+        check(counts[WAVE_TEX] == wave_expected > 0
               and counts["mesh_closest_hit"] == mesh_expected
               and sum(counts.values()) == wave_expected + mesh_expected,
               f"cli: launches {counts}, expected {wave_expected} of "
-              f"launches_textured and {mesh_expected} of mesh_closest_hit")
+              f"{WAVE_TEX} and {mesh_expected} of mesh_closest_hit")
         share = float(cache.computed.float().mean())
         check(np.isfinite(res.radiance).all() and res.image.mean() > 5.0
               and 0.0 < share < 0.6, "cli: the cached frame")
@@ -2556,12 +2557,12 @@ def main(argv):
         small_desc.camera.width, small_desc.camera.height = SMALL
         small = build_scene(small_desc, device=dev)
         stab = scene_tables(small)
-        setattr(W_, "launches_textured", 0)
+        T_.reset_counters(WAVE_TEX)
         fk, ck = IC_.render_with_cache(small, ccfg, 5, device=dev,
                                        tables=stab)
-        check(W_.launches_textured > 0, "cli: the small cached frame ran "
+        check(T_.counter(WAVE_TEX) > 0, "cli: the small cached frame ran "
               "no wave kernel")
-        setattr(W_, "launches_textured", 0)
+        T_.reset_counters(WAVE_TEX)
         kernel_wave = IC_.wave
         IC_.wave = (lambda cfg_, tables_, *a_, stats=None, **k_:
                     W_.wave_plain(cfg_, tables_, *a_, **k_))
@@ -2570,7 +2571,7 @@ def main(argv):
                                            tables=stab)
         finally:
             IC_.wave = kernel_wave
-        check(W_.launches_textured == 0, "cli: the plain cached frame "
+        check(T_.counter(WAVE_TEX) == 0, "cli: the plain cached frame "
               "launched the kernel")
         small_err = max(float(np.abs(fk.radiance - fp.radiance).max()),
                         float((ck.E - cp.E).abs().max()))
@@ -2883,15 +2884,13 @@ def main(argv):
 
         # RenderConfig() with the walk, through `render`
         def bvh_counts():
-            return {"bvh_closest_hit": B_.launches,
-                    "bvh_closest_hit_binary": B_.launches_binary,
+            return {"bvh_closest_hit": T_.counter(BVH),
+                    "bvh_closest_hit_binary": T_.counter(BVH_BINARY),
                     **mesh_counts()}
         render(scene, wcfg, device=dev, tables=tables)    # warm-up frame
         frame_s, res = float("inf"), None
         for rep in range(3):
-            B_.launches = B_.launches_binary = M_.launches = 0
-            for c in counters:
-                setattr(W_, c, 0)
+            T_.reset_counters(BVH, BVH_BINARY, MESH, *counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
@@ -2944,10 +2943,10 @@ def main(argv):
                  B_.bvh_wide_closest_hit_plain(B_.bvh_walk(mesh_), root_,
                                                *a, **k)),
                 ("binary", small_capped, lambda m: B_.bvh_closest_hit_plain)):
-            B_.launches = B_.launches_binary = 0
+            T_.reset_counters(BVH, BVH_BINARY)
             fk = render(sc, scfg, seed=5, device=dev, tables=stab)
-            small_launches = (B_.launches, B_.launches_binary)
-            B_.launches = B_.launches_binary = 0
+            small_launches = (T_.counter(BVH), T_.counter(BVH_BINARY))
+            T_.reset_counters(BVH, BVH_BINARY)
             plain_calls = [0]
             plain_walk_fn = plain_of(sc.mesh)
 
@@ -2959,7 +2958,7 @@ def main(argv):
                 fp = render(sc, scfg, seed=5, device=dev, tables=stab)
             finally:
                 B_.bvh_closest_hit = kernel_fn
-            check(B_.launches == B_.launches_binary == 0,
+            check(T_.counter(BVH) == T_.counter(BVH_BINARY) == 0,
                   "bvh: the plain frame launched a kernel")
             want = (plain_calls[0], 0) if tag == "wide" \
                 else (0, plain_calls[0])
@@ -3007,12 +3006,12 @@ def main(argv):
         dcfg = RenderConfig(min_samples=2, max_samples=2, bounces=2,
                             shadow_min=1, shadow_max=1, split_mode="both")
         dtab = scene_tables(dense_scene)
-        M_.launches = 0
+        T_.reset_counters(MESH)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dres = render(dense_scene, dcfg, device=dev, tables=dtab)
         dense_frame_s = time.perf_counter() - t0
-        check(M_.launches == 0 and np.isfinite(dres.radiance).all()
+        check(T_.counter(MESH) == 0 and np.isfinite(dres.radiance).all()
               and dres.image.mean() > 5.0, "dense frame: a mesh kernel ran,"
               " or non-finite or black")
         print(f"[bvh] dense, the primary rays ({n}, {int(dhit.sum())} hit "
@@ -3059,13 +3058,14 @@ def main(argv):
             mesh11 = make_mesh(1, 1)
             main = build_scene(box_scene(W, H, with_mesh=True), device=dev)
             mtab = scene_tables(main)
-            W_.launches = 0
+            T_.reset_counters(WAVE)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = render_sharded(main, cfg, mesh11, seed=7, device=dev)
             torch.cuda.synchronize()
             sharded_s = time.perf_counter() - t0
-            check(W_.launches == SPP, f"sharded: {W_.launches} wave "
+            check(T_.counter(WAVE) == SPP,
+                  f"sharded: {T_.counter(WAVE)} wave "
                   f"launches, expected {SPP}")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3299,12 +3299,12 @@ def main(argv):
               "large: RenderConfig() takes the wavefront")
         frame_s, res = float("inf"), None
         for rep in range(3):
-            B_.launches = B_.launches_binary = M_.launches = 0
+            T_.reset_counters(BVH, BVH_BINARY, MESH)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render(scene, wcfg, seed=1 + rep, device=dev, tables=tables)
             dt = time.perf_counter() - t0
-            counts = (B_.launches, B_.launches_binary, M_.launches)
+            counts = tuple(map(T_.counter, (BVH, BVH_BINARY, MESH)))
             check(counts == (expected, 0, 0), f"large frame {rep}: launches "
                   f"(wide, binary, mesh_closest_hit) {counts}, expected "
                   f"{expected} of the wide walk")
@@ -3415,27 +3415,27 @@ def main(argv):
              "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
              "replaces": "rtf_tpu/render/fused.py:1741"},
          lambda: drive("main", box_scene(W, H, with_mesh=True),
-                       box_scene(*SMALL, with_mesh=True), "launches")),
+                       box_scene(*SMALL, with_mesh=True), WAVE)),
         # ---- phase 4: the textured box at full width (textured variant)
         (4, {"name": "wave_textured",
              "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
              "replaces": "rtf_tpu/render/fused_seg.py:482 and :516"},
          lambda: drive("textured", textured_desc(box_scene, W, H),
                        textured_desc(box_scene, *SMALL),
-                       "launches_textured")),
+                       WAVE_TEX)),
         # ---- phase 5: bench.py's GI cell (untextured variant, rows)
         (5, {"name": "wave_gi",
              "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
              "replaces":
                  "rtf_tpu/render/fused.py:1741 (surf_out/gi_from rows)"},
          lambda: drive_gi("gi", box_scene(400, 300, with_mesh=True), gi_cfg,
-                          "launches")),
+                          WAVE)),
         # ---- phase 6: the hybrid frame on the textured box at full width
         (6, {"name": "wave_textured_gi",
              "source": "rtf_tpu_torch/csrc/wave_kernel.cu",
              "replaces": "rtf_tpu/render/fused_seg.py:516 (gi_out rows)"},
          lambda: drive_gi("hybrid", textured_desc(box_scene, W, H), hyb_cfg,
-                          "launches_textured", volumes=True)),
+                          WAVE_TEX, volumes=True)),
         # ---- phase 7: the XLA wavefront's port, mesh_closest_hit
         (7, {"name": "mesh_closest_hit",
              "source": "rtf_tpu_torch/csrc/mesh_hit.cu",
@@ -3459,7 +3459,7 @@ def main(argv):
                          "tables, has_mesh_tables)"},
          lambda: drive_gi("hybrid_mxu",
                           textured_desc(box_scene, W, H, mesh_subdiv=5),
-                          hyb_cfg, "launches_textured_mxu", volumes=True)),
+                          hyb_cfg, WAVE_TEX_MXU, volumes=True)),
         # ---- phase 10: a scene file and the photon pipeline: the caustic
         # pass, `render` shooting its own photons and baking its volumes
         (10, [{"name": "mesh_closest_hit_photons",

@@ -56,11 +56,8 @@ import torch
 
 from rtf_tpu_torch.ops.intersect import (
     ZERO, intersect_box_enter, intersect_triangle, triangle_face)
+from rtf_tpu_torch.utils import tracing
 
-# kernel launches made by `bvh_closest_hit`, by walk (the plain versions
-# never count)
-launches = 0           # the wide walk
-launches_binary = 0    # the binary walk
 # work counters: nodes popped, inner nodes entered, leaves entered,
 # ray-face tests, the most pops of one ray (the lock-step versions' step
 # count), box tests
@@ -521,7 +518,6 @@ def bvh_closest_hit(mesh, root: int, o: torch.Tensor, d: torch.Tensor,
 def launch_walk(walk: BvhWalk, root, o, d, t_init, stats=None):
     """Launch csrc/bvh_hit.cu's walk of `walk` (a BvhWalk on the rays'
     CUDA device) and count it."""
-    global launches, launches_binary
     n = o.shape[0]
     dev = o.device
     for name, x in (("o", o), ("d", d), ("t_init", t_init)):
@@ -573,8 +569,6 @@ def launch_walk(walk: BvhWalk, root, o, d, t_init, stats=None):
     if rc != 0:
         raise RuntimeError(f"bvh_closest_hit kernel launch failed: "
                            f"{_build.error_string(rc, 'bvh_hit')} ({rc})")
-    if wide:
-        launches += 1
-    else:
-        launches_binary += 1
+    tracing.count("launches.bvh_closest_hit" if wide
+                  else "launches.bvh_closest_hit.binary")
     return t, face, front, ba, bb

@@ -28,13 +28,11 @@ import torch
 
 from rtf_tpu_torch.ops.mxu_pack import packed_hierarchy, walk_tables
 from rtf_tpu_torch.ops.pack import DZ_EPS, TRI_LANES, ZERO
+from rtf_tpu_torch.utils import tracing
 
 RAY_BLOCK = 512        # rays per Pallas program: pack_rays pads to it
 _CHUNK = 1 << 20       # ray x face elements per plain step
 
-# kernel launches made by `mesh_closest_hit` (the plain version never
-# counts)
-launches = 0
 # kernel work counters: slab tests (all levels), ray-face pairs, root-box
 # tests, rays that entered the root, group, tile and leaf slab tests
 NSTAT = 7
@@ -175,9 +173,10 @@ def mesh_closest_hit(rays8: torch.Tensor, tris: torch.Tensor,
     slot `slot`'s columns and tile boxes; tree: the scene's MeshTree
     (scene.mesh.hit_tree), which the kernel reads in their place.
     Returns (t, face int32, front 0/1, ba, bb), each [N].  Launches
-    csrc/mesh_hit.cu for CUDA tensors (counted in `launches`; a build or
-    launch failure raises), or runs `mesh_closest_hit_plain` for CPU
-    tensors (which reads tris and not the tree).
+    csrc/mesh_hit.cu for CUDA tensors (counted in the tracing registry as
+    launches.mesh_closest_hit; a build or launch failure raises), or runs
+    `mesh_closest_hit_plain` for CPU tensors (which reads tris and not the
+    tree).
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
     work counts to."""
@@ -207,7 +206,6 @@ def mesh_closest_hit_rays(o: torch.Tensor, d: torch.Tensor,
 def _launch(o, d, t_init, face0, stats, tree, slot):
     """csrc/mesh_hit.cu on CUDA rays o, d [N, 3] (rows of one stride, unit
     column stride) and t_init [N]."""
-    global launches
     if o.device.type != "cuda":
         raise ValueError(f"mesh_closest_hit: unsupported device {o.device}")
     n = o.shape[0]
@@ -263,5 +261,5 @@ def _launch(o, d, t_init, face0, stats, tree, slot):
     if rc != 0:
         raise RuntimeError(f"mesh_closest_hit kernel launch failed: "
                            f"{_build.error_string(rc, 'mesh_hit')} ({rc})")
-    launches += 1
+    tracing.count("launches.mesh_closest_hit")
     return t, face, front, ba, bb

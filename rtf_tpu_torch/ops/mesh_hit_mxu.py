@@ -31,6 +31,7 @@ import torch
 
 from rtf_tpu_torch.ops.mxu_pack import plucker_bary, plucker_pair
 from rtf_tpu_torch.ops.pack import ZERO
+from rtf_tpu_torch.utils import tracing
 
 RAY_BLOCK = 512       # rays per Pallas program: pack_rays16 pads to it
 TRI_LANES = 512       # faces per tile of pack_tri_matrix
@@ -43,9 +44,6 @@ EXP_MIN = -60         # the least scale exponent of a face or a ray
 
 NSTAT = 4             # the kernel's counters (`mesh_closest_hit_mxu`)
 
-# kernel launches made by `mesh_closest_hit_mxu` (the plain version never
-# counts)
-launches = 0
 _PACK = {}            # "last": (weakref to a matrix, its version, its pack)
 
 
@@ -287,13 +285,13 @@ def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
     """rays16 [N, 16] float32 (`pack_rays16`), trim [n_tiles, 16, 5 * tile]
     float32 (`pack_tri_matrix`).  Returns (t, face int32, front 0/1, ba,
     bb), each [N].  Launches csrc/mesh_hit_mxu.cu for CUDA tensors on the
-    matrix's `pack_faces` tables (counted in `launches`; a build or launch
-    failure raises), or runs `mesh_closest_hit_mxu_plain` for CPU tensors.
+    matrix's `pack_faces` tables (counted in the tracing registry as
+    launches.mesh_closest_hit_mxu; a build or launch failure raises), or
+    runs `mesh_closest_hit_mxu_plain` for CPU tensors.
     stats: optional CUDA int64 tensor [NSTAT] to which the kernel's
     counting instantiation adds the pairs filtered (live rays x faces
     kept), the pairs re-checked in FP32, the valid pairs among them and
     the 16-ray x 8-face tiles that held a pair to re-check."""
-    global launches
     if rays16.device.type == "cpu":
         return mesh_closest_hit_mxu_plain(rays16, trim, face0)
     if rays16.device.type != "cuda":
@@ -337,5 +335,5 @@ def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
         raise RuntimeError(
             f"mesh_closest_hit_mxu kernel launch failed: "
             f"{_build.error_string(rc, 'mesh_hit_mxu')} ({rc})")
-    launches += 1
+    tracing.count("launches.mesh_closest_hit_mxu")
     return t, face, front, ba, bb

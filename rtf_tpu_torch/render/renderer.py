@@ -20,7 +20,9 @@ at uvw = (x/W, y/H, 0)), z-buffer and sample-count AOVs.
 the CLI's `watch` accumulates passes with its `sample_base` and
 `progress_cb`) and `finalize`; `preview` is the flat-shaded single trace
 the CLI writes before a render.  `adaptive_ladder` is the ladder of one
-device or of one shard of parallel/mesh.py::render_sharded.
+device or of one shard of parallel/mesh.py::render_sharded.  A frame's
+parts are the spans rtf.frame, rtf.prepare, rtf.wave and rtf.finalize of
+utils/tracing.py (off unless enabled).
 
 Per-wave kernel seeds come from a torch.Generator seeded with cfg.seed,
 and the wavefront's draws (soft shadows, glossy normals, Russian
@@ -66,6 +68,7 @@ from rtf_tpu_torch.render.scene_tables import (
 )
 from rtf_tpu_torch.render.wave import wave
 from rtf_tpu_torch.scene.build import Scene, resolve_device
+from rtf_tpu_torch.utils import tracing
 
 _LOGGED_PATHS = set()
 
@@ -200,19 +203,24 @@ def adaptive_ladder(scene: Scene, cfg: RenderConfig, tables: WaveTables,
     bounds = _phase_bounds(cfg)
     done = 0
 
+    def host_seed():
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+
     def run(mask, lo, hi):
         nonlocal rad, rad2, hits, z, done
         for j in range(lo, hi):
-            s = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
             if j % n_spp != spp_rank:
+                host_seed()          # every rank draws every wave's seed
                 continue
-            contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
-                                           mask, sample_base + j, s, gi,
-                                           wavefront, blk0)
-            rad = rad + contrib
-            rad2 = rad2 + contrib * contrib
-            hits = hits + hc
-            z = torch.minimum(z, zm)
+            with tracing.span(tracing.WAVE, index=sample_base + j, lanes=n):
+                s = host_seed()
+                contrib, hc, zm = wave_contrib(scene, cfg, tables, px, py,
+                                               mask, sample_base + j, s, gi,
+                                               wavefront, blk0)
+                rad = rad + contrib
+                rad2 = rad2 + contrib * contrib
+                hits = hits + hc
+                z = torch.minimum(z, zm)
             if progress_cb is not None:
                 hits[:1].cpu()        # a small fence: the wave has finished
                 done += 1
@@ -391,19 +399,22 @@ def _prepare(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
     return scene, tables, seed, path, gi_map, caustic
 
 
-def _frame(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
-           tables: WaveTables, gi_grid, caustic_grid, sample_base: int = 0,
-           progress_cb=None):
-    """One frame's accumulators (`render_device_host`), with the scene on
-    `dev` and its tables: (scene, tables, (rad, hits, z, nsamples))."""
-    scene, tables, seed, path, gi_map, caustic = _prepare(
-        scene, cfg, seed, dev, tables, gi_grid, caustic_grid)
-    order = torch.as_tensor(pixel_order(scene.width, scene.height),
-                            device=dev).to(torch.int64)
+def _frame(frame_span, scene: Scene, cfg: RenderConfig, seed,
+           dev: torch.device, tables: WaveTables, gi_grid, caustic_grid,
+           sample_base: int = 0, progress_cb=None):
+    """One frame's accumulators in lane space (`render_device_host`), with
+    the scene on `dev` and its tables: (scene, tables, (rad, hits, z,
+    nsamples), order); the path goes on frame_span."""
+    with tracing.span(tracing.PREPARE):
+        scene, tables, seed, path, gi_map, caustic = _prepare(
+            scene, cfg, seed, dev, tables, gi_grid, caustic_grid)
+        order = torch.as_tensor(pixel_order(scene.width, scene.height),
+                                device=dev).to(torch.int64)
+    frame_span.set(path=path)
     acc = adaptive_ladder(scene, cfg, tables, order, seed, gi_map, caustic,
                           wavefront=path == "wavefront",
                           sample_base=sample_base, progress_cb=progress_cb)
-    return scene, tables, lanes_to_pixels(*acc, order)
+    return scene, tables, acc, order
 
 
 def render_device_host(scene: Scene, cfg: RenderConfig, seed=None,
@@ -423,8 +434,13 @@ def render_device_host(scene: Scene, cfg: RenderConfig, seed=None,
     total_waves = _phase_bounds(cfg)[-1]; each call first waits for the
     wave with a one-element device-to-host copy, which is paid only when
     a callback is given."""
-    return _frame(scene, cfg, seed, resolve_device(device), tables,
-                  gi_grid, caustic_grid, sample_base, progress_cb)[2]
+    with tracing.span(tracing.FRAME, width=scene.width,
+                      height=scene.height) as sp:
+        _, _, acc, order = _frame(sp, scene, cfg, seed,
+                                  resolve_device(device), tables, gi_grid,
+                                  caustic_grid, sample_base, progress_cb)
+        with tracing.span(tracing.FINALIZE):
+            return lanes_to_pixels(*acc, order)
 
 
 def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
@@ -447,11 +463,15 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig(), seed=None,
     hit in any GI mode: the fused path reads it as a volume (baked with
     cfg.photon_volume), the wavefront gathers from a grid.  gi_vol and
     caustic_vol: the same maps, as volumes."""
-    scene, tables, acc = _frame(
-        scene, cfg, seed, resolve_device(device), tables,
-        _one_of(gi_grid, gi_vol, "gi"),
-        _one_of(caustic_grid, caustic_vol, "caustic"))
-    return finalize(scene, cfg, tables, *acc)
+    with tracing.span(tracing.FRAME, width=scene.width,
+                      height=scene.height) as sp:
+        scene, tables, acc, order = _frame(
+            sp, scene, cfg, seed, resolve_device(device), tables,
+            _one_of(gi_grid, gi_vol, "gi"),
+            _one_of(caustic_grid, caustic_vol, "caustic"))
+        with tracing.span(tracing.FINALIZE):
+            return finalize(scene, cfg, tables,
+                            *lanes_to_pixels(*acc, order))
 
 
 def _preview_device(scene: Scene, tables: WaveTables, frames: int,

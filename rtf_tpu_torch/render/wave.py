@@ -44,6 +44,7 @@ from rtf_tpu_torch.ops.mxu_pack import (
 from rtf_tpu_torch.ops.pack import ZERO
 from rtf_tpu_torch.ops.texture import env_uv_ch, sample_texmap_ch
 from rtf_tpu_torch.render.scene_tables import WaveTables
+from rtf_tpu_torch.utils import tracing
 
 BIG = 1.0e30
 SENTINEL = 1.0e7      # dead-lane origin, far from everything
@@ -56,13 +57,6 @@ _CHUNK = 1 << 20      # ray x face elements per plain mesh step (CPU)
 _CHUNK_CUDA = 1 << 24  # the same on the card, where the plain version runs
                        # only to be compared with the kernel
 
-# kernel launches made by `wave`, untextured and textured variant, with
-# the immediates mesh or none and with the MXU tables (the plain version
-# never counts)
-launches = 0
-launches_textured = 0
-launches_mxu = 0
-launches_textured_mxu = 0
 NSTAT = 26            # work counters of the kernel (csrc/wave_kernel.cu)
 THREADS = 128         # the kernel's block size
 # shared memory of a launch (bytes): the walk's roots and groups, and the
@@ -905,18 +899,40 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     a child wave (`pack_rays`).  Scenes with file textures or an
     environment map launch the kernel's textured variant, others the
     untextured one, each in its MXU-table form for a mesh over 512 faces;
-    each launch is counted in the module's counter of its variant
-    (`launches`, `launches_textured`, `launches_mxu`,
-    `launches_textured_mxu`; see `launch_counter`).
+    each launch is counted under its variant's key in the tracing
+    registry (`launch_counter`, utils/tracing.py), and the call is the
+    span rtf.launch.
 
     stats: optional CUDA int64 tensor [NSTAT] that the kernel adds its
     work counts to (see csrc/wave_kernel.cu, STAT_*); with `stats_size(N)`
-    entries the launch also writes each block's cycles after them."""
-    if o3.device.type == "cpu":
-        return wave_plain(cfg, tables, o3, d3, alive, seed, bounces, blk0,
-                          tput3, absorb3, rtype, surf_out, gi_from)
-    if o3.device.type != "cuda":
-        raise ValueError(f"wave: unsupported device {o3.device}")
+    entries the launch also writes each block's cycles after them.
+    Without it, while tracing's kernel counters are on, the launch adds
+    its counts to the registry's tensor of its variant."""
+    key = launch_counter(tables)
+    nbounce = (cfg.bounces if bounces is None else bounces) + 1
+    with tracing.span(tracing.LAUNCH, counter=key, lanes=int(o3.shape[1]),
+                      state=not (tput3 is None and absorb3 is None
+                                 and rtype is None),
+                      surf_out=bool(surf_out),
+                      gi_bounces=0 if gi_from is None
+                      else max(0, nbounce - gi_from)):
+        if o3.device.type == "cpu":
+            return wave_plain(cfg, tables, o3, d3, alive, seed, bounces,
+                              blk0, tput3, absorb3, rtype, surf_out,
+                              gi_from)
+        if o3.device.type != "cuda":
+            raise ValueError(f"wave: unsupported device {o3.device}")
+        if stats is None:
+            stats = tracing.kernel_stats(key, NSTAT, o3.device)
+        out = _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0,
+                      tput3, absorb3, rtype, surf_out, gi_from, stats)
+        tracing.count(key)
+        return out
+
+
+def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
+            absorb3, rtype, surf_out, gi_from, stats):
+    """`wave`'s launch of csrc/wave_kernel.cu on CUDA tensors."""
     from rtf_tpu_torch import _build
     lib = _build.load()
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
@@ -941,7 +957,6 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
                          f"on {dev}")
     n = rays.shape[1]
     prm = shade_params(cfg, tables)
-    nbounce = (cfg.bounces if bounces is None else bounces) + 1
     out = torch.empty((out_rows(nbounce, surf_out, gi_from), n),
                       dtype=torch.float32, device=dev)
 
@@ -980,13 +995,15 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
-    name = launch_counter(tables)
-    globals()[name] += 1
     return split_rows(out, nbounce, surf_out, gi_from)
 
 
 def launch_counter(tables: WaveTables) -> str:
-    """The name of the counter that `wave` adds a launch to for these
-    tables: the kernel variant (textured or not, the MXU tables or not)."""
-    return ("launches_textured" if tables.textured else "launches") \
-        + ("_mxu" if tables.mxu else "")
+    """The tracing registry's key that `wave` counts a launch under for
+    these tables: the kernel variant (textured or not, the MXU tables or
+    not), launches.wave_kernel[.textured|.mxu|.textured_mxu]."""
+    if tables.textured:
+        suffix = ".textured_mxu" if tables.mxu else ".textured"
+    else:
+        suffix = ".mxu" if tables.mxu else ""
+    return "launches.wave_kernel" + suffix

@@ -36,10 +36,11 @@ def test_render_hemisphere_matches_jax_mean():
     from rtf_tpu.render.renderer import render as jrender
     from rtf_tpu.scene.build import build_scene as jbuild
     from rtf_tpu.scene.procedural import box_scene as jbox
-    from rtf_tpu_torch.render import wave as W
-    before = W.launches + W.launches_textured
+    from rtf_tpu_torch.utils.tracing import counter
+    keys = ("launches.wave_kernel", "launches.wave_kernel.textured")
+    before = sum(map(counter, keys))
     base, gi = _port("none"), _port("hemisphere")
-    assert W.launches + W.launches_textured == before    # the plain version
+    assert sum(map(counter, keys)) == before   # the plain version
     ref = jrender(jbuild(jbox(32, 24)), JConfig(gi_mode="hemisphere", **KW))
     assert np.isfinite(gi.radiance).all() and gi.image.shape == (24, 32, 3)
     np.testing.assert_array_equal(gi.z, base.z)

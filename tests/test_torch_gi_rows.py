@@ -55,6 +55,7 @@ def run_rows(desc, cfg, seed, seg=False, alive=None, child=False, **kw):
     from rtf_tpu.scene.build import build_scene
     from rtf_tpu_torch.render import wave as W
     from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.utils.tracing import counter
     scene = build_scene(desc)
     w, h = scene.width, scene.height
     order = jnp.asarray(pixel_order(w, h))
@@ -82,10 +83,11 @@ def run_rows(desc, cfg, seed, seg=False, alive=None, child=False, **kw):
     assert tables.textured == seg
     pkw = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
            for k, v in kw.items()}
-    before = W.launches + W.launches_textured
+    keys = ("launches.wave_kernel", "launches.wave_kernel.textured")
+    before = sum(map(counter, keys))
     port = W.wave(cfg, tables, torch.as_tensor(o3), torch.as_tensor(d3),
                   torch.as_tensor(alive), seed, **pkw)
-    assert W.launches + W.launches_textured == before   # the plain version
+    assert sum(map(counter, keys)) == before   # the plain version
     return _np_out(ref), _np_out(port)
 
 

@@ -11,11 +11,11 @@ flip of a Russian-roulette choice) and the mean within 1%.  Dead lanes
 (the "-dead" cases, as the adaptive ladder's later rungs mask pixels) give
 exactly zero radiance and no hit.  The "textured" cases (file textures,
 an environment map and a checker; tests/test_torch_common.py) run the
-kernel's textured variant, counted in `launches_textured`; the "mxu-"
-cases the 1280-face ball on the MXU tables (the MXU variants, counted in
-`launches_mxu` and `launches_textured_mxu`), and the dense Plücker closest
-hit (csrc/mesh_hit_mxu.cu, a tensor-core sign filter and an exact FP32
-re-check) runs against its plain version bit for bit, on cases that
+kernel's textured variant, counted in launches.wave_kernel.textured; the
+"mxu-" cases the 1280-face ball on the MXU tables (the MXU variants,
+counted in launches.wave_kernel.mxu and .textured_mxu), and the dense
+Plücker closest hit (csrc/mesh_hit_mxu.cu, a tensor-core sign filter and
+an exact FP32 re-check) runs against its plain version bit for bit, on cases that
 stress the filter, and its counters against plain counts.  The walk's
 edge cases on the MXU tables (ties across tiles and instances, two
 instances, the 81,920-face ball, shared or device memory for the upper
@@ -30,6 +30,7 @@ of lanes with the mean within 1%."""
 import pytest
 import torch
 
+from rtf_tpu_torch.utils.tracing import counter
 from test_torch_common import (
     checker_desc, face_rays, mxu_walk_desc, textured_desc, vertex_rays)
 
@@ -39,6 +40,12 @@ def cuda_dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+def bvh_launches():
+    """(wide walk, binary walk) launches of bvh_closest_hit so far."""
+    return (counter("launches.bvh_closest_hit"),
+            counter("launches.bvh_closest_hit.binary"))
 
 
 def _setup(desc, dev):
@@ -95,10 +102,11 @@ def test_kernel_matches_plain(cuda_dev, name, bounces, seed):
     if name.endswith("-dead"):
         alive[::2] = False
     pr, ph, pz = W.wave_plain(cfg, tables, o3, d3, alive, seed)
-    before = W.launches + W.launches_textured
+    keys = ("launches.wave_kernel", "launches.wave_kernel.textured")
+    before = sum(map(counter, keys))
     kr, kh, kz = W.wave(cfg, tables, o3, d3, alive, seed)
     torch.cuda.synchronize()
-    assert W.launches + W.launches_textured == before + 1
+    assert sum(map(counter, keys)) == before + 1
     assert torch.equal(kh, ph)
     assert not bool(kh[~alive].any())
     assert bool((kr[:, ~alive] == 0).all())
@@ -217,11 +225,11 @@ def test_mxu_kernel_matches_plain(cuda_dev, name, bounces, seed):
     if name.endswith("-dead"):
         alive[::2] = False
     pr, ph, pz = W.wave_plain(cfg, tables, o3, d3, alive, seed)
-    counter = W.launch_counter(tables)
-    before = getattr(W, counter)
+    key = W.launch_counter(tables)
+    before = counter(key)
     kr, kh, kz = W.wave(cfg, tables, o3, d3, alive, seed)
     torch.cuda.synchronize()
-    assert getattr(W, counter) == before + 1
+    assert counter(key) == before + 1
     assert torch.equal(kh, ph)
     assert not bool(kh[~alive].any())
     assert bool((kr[:, ~alive] == 0).all())
@@ -306,10 +314,10 @@ def test_mxu_walk_exact(cuda_dev, monkeypatch, case, bounces, staged):
         alive = torch.ones(o3.shape[1], dtype=torch.bool, device=cuda_dev)
     cfg = _cfg(bounces=bounces, split_mode="rr")
     plain = W.wave_plain(cfg, tables, o3, d3, alive, 21)
-    before = W.launches_mxu
+    before = counter("launches.wave_kernel.mxu")
     kern = W.wave(cfg, tables, o3, d3, alive, 21)
     torch.cuda.synchronize()
-    assert W.launches_mxu == before + 1
+    assert counter("launches.wave_kernel.mxu") == before + 1
     assert int(kern[1].sum()) > 100
     _assert_exact(plain, kern)
 
@@ -402,11 +410,11 @@ def test_mesh_mxu_kernel_matches_plain(cuda_dev):
     t0 = torch.full((n,), 100.0, device=cuda_dev)
     t0[::4] = 0.0
     rays16, _ = M.pack_rays16(o, d, t0)
-    before = M.launches
+    before = counter("launches.mesh_closest_hit_mxu")
     kern = M.mesh_closest_hit_mxu(rays16, trim, 77)
     plain = M.mesh_closest_hit_mxu_plain(rays16, trim, 77)
     torch.cuda.synchronize()
-    assert M.launches == before + 1
+    assert counter("launches.mesh_closest_hit_mxu") == before + 1
     assert 0.3 < float((kern[1] >= 0).float().mean()) < 0.75
     assert not bool((kern[1][::4] >= 0).any())
     for k, p in zip(kern, plain):
@@ -587,7 +595,7 @@ def test_mesh_kernel_matches_plain(cuda_dev, case):
     from rtf_tpu_torch.ops import mesh_hit as M
     args, kw = _mesh_inputs("camera" if case == "unpacked" else case,
                             cuda_dev)
-    before = M.launches
+    before = counter("launches.mesh_closest_hit")
     if case == "unpacked":
         r8 = args[0]
         kern = M.mesh_closest_hit_rays(
@@ -597,7 +605,7 @@ def test_mesh_kernel_matches_plain(cuda_dev, case):
         kern = M.mesh_closest_hit(*args, **kw)
     plain = M.mesh_closest_hit_plain(*args)
     torch.cuda.synchronize()
-    assert M.launches == before + 1
+    assert counter("launches.mesh_closest_hit") == before + 1
     assert torch.equal(kern[1], plain[1])
     assert int((kern[1] >= 0).sum()) > 20
     if case == "padding":
@@ -640,11 +648,11 @@ def test_imm_walk_exact(cuda_dev, case, bounces):
                shadow_min=4 if soft else 1, shadow_max=16 if soft else 1,
                env_on_reflect_miss=textured)
     plain = W.wave_plain(cfg, tables, o3, d3, alive, 21)
-    counter = W.launch_counter(tables)
-    before = getattr(W, counter)
+    key = W.launch_counter(tables)
+    before = counter(key)
     kern = W.wave(cfg, tables, o3, d3, alive, 21)
     torch.cuda.synchronize()
-    assert getattr(W, counter) == before + 1
+    assert counter(key) == before + 1
     assert int(kern[1].sum()) > 100
     _assert_exact(plain, kern)
 
@@ -716,10 +724,10 @@ def test_wavefront_on_the_card_runs_the_kernel(cuda_dev, monkeypatch):
     monkeypatch.setattr(M, "mesh_closest_hit_plain", refuse)
     scene = build_scene(box_scene(32, 24, light_size=1.0), device=cuda_dev)
     cfg = RenderConfig(min_samples=2, max_samples=2, bounces=2)
-    before = M.launches
+    before = counter("launches.mesh_closest_hit")
     res = render(scene, cfg, device=cuda_dev)
     # per wave 1 + bounces shade_lanes of 1 + 4 + 16 traces
-    assert M.launches - before == 2 * 3 * 21
+    assert counter("launches.mesh_closest_hit") - before == 2 * 3 * 21
     assert res.image.mean() > 5.0
 
 
@@ -746,11 +754,11 @@ def test_no_mesh_algo_runs_the_plain_version_on_the_card(cuda_dev,
     order = torch.as_tensor(pixel_order(32, 24),
                             device=cuda_dev).to(torch.int64)
     o, d = primary_rays(scene, order % 32, order // 32, torch.tensor(0))
-    before = M.launches
+    before = counter("launches.mesh_closest_hit")
     hit = trace(scene, o, d)
     lit = trace_shadow(scene, o, d, 1.0)
     torch.cuda.synchronize()
-    assert M.launches - before == 2
+    assert counter("launches.mesh_closest_hit") - before == 2
     assert bool(hit.is_hit.any()) and lit.shape == (o.shape[0],)
 
 
@@ -791,12 +799,13 @@ def test_photon_chunk_kernel_matches_plain(cuda_dev, monkeypatch):
         return pm, grid, build_irradiance_volume(
             grid, cfg.knn_radius, cfg.knn_k, scene.world_min,
             scene.world_max)
-    before = M.launches
+    key = "launches.mesh_closest_hit"
+    before = counter(key)
     kern = shoot()
-    assert M.launches - before == cfg.photon_bounces + 1
+    assert counter(key) - before == cfg.photon_bounces + 1
     monkeypatch.setattr(M, "mesh_closest_hit_rays", _plain_rays)
     plain = shoot()
-    assert M.launches - before == cfg.photon_bounces + 1
+    assert counter(key) - before == cfg.photon_bounces + 1
     assert 50000 < int(kern[0].count) < 131072 * cfg.photon_bounces
     for a, b in zip(kern[0], plain[0]):
         assert torch.equal(a, b)
@@ -814,8 +823,6 @@ def test_render_shoots_photons_with_the_kernel(cuda_dev):
     the same bit for bit when rendered twice."""
     import numpy as np
 
-    from rtf_tpu_torch.ops import mesh_hit as M
-    from rtf_tpu_torch.render import wave as W
     from rtf_tpu_torch.render.config import RenderConfig
     from rtf_tpu_torch.render.renderer import render
     from rtf_tpu_torch.scene.build import build_scene
@@ -825,10 +832,12 @@ def test_render_shoots_photons_with_the_kernel(cuda_dev):
                        shadow_min=1, shadow_max=1, split_mode="rr",
                        gi_mode="photon", hemisphere_samples=2,
                        photon_count=50000)
-    m0, w0 = M.launches, W.launches_textured
+    m0 = counter("launches.mesh_closest_hit")
+    w0 = counter("launches.wave_kernel.textured")
     a = render(scene, cfg, seed=4, device=cuda_dev)
-    assert M.launches - m0 == cfg.photon_bounces + 1
-    assert W.launches_textured - w0 == 2 * (1 + 2)
+    assert counter("launches.mesh_closest_hit") - m0 \
+        == cfg.photon_bounces + 1
+    assert counter("launches.wave_kernel.textured") - w0 == 2 * (1 + 2)
     b = render(scene, cfg, seed=4, device=cuda_dev)
     assert np.array_equal(a.radiance, b.radiance)
     assert np.isfinite(a.radiance).all() and a.image.mean() > 5.0
@@ -843,7 +852,6 @@ def test_cache_evaluator_exact(cuda_dev, name):
     hemisphere sample; the cached frame's first hits trace on
     mesh_closest_hit."""
     from rtf_tpu_torch.gi import irradiance_cache as IC
-    from rtf_tpu_torch.ops import mesh_hit as M
     from rtf_tpu_torch.render import wave as W
     from rtf_tpu_torch.render.scene_tables import scene_tables
     from rtf_tpu_torch.scene.build import build_scene
@@ -851,20 +859,20 @@ def test_cache_evaluator_exact(cuda_dev, name):
     scene = build_scene(textured_desc(160, 120) if name == "textured"
                         else box_scene(160, 120), device=cuda_dev)
     tables = scene_tables(scene)
-    m0 = M.launches
+    m0 = counter("launches.mesh_closest_hit")
     p, n, _, _, hit, front = IC._first_hits(scene, tables)
-    assert M.launches - m0 == scene.num_mesh_inst
+    assert counter("launches.mesh_closest_hit") - m0 == scene.num_mesh_inst
     mask = hit & front
     cfg = _cfg(bounces=2, gi_mode="hemisphere", hemisphere_samples=4,
                split_mode="rr")
-    counter = W.launch_counter(tables)
+    key = W.launch_counter(tables)
     out = []
     for fn in (None, W.wave_plain):
-        before = getattr(W, counter)
+        before = counter(key)
         draws = IC.CacheDraws(torch.Generator(device=cuda_dev).manual_seed(3))
         out.append(IC._eval_irradiance_fused(scene, cfg, tables, p, n, mask,
                                              draws, 0, wave_fn=fn))
-        assert getattr(W, counter) - before == (4 if fn is None else 0)
+        assert counter(key) - before == (4 if fn is None else 0)
     assert torch.equal(out[0], out[1]), float((out[0] - out[1]).abs().max())
     assert float(out[0].mean()) > 0.0
 
@@ -925,12 +933,12 @@ def test_bvh_kernel_matches_plain(cuda_dev, subdiv, kind):
     root = int(mesh.slot_root[0])
     sk, sw = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
               for _ in range(2))
-    before = B.launches, B.launches_binary
+    before = bvh_launches()
     kern = B.bvh_closest_hit(mesh, root, o, d, t_init, stats=sk)
     twin = B.bvh_wide_closest_hit_plain(walk, root, o, d, t_init, stats=sw)
     lock = B.bvh_closest_hit_plain(mesh, root, o, d, t_init)
     torch.cuda.synchronize()
-    assert (B.launches, B.launches_binary) == (before[0] + 1, before[1])
+    assert bvh_launches() == (before[0] + 1, before[1])
     assert int((kern[1] >= 0).sum()) > 20
     for k, p in zip(kern, twin):
         assert torch.equal(k, p), float((k.float() - p.float()).abs().max())
@@ -951,7 +959,7 @@ def test_bvh_binary_walk_on_capped_tree(cuda_dev, subdiv, kind):
     bvh_traverse's stack clamp drops nodes), where bvh_walk takes it by the
     depth rule.  Each launch equals the lock-step bvh_closest_hit_plain
     bit for bit, outputs and counters, and is counted in
-    launches_binary."""
+    launches.bvh_closest_hit.binary."""
     from rtf_tpu_torch.ops import bvh_hit as B
     mesh, o, d, t_init = _bvh_rays(cuda_dev, subdiv, kind)
     root = int(mesh.slot_root[0])
@@ -963,13 +971,13 @@ def test_bvh_binary_walk_on_capped_tree(cuda_dev, subdiv, kind):
             assert B.bvh_walk(mesh).walk == "binary"
         sk, sp = (torch.zeros(B.NSTAT, dtype=torch.int64, device=cuda_dev)
                   for _ in range(2))
-        before = B.launches, B.launches_binary
+        before = bvh_launches()
         kern = (B.bvh_closest_hit(mesh, root, o, d, t_init, stats=sk)
                 if capped else
                 B.launch_walk(full, root, o, d, t_init, stats=sk))
         plain = B.bvh_closest_hit_plain(mesh, root, o, d, t_init, stats=sp)
         torch.cuda.synchronize()
-        assert (B.launches, B.launches_binary) == (before[0], before[1] + 1)
+        assert bvh_launches() == (before[0], before[1] + 1)
         assert int((kern[1] >= 0).sum()) > 20
         for k, p in zip(kern, plain):
             assert torch.equal(k, p), \

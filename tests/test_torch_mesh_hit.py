@@ -48,6 +48,7 @@ def test_plain_matches_pallas_interpret(kind):
     import jax.numpy as jnp
     from rtf_tpu.ops.pallas_mesh import mesh_closest_hit, pack_rays
     from rtf_tpu_torch.ops import mesh_hit as M
+    from rtf_tpu_torch.utils.tracing import counter
     scene = _scene()
     o, d, t_init = _rays(kind, scene)
     itm = np.asarray(scene.mesh_inst.itm[0])
@@ -66,10 +67,11 @@ def test_plain_matches_pallas_interpret(kind):
                             torch.as_tensor(t_init))
     assert pnpad == npad
     np.testing.assert_array_equal(p8.numpy(), np.asarray(rays8))
-    before = M.launches
+    before = counter("launches.mesh_closest_hit")
     got = M.mesh_closest_hit(p8, torch.as_tensor(tris), torch.as_tensor(aabb),
                              face0=col0)
-    assert M.launches == before          # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert counter("launches.mesh_closest_hit") == before
     t, face, front, ba, bb = (x.numpy() for x in got)
     rt, rface, rfront, rba, rbb = (np.asarray(x) for x in ref)
     hit = rface >= 0

@@ -48,6 +48,7 @@ def run_both(a, b, c, o, d, t_init, face0=0):
     import jax.numpy as jnp
     from rtf_tpu.ops import pallas_mesh_mxu as R
     from rtf_tpu_torch.ops import mesh_hit_mxu as M
+    from rtf_tpu_torch.utils.tracing import counter
     trim = R.pack_tri_matrix(a, b, c)
     ptrim = M.pack_tri_matrix(a, b, c)
     np.testing.assert_array_equal(ptrim, trim)
@@ -60,10 +61,11 @@ def run_both(a, b, c, o, d, t_init, face0=0):
                                atol=1e-6)
     ref = R.mesh_closest_hit_mxu(rays16, jnp.asarray(trim), face0=face0,
                                  interpret=True)
-    before = M.launches
+    before = counter("launches.mesh_closest_hit_mxu")
     port = M.mesh_closest_hit_mxu(torch.as_tensor(np.array(rays16)),
                                   torch.as_tensor(ptrim), face0)
-    assert M.launches == before           # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert counter("launches.mesh_closest_hit_mxu") == before
     return ([np.asarray(x) for x in ref], [x.numpy() for x in port])
 
 

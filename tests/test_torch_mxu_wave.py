@@ -28,6 +28,7 @@ def run_mxu(desc, cfg, seed, alive=None, seg=False):
     from rtf_tpu.scene.build import build_scene
     from rtf_tpu_torch.render import wave as W
     from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.utils.tracing import counter
     scene = build_scene(desc)
     w, h = scene.width, scene.height
     order = jnp.asarray(pixel_order(w, h))
@@ -49,9 +50,10 @@ def run_mxu(desc, cfg, seed, alive=None, seg=False):
     inputs = (tables, torch.as_tensor(np.stack([np.asarray(x) for x in o3])),
               torch.as_tensor(np.stack([np.asarray(x) for x in d3])),
               torch.as_tensor(alive))
-    counts = (W.launches_mxu, W.launches_textured_mxu)
+    keys = ("launches.wave_kernel.mxu", "launches.wave_kernel.textured_mxu")
+    counts = tuple(map(counter, keys))
     prad, phit, pz = W.wave(cfg, *inputs, seed)
-    assert (W.launches_mxu, W.launches_textured_mxu) == counts
+    assert tuple(map(counter, keys)) == counts
     return ref, (prad.numpy(), phit.numpy(), pz.numpy()), inputs
 
 

@@ -37,6 +37,7 @@ def run_seg_both(desc, cfg, seed, bounces=None):
     from rtf_tpu.scene.build import build_scene
     from rtf_tpu_torch.render import wave as W
     from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.utils.tracing import counter
     scene = build_scene(desc)
     assert fusable_seg(scene, cfg) and mxu_tables(scene) is None
     w, h = scene.width, scene.height
@@ -54,9 +55,10 @@ def run_seg_both(desc, cfg, seed, bounces=None):
     inputs = (tables, torch.as_tensor(np.stack([np.asarray(x) for x in o3])),
               torch.as_tensor(np.stack([np.asarray(x) for x in d3])),
               torch.as_tensor(alive))
-    before = W.launches_textured
+    before = counter("launches.wave_kernel.textured")
     prad, phit, pz = W.wave(cfg, *inputs, seed, bounces=bounces)
-    assert W.launches_textured == before     # CPU tensors: the plain version
+    # CPU tensors: the plain version
+    assert counter("launches.wave_kernel.textured") == before
     return ref, (prad.T.numpy(), phit.numpy(), pz.numpy()), inputs
 
 

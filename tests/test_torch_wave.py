@@ -22,6 +22,7 @@ def run_both(desc, cfg, seed, bounces=None, alive=None):
     from rtf_tpu.render.fused import fused_wave, scene_consts
     from rtf_tpu.scene.build import build_scene
     from rtf_tpu_torch.render import wave as W
+    from rtf_tpu_torch.utils.tracing import counter
     from rtf_tpu_torch.render.scene_tables import scene_tables
     scene = build_scene(desc)
     w, h = scene.width, scene.height
@@ -41,12 +42,12 @@ def run_both(desc, cfg, seed, bounces=None, alive=None):
     ref = (np.stack([np.asarray(c) for c in rad3], 1), np.asarray(hit),
            np.asarray(z))
     tables = scene_tables(port_scene_from_jax(scene))
-    before = W.launches
+    before = counter("launches.wave_kernel")
     prad, phit, pz = W.wave(cfg, tables, torch.as_tensor(o3),
                             torch.as_tensor(d3),
                             torch.as_tensor(alive), seed,
                             bounces=bounces)
-    assert W.launches == before      # CPU tensors: the plain version
+    assert counter("launches.wave_kernel") == before   # CPU: the plain version
     return ref, (prad.T.numpy(), phit.numpy(), pz.numpy())
 
 
