@@ -31,12 +31,15 @@ def halton(index: torch.Tensor, base: int,
            max_index: int = 1 << 16) -> torch.Tensor:
     """Radical inverse of integer tensor `index` in `base` (float32)."""
     i = index.to(torch.int64)
-    inv_base = torch.tensor(1.0 / base, dtype=torch.float32)
+    # the digit weight is a float32 computed on the host and passed as a
+    # Python scalar: a weight tensor copied to the index's device would
+    # be a blocking copy per digit
+    inv_base = np.float32(1.0 / base)
     r = torch.zeros(i.shape, dtype=torch.float32, device=i.device)
-    f = inv_base.to(i.device)
+    f = inv_base
     for _ in range(_num_digits(base, max_index)):
-        r = r + f * (i % base).to(torch.float32)
-        f = f * inv_base.to(i.device)
+        r = r + float(f) * (i % base).to(torch.float32)
+        f = f * inv_base
         i = i // base
     return r
 

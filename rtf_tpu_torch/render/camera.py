@@ -18,6 +18,7 @@ import torch
 
 from rtf_tpu_torch.core.halton import halton
 from rtf_tpu_torch.core.math import mat3_apply, normalize
+from rtf_tpu_torch.utils import tracing
 
 
 def image_plane_params(scene):
@@ -32,13 +33,46 @@ def image_plane_params(scene):
     return float(u), float(v), b
 
 
+_OFFSETS = {}          # (index, base, step) -> offset, oldest first
+_OFFSETS_MAX = 4096   # the CLI's `watch` grows the index without end
+
+
+def _offset(index: int, base: int, step: float) -> float:
+    """halton(index, base) * step in float32, as a Python float, memoised
+    (counters camera.offsets.hit and camera.offsets.miss)."""
+    key = (index, base, step)
+    off = _OFFSETS.get(key)
+    if off is not None:
+        tracing.count("camera.offsets.hit")
+        return off
+    tracing.count("camera.offsets.miss")
+    if len(_OFFSETS) >= _OFFSETS_MAX:
+        del _OFFSETS[next(iter(_OFFSETS))]
+    off = _OFFSETS[key] = float(
+        halton(torch.tensor(index, dtype=torch.int64), base)
+        * torch.tensor(step, dtype=torch.float32))
+    return off
+
+
 def _focal_points(scene, px, py, sample_idx, halton_bases):
-    """Camera-space points on the focal plane: (cx, cy, cz), each [N]."""
+    """Camera-space points on the focal plane: (cx, cy, cz), each [N].
+
+    A scalar sample_idx (one index for every lane, a sample wave) adds
+    its sub-pixel offsets as Python scalars computed on the host, so a
+    wave makes no copy from the host that would wait for the card; a
+    float32 tensor plus a float32 value held in a Python float computes
+    in float32, so the rays equal those of an offset tensor bit for bit.
+    A per-lane sample_idx [N], on the lanes' device, computes them
+    there."""
     u, v, b = image_plane_params(scene)
     f32 = torch.float32
-    sx = halton(sample_idx, halton_bases[0]) * torch.tensor(u, dtype=f32)
-    sy = halton(sample_idx, halton_bases[1]) * torch.tensor(v, dtype=f32)
-    sx, sy = sx.to(px.device), sy.to(px.device)
+    if sample_idx.dim() == 0:
+        idx = int(sample_idx)
+        sx = _offset(idx, halton_bases[0], u)
+        sy = _offset(idx, halton_bases[1], v)
+    else:
+        sx = halton(sample_idx, halton_bases[0]) * torch.tensor(u, dtype=f32)
+        sy = halton(sample_idx, halton_bases[1]) * torch.tensor(v, dtype=f32)
     cx = px.to(f32) * u + float(b[0]) + sx
     cy = py.to(f32) * v + float(b[1]) + sy
     return cx, cy, torch.full_like(cx, float(b[2]))

@@ -26,6 +26,8 @@ launches: launches.wave_kernel, .wave_kernel.textured, .wave_kernel.mxu,
 .wave_kernel.textured_mxu (render/wave.py::launch_counter),
 launches.mesh_closest_hit, launches.mesh_closest_hit_mxu,
 launches.bvh_closest_hit (the wide walk) and launches.bvh_closest_hit.binary.
+The camera's memo of Halton sub-pixel offsets (render/camera.py::_offset,
+two lookups a sample wave): camera.offsets.hit, camera.offsets.miss.
 
 Kernel counts (`enable(kernel_counters=True)`): `wave` hands each launch
 that is given no `stats=` a device int64 [NSTAT] tensor held here per

@@ -162,7 +162,10 @@ def test_registry_counts_each_wave_launch(clean, cuda_dev):
     _, tables = _frame(cuda_dev)
     key = launch_counter(tables)
     out = tracing.collect()
+    offsets = [out["counters"].pop(k, 0) for k in
+               ("camera.offsets.hit", "camera.offsets.miss")]
     assert out["counters"] == {key: SPP}
+    assert sum(offsets) == 2 * SPP        # one x and one y offset a wave
     (counts,) = out["kernel_counts"].values()
     assert list(out["kernel_counts"]) == [key] and len(counts) == NSTAT
     assert counts[0] >= SPP * W * H          # STAT_RAYS: every lane traced
