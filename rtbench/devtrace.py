@@ -17,8 +17,10 @@ from pathlib import Path
 
 WINDOW = "rtbench.window"   # the harness's span around the timed frames
 FRAME = "rtbench.frame"     # its span around one frame
-# the harness's record_function names and the profiler's own
-ANNOTATIONS = ("rtbench.", "ProfilerStep")
+# the harness's record_function names, the profiler's own and c10d's
+# around a collective ("nccl:all_reduce"): ranges on the device's timeline
+# that are no work of their own
+ANNOTATIONS = ("rtbench.", "ProfilerStep", "nccl:")
 
 
 @dataclass
@@ -46,6 +48,11 @@ class Trace:
 
 def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset", "memcpy", "memset"))
+
+
+def is_collective(name: str) -> bool:
+    """A collective's kernel (NCCL's `ncclDevKernel_...`)."""
+    return name.startswith("nccl")
 
 
 _CUDA_GLOBAL = re.compile(
@@ -97,13 +104,14 @@ def union(intervals) -> list:
 
 def reduce(device_events, host_events) -> Trace:
     """device_events, host_events: [(name, start_us, end_us)]; the window
-    is the host span named WINDOW."""
+    is the host span named WINDOW.  Device events named as ANNOTATIONS
+    (a host range's shadow on the device) are left out."""
     win = [(s, e) for n, s, e in host_events if n == WINDOW]
     if len(win) != 1:
         raise RuntimeError(f"the trace holds {len(win)} window spans, not 1")
     w0, w1 = win[0]
     dev = [(n, max(s, w0), min(e, w1)) for n, s, e in device_events
-           if e > w0 and s < w1]
+           if e > w0 and s < w1 and not n.startswith(ANNOTATIONS)]
     busy = union((s, e) for _, s, e in dev)
     gaps, t = [], w0
     for s, e in busy:
@@ -156,9 +164,7 @@ class Recorder:
             else:
                 s, d = float(ev.start_us()), float(ev.duration_us())
             if ev.device_type() == DeviceType.CUDA:
-                # a record_function range's device-side shadow is no work
-                if not name.startswith(ANNOTATIONS):
-                    dev.append((name, s, s + d))
+                dev.append((name, s, s + d))
             else:
                 host.append((name, s, s + d))
         self.results = None

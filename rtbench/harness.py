@@ -1,12 +1,14 @@
 """One run of one cell: set-up, a closed-loop window of whole frames, the
-check against the reference, and the result line.
+check against the reference, and the result line.  A cell on several
+cards runs one process a card through rtbench/sharded.py.
 
 The system under test is rtf_tpu_torch (the program); the harness takes
-from it `build_scene`, `scene_tables`, `render_path` and `render`, and in
-a traced run the kernels' names and its Python launch entries (wrapped
-from here to count each launch's rays).  Everything else (scenes, traffic, statistics, the
-trace's reduction, the roofline arithmetic, the reference and the
-comparison) lives in rtbench/.
+from it `build_scene`, `scene_tables`, `render_path` and `render` (on
+several cards `init_multihost`, `make_mesh`, `render_sharded` and
+`finalize`), and in a traced run the kernels' names and its Python launch
+entries (wrapped from here to count each launch's rays).  Everything else
+(scenes, traffic, statistics, the trace's reduction, the roofline
+arithmetic, the reference and the comparison) lives in rtbench/.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ class RunRecord:
     facts: dict                  # `scene_facts`
     trace: devtrace.Trace = None  # the window's device trace (--trace 1)
     calls: dict = None           # recorded launches by entry (--trace 1)
+    program: dict = None         # the program's spans (rtbench/
+                                 # program_trace.py; None: its hook's)
 
 
 def derived_seed(seed: int, *path: int) -> int:
@@ -52,6 +56,14 @@ def frame_seed(seed: int, i: int) -> int:
 
 def forbidden_modules() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+
+
+def refuse_forbidden():
+    """Raise where JAX or rtf_tpu was loaded (checked once the window has
+    closed)."""
+    bad = forbidden_modules()
+    if bad:
+        raise RuntimeError(f"loaded after the window: {', '.join(bad)}")
 
 
 def scene_facts(scene, tables) -> dict:
@@ -105,6 +117,21 @@ def build(config: dict, dev, width=None, height=None):
     if algo != scene.mesh_algo:
         scene = dataclasses.replace(scene, mesh_algo=algo)
     return scene, scene_tables(scene, dev)
+
+
+def set_up(cell, dev, width=None, height=None):
+    """The cell's scene and tables built under the scene_build_s span, and
+    the path the program takes checked against the traffic's: (spans,
+    scene, tables)."""
+    from rtf_tpu_torch.render.scene_tables import render_path
+    spans = {}
+    with _span(spans, "scene_build_s", dev):
+        scene, tables = build(cell.config, dev, width, height)
+    path = render_path(scene, render_config(cell.traffic))[0]
+    if path != cell.traffic["path"]:
+        raise RuntimeError(f"{cell.name} declares the {cell.traffic['path']}"
+                           f" path, the program takes {path}")
+    return spans, scene, tables
 
 
 class _Wrapped:
@@ -182,13 +209,23 @@ def power_limit() -> str:
         return ""
 
 
+def load_readers(cell, bench_dir: Path) -> dict:
+    return {m["name"]: manifest.metric_reader(m["name"], bench_dir)
+            for m in cell.per_layer}
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool, t0: float,
         device: str = "cuda", width=None, height=None,
         root: Path = manifest.ROOT,
-        bench_dir: Path = manifest.BENCH_DIR) -> dict:
+        bench_dir: Path = manifest.BENCH_DIR, rank: int = 0,
+        port: int = None, parent: int = None) -> dict:
     """One run; returns the result line's object (metrics left out on the
-    CPU, where no device number exists)."""
+    CPU, where no device number exists).  A cell on several cards runs
+    rtbench/sharded.py, where rank 0 starts the other ranks (rank, port
+    and parent: those ranks' own, given by rank 0); they return None."""
     cell = manifest.Cell(manifest.load(root), workload, root, bench_dir)
+    from rtbench import sharded
+    mesh = sharded.mesh_of(cell, width, height)
     import torch
     if device == "cuda":
         if not torch.cuda.is_available():
@@ -196,26 +233,22 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t0: float,
         if torch.cuda.device_count() < cell.chips:
             raise NoCard(f"{torch.cuda.device_count()} cards, the cell "
                          f"asks for {cell.chips}")
+    if mesh is not None:
+        return sharded.run(cell, *mesh, workload, seed, seconds, trace, t0,
+                           device, width, height, bench_dir, rank, port,
+                           parent)
     from rtf_tpu_torch.render.renderer import render
-    from rtf_tpu_torch.render.scene_tables import render_path
     dev = torch.device(device, 0) if device == "cuda" \
         else torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    traffic, cfg = cell.traffic, render_config(cell.traffic)
-    readers = {m["name"]: manifest.metric_reader(m["name"], bench_dir)
-               for m in cell.per_layer} if trace else {}
+    cfg = render_config(cell.traffic)
+    readers = load_readers(cell, bench_dir) if trace else {}
 
     # set-up: the scene and its tables, one warm-up frame
-    spans = {}
     with torch.no_grad():
-        with _span(spans, "scene_build_s", dev):
-            scene, tables = build(cell.config, dev, width, height)
-        path = render_path(scene, cfg)[0]
-        if path != traffic["path"]:
-            raise RuntimeError(f"{workload} declares the {traffic['path']} "
-                               f"path, the program takes {path}")
+        spans, scene, tables = set_up(cell, dev, width, height)
         render(scene, cfg, seed=frame_seed(seed, -1), device=dev,
                tables=tables)
         _sync(dev)
@@ -232,9 +265,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t0: float,
             if wrapped is not None:
                 wrapped.restore()
     setup_s = start - t0
-    bad = forbidden_modules()
-    if bad:
-        raise RuntimeError(f"loaded after the window: {', '.join(bad)}")
+    refuse_forbidden()
     facts = scene_facts(scene, tables)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else 0
@@ -244,16 +275,23 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t0: float,
         record.calls = wrapped.calls
 
     # the check: the program's state freed, the reference on the kept frame
-    index, kseed, result = kept
-    program = {k: getattr(result, k) for k in
+    index, kseed, res = kept
+    program = {k: getattr(res, k) for k in
                ("image", "radiance", "z", "sample_count")}
-    del scene, tables, result
+    del scene, tables, res
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     ok, compared, ref_s = verify(cell, seed, kseed, program, dev, width,
                                  height)
+    return result(cell, workload, seed, ok, compared, record, readers, trace,
+                  start, end, times, setup_s, dev, peak, index, ref_s)
 
+
+def result(cell, workload, seed, ok, compared, record, readers, trace,
+           start, end, times, setup_s, dev, peak, index, ref_s) -> dict:
+    """The result line's object of a run checked `ok`."""
+    import torch
     out = {"correct": ok, "attempted": len(times), "failed": 0 if ok else 1}
     metrics = {}
     if trace:
@@ -274,14 +312,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t0: float,
                          "count": cell.chips, "memory_peak_bytes": int(peak),
                          "power_limit": power_limit()}
     else:
-        out["device"] = {"platform": "cpu", "kind": "cpu", "count": 1,
-                         "memory_peak_bytes": 0}
+        out["device"] = {"platform": "cpu", "kind": "cpu",
+                         "count": cell.chips, "memory_peak_bytes": 0}
     if trace:
         out["device"]["busy_s"] = record.trace.busy_us / 1e6
         out["device"]["window_s"] = record.trace.window_us / 1e6
         out["breakdown"] = devtrace.breakdown(record.trace)
     print(f"[rtbench] {workload} seed {seed}: {len(times)} frames in "
-          f"{end - start:.4f} s, set-up {setup_s:.4f} s, spans {spans}, "
+          f"{end - start:.4f} s, set-up {setup_s:.4f} s, spans "
+          f"{record.spans}, "
           f"checked frame {index} in {ref_s:.2f} s", file=sys.stderr)
     out["check"] = compared
     return out

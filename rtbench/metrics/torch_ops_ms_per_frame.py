@@ -2,8 +2,9 @@
 not the port's own (its `__global__` CUDA functions and `@triton.jit`
 functions, read from the program's sources each run by
 rtbench/devtrace.py::own_kernels): the wavefront's and the GI's torch ops,
-the camera, accumulation and finalize (torch.profiler; copies and sets left
-out).  Moves frame_s."""
+the camera, accumulation and finalize (torch.profiler; copies, sets and a
+sharded frame's collectives, collective_ms_per_frame's, left out).  Moves
+frame_s."""
 
 from rtbench import devtrace
 
@@ -13,5 +14,6 @@ def read(run):
         return None
     own = devtrace.kernel_matcher(devtrace.own_kernels(devtrace.program_dir()))
     us = sum(e - s for n, s, e in run.trace.device
-             if not devtrace.is_copy(n) and not own.search(n))
+             if not (devtrace.is_copy(n) or devtrace.is_collective(n)
+                     or own.search(n)))
     return us / 1e3 / run.frames

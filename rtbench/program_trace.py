@@ -57,7 +57,9 @@ def record(a, k):
 
 def spans(run):
     """The program's spans of the window's frames, [(name, id, parent,
-    frame, start_ns, end_ns, attrs)], or None."""
+    frame, start_ns, end_ns, attrs)], or None.  Spans outside any rtf.frame
+    (a sharded frame's waves: `render_sharded` opens none) count where they
+    lie inside the window."""
     if getattr(run, "program", None) is None:
         tr = _held["tracing"]
         run.program = None
@@ -72,7 +74,8 @@ def spans(run):
         w0, w1 = (1e3 * t for t in run.trace.window)
         frames = {s[1] for s in out
                   if s[0] == FRAME and w0 <= s[4] and s[5] <= w1}
-        out = [s for s in out if s[3] in frames]
+        out = [s for s in out if s[3] in frames or (
+            s[3] is None and w0 <= s[4] and s[5] <= w1)]
     return out
 
 

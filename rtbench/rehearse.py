@@ -5,8 +5,13 @@
 
 The same set-up, window, launch wrappers, trace reduction, reference and
 check as a run on the card, with the program's and the reference's plain
-versions on the CPU.  It prints the check and the counts, and no device
-metric: a CPU run measures nothing the benchmark reports.
+versions on the CPU.  A cell on several cards (a traffic that names a
+"mesh", rtbench/sharded.py) runs as many gloo ranks, one process each,
+through `render_sharded`: this process is rank 0 and starts the others
+(`--workload box.sharded4 --width 32 --height 24` on a manifest that holds
+such a cell, as rtbench/tests/test_rtbench_sharded.py writes one).  It
+prints the check and the counts, and no device metric: a CPU run measures
+nothing the benchmark reports.
 """
 import argparse
 import json
