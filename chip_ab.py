@@ -20,6 +20,12 @@ launches are chip_smoke.py's, on the same inputs:
   hybrid primary, child  phase 6 (the textured box, photon GI, two
                       volumes): the same two launch kinds;
   mxu, hybrid_mxu primary, child  phases 8-9 on the 20,480-face ball;
+  mxu fill            phase 8's launch with the camera's field of view
+                      cut to the ball, which then fills the view: nearly
+                      every block walks the mesh;
+  ball                phase 8's launch on the benchmark's ball
+                      (box_scene(800, 600, light_size=1.0, mesh_subdiv=7),
+                      327,680 faces), where few blocks walk and long;
   mesh primary, shadow, bounce 1  phase 7: mesh_closest_hit on the
                       inputs of one wavefront wave of RenderConfig() on
                       box_scene(800, 600, light_size=1.0): its primary
@@ -44,7 +50,11 @@ launches are chip_smoke.py's, on the same inputs:
    them, against the same launches with them in device memory (the
    fallback of scenes whose tables do not fit, forced through
    render/wave.py::scene_staged), in turns staged, device memory, device
-   memory, staged, twice; outputs equal bit for bit;
+   memory, staged, twice; outputs equal bit for bit; then the MXU
+   launches with and without the block order pass that runs before each
+   (the launch's order scratch passed as null: blocks in their own
+   order), in turns ordered, unordered, unordered, ordered, twice, with
+   block_order's own time (profiler); outputs equal bit for bit;
 3. with PARENT_DIR (another checkout of the repository, for example
    `git archive` of the parent commit unpacked in a directory that
    .gitignore lists): the parent's csrc/wave_kernel.cu, csrc/mesh_hit.cu
@@ -64,7 +74,10 @@ launches are chip_smoke.py's, on the same inputs:
    arguments; where its launch takes a tiles table (PR 6's layout: after
    the roots) that table is put back, the change's tnodes columns 0-7
    (padded box, first face, face count), which its flat walk reads, and
-   the arguments it does not take are dropped (those before the stream).
+   the arguments it does not take are dropped (those before the stream);
+   a parent whose MXU face rows are whole (its csrc/wave_kernel.cu
+   without SHADE_W) gets them back, the change's pair columns 0-21, its
+   shade rows and two zero columns: 40 floats a face.
    The parent's mesh_closest_hit(_rays) is its own ops/mesh_hit.py on its
    own library, with the change's arguments that it takes.
 
@@ -100,6 +113,7 @@ the card, one line per figure and one JSON object with every figure as the
 last line (also written to --out, default build/chip_ab.json).
 """
 import ctypes
+import dataclasses
 import importlib.util
 import inspect
 import json
@@ -136,6 +150,22 @@ class Lib:
             args = (args[:PARENT_TILES_ARG] + (self.tiles(),)
                     + args[PARENT_TILES_ARG:])
         return self.lib.rtf_wave_launch(*args[:self.nargs - 1], args[-1])
+
+    def rtf_error_string(self, code):
+        return self.lib.rtf_error_string(code)
+
+
+class NoOrder:
+    """The change's wave library with the launch's block order scratch
+    (the argument before the stream) passed as null: no block_order pass,
+    the blocks in their own order."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def rtf_wave_launch(self, *args):
+        return self.lib.rtf_wave_launch(*args[:-2], ctypes.c_void_p(0),
+                                        args[-1])
 
     def rtf_error_string(self, code):
         return self.lib.rtf_error_string(code)
@@ -211,7 +241,6 @@ def emulate():
 
 def bvh_ab(parent, out_path):
     """--bvh: the BVH walk's A/B (the module docstring)."""
-    import dataclasses
 
     import torch
     if not torch.cuda.is_available():
@@ -462,6 +491,22 @@ def bvh_ab(parent, out_path):
     print(json.dumps(result), flush=True)
 
 
+def fill_view(desc):
+    """The scene with its camera turned to the mesh ball of box_scene
+    (centre (1, 4, 3), radius 3) and its field of view cut to the ball's
+    angular size, so that the ball covers every pixel of a 4:3 view."""
+    import numpy as np
+    cam = desc.camera
+    d = np.array([1.0, 4.0, 3.0]) - cam.pos
+    dist = float(np.linalg.norm(d))
+    cam.dir = d / dist
+    x = np.cross(cam.dir, np.array([0.0, 0.0, 1.0]))
+    up = np.cross(x, cam.dir)
+    cam.up = up / np.linalg.norm(up)
+    cam.fov = float(np.degrees(2 * np.arcsin(3.0 / dist)) * 0.6)
+    return desc
+
+
 def fmt(xs):
     return ", ".join(f"{x:.4f}" for x in xs)
 
@@ -527,12 +572,15 @@ def main(argv):
                                        "entry function")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
     change_load = _build.load
-    change_load("wave")
+    libs = {"change": {}, "device memory": {},
+            "unordered": {"wave": NoOrder(change_load("wave"))}}
     change_load("mesh_hit")
-    libs = {"change": {}, "device memory": {}}
     PM = PX = None
     flat_mesh = False    # the parent's mesh kernel walks its tiles flat
+    whole_faces = False  # the parent's MXU face rows are 40 floats
     if parent is not None:
+        whole_faces = "SHADE_W" not in (parent / "rtf_tpu_torch" / "csrc"
+                                        / "wave_kernel.cu").read_text()
         pw = pb.KERNELS["wave"][2]
         # PR 6's launch: a tiles pointer after the roots, no scene staging
         put_tiles = "tiles" in (parent / "rtf_tpu_torch" / "csrc"
@@ -746,6 +794,10 @@ def main(argv):
                                   device=dev),
         "wavefront": build_scene(box_scene(W, H, with_mesh=True,
                                            light_size=1.0), device=dev),
+        "mxu fill": build_scene(fill_view(box_scene(
+            W, H, with_mesh=True, mesh_subdiv=5)), device=dev),
+        "ball": build_scene(box_scene(W, H, with_mesh=True, light_size=1.0,
+                                      mesh_subdiv=7), device=dev),
     }
     tabs["change"] = {k: scene_tables(s) for k, s in scenes.items()}
     if parent is not None:
@@ -755,6 +807,10 @@ def main(argv):
         for k, tab in tabs["change"].items():
             if not tab.mxu and not hasattr(tab, "tiles"):
                 tabs["parent"]["tiles/" + k] = tab.tnodes[:, 0:8].contiguous()
+            if tab.mxu and whole_faces:
+                f = tab.faces
+                tabs["parent"][k] = dataclasses.replace(tab, faces=torch.cat(
+                    [f[:, 0:22], tab.shade, f[:, 22:24]], 1).contiguous())
     vols = {k: (CS.box_volume(scenes[k], 0, dev),
                 CS.box_volume(scenes[k], 1, dev))
             for k in ("hybrid", "hybrid_mxu")}
@@ -767,7 +823,8 @@ def main(argv):
     launches = {}     # name: (fn(**kw), lanes, group, rows in, rows out)
     alive = {}
     for key, cfg in (("main", main_cfg), ("textured", main_cfg),
-                     ("mxu", main_cfg)):
+                     ("mxu", main_cfg), ("mxu fill", main_cfg),
+                     ("ball", main_cfg)):
         o3, d3 = rays_ch(scenes[key])
         al = torch.ones(o3.shape[1], dtype=torch.bool, device=dev)
         launches[key] = (
@@ -876,6 +933,32 @@ def main(argv):
                   "(profiler)", flush=True)
         result["scene_smem"][name] = rec
 
+    # ---- 2b. the MXU launches with and without the block order pass
+    result["block_order"] = {}
+    for name, (fn, n, key, _, _) in launches.items():
+        if not tabs["change"][key].mxu:
+            continue
+        rec = {t: {"ms": [], "ms_profiler": []}
+               for t in ("change", "unordered")}
+        outs = {}
+        for tag in ("change", "unordered", "unordered", "change") * 2:
+            use(tag)
+            outs.setdefault(tag, flat_out(fn()))
+            rec[tag]["ms"].append(events_ms(fn))
+            rec[tag]["ms_profiler"].append(profiled_ms(fn, "wave_kernel"))
+        use("change")
+        check(torch.equal(outs["change"], outs["unordered"]),
+              f"{name}: the block order changes the outputs")
+        rec["block_order_ms_profiler"] = profiled_ms(fn, "block_order")
+        for tag in ("change", "unordered"):
+            print(f"[chip_ab] block order {name} {tag}: {fmt(rec[tag]['ms'])}"
+                  f" ms (events), {fmt(rec[tag]['ms_profiler'])} ms "
+                  "(profiler, wave_kernel)", flush=True)
+        print(f"[chip_ab] block order {name}: block_order "
+              f"{rec['block_order_ms_profiler']:.4f} ms (profiler)",
+              flush=True)
+        result["block_order"][name] = rec
+
     # ---- 3. the parent against the change
     if parent is not None:
         turns = ("parent", "change", "change", "parent")
@@ -978,6 +1061,14 @@ def main(argv):
             "wavefront": lambda: render(scenes["wavefront"], wf_cfg,
                                         tables=cur_tab("wavefront"),
                                         device=dev),
+            "mxu": lambda: render(scenes["mxu"], main_cfg,
+                                  tables=cur_tab("mxu"), device=dev),
+            "hybrid_mxu": lambda: render(
+                scenes["hybrid_mxu"], hyb_cfg, tables=cur_tab("hybrid_mxu"),
+                gi_vol=vols["hybrid_mxu"][0],
+                caustic_vol=vols["hybrid_mxu"][1], device=dev),
+            "ball": lambda: render(scenes["ball"], main_cfg,
+                                   tables=cur_tab("ball"), device=dev),
         }
         for name, fn in frames.items():
             rec = {}

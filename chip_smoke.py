@@ -574,8 +574,9 @@ def bound(tables, st, n, rows_in, rows_out):
              + st["tex_checker"] * OPS["tex_checker"]
              + st["env"] * OPS["env"])
     table_bytes = sum(getattr(tables, k).numel() * 4 for k in (
-        "spheres", "planes", "mesh_insts", "roots", "faces", "materials",
-        "lights", "texmaps", "textures", "groups", "tnodes", "leaves"))
+        "spheres", "planes", "mesh_insts", "roots", "faces", "shade",
+        "materials", "lights", "texmaps", "textures", "groups", "tnodes",
+        "leaves"))
     texels = tables.atlas.shape[0] if tables.has_file_tex else 0
     nbytes = n * rows_in * 4 + n * rows_out * 4 + table_bytes + texels * 12
     nbytes_reads = nbytes - texels * 12 + st["tex_file"] * 4 * 16
@@ -1277,9 +1278,13 @@ def main(argv):
         # kernel's choice, not the function's)
         bd = bound(tables, st, n, 7, 5)
         launch_prof_ms = profiled_ms(launch)
+        # on the MXU tables each launch first runs block_order
+        order_prof_ms = (profiled_ms(launch, key="block_order")
+                         if tables.mxu else None)
         print(f"[{tag}] kernel {kern_ms:.4f} ms/launch at {W}x{H} (mean of "
               f"20, CUDA events; {launch_prof_ms} ms by the profiler, "
-              f"kernel only); work {json.dumps(st)}; "
+              f"kernel only; block_order {order_prof_ms} ms); work "
+              f"{json.dumps(st)}; "
               f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "
               f"{bd['bound_ms']:.4f} ms (ops {bd['ops_ms']:.4f}, bytes "
               f"{bd['bytes_ms']:.4f}); with four texel reads per sample, "
@@ -1304,7 +1309,8 @@ def main(argv):
             "bound_by": bd["bound_by"],
             "bound_ms_texel_reads": bd["bound_ms_texel_reads"],
             "library_ms": None, "frame_s": frame_s, "mrays_per_s": mrays,
-            "work": st, "walk": walk, "ms_profiler_launch": launch_prof_ms}
+            "work": st, "walk": walk, "ms_profiler_launch": launch_prof_ms,
+            "block_order_ms_profiler": order_prof_ms}
 
     def gi_launch_kinds(tag, gcfg, scene, tables, gi_vol, caustic_vol, gen):
         """Per launch kind of a GI sample wave at the scene's full shape
@@ -1352,15 +1358,20 @@ def main(argv):
             pms = (time.perf_counter() - t0) * 1e3
             ms = events_ms(fn)
             ms_prof = profiled_ms(fn)
+            order_prof = (profiled_ms(fn, key="block_order") if tables.mxu
+                          else None)
             st, walk = report_walk(f"{tag} {kname}", tables, fn, n,
                                    rows_in, rows_out)
             bd = bound(tables, st, n, rows_in, rows_out)
-            kinds[kname] = dict(ms=ms, ms_profiler=ms_prof, plain_ms=pms,
+            kinds[kname] = dict(ms=ms, ms_profiler=ms_prof,
+                                block_order_ms_profiler=order_prof,
+                                plain_ms=pms,
                                 max_abs_err=errs[-1], work=st,
                                 rows_in=rows_in, rows_out=rows_out, **bd,
                                 walk=walk)
             print(f"[{tag}] {kname} launch: {ms:.4f} ms (mean of 20, CUDA "
-                  f"events), {ms_prof} ms (profiler, kernel only), "
+                  f"events), {ms_prof} ms (profiler, kernel only; "
+                  f"block_order {order_prof} ms), "
                   f"plain {pms:.2f} ms; rows {rows_in} in, "
                   f"{rows_out} out; work {json.dumps(st)}; "
                   f"{bd['flops']:.4e} FP32 ops, {bd['bytes']} bytes; bound "

@@ -52,6 +52,7 @@ KERNELS = {
         _P, _I, _P, _P,          # groups, ng, tnodes, leaves
         _I, _I,                  # roots and groups staged, block cycles
         _I,                      # scene tables staged
+        _P, _P,                  # shade rows, block order scratch
         _P]),                    # stream
     "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
         _P, _P, _I, _P, _I, _I,  # origins, directions, their row stride,

@@ -80,6 +80,15 @@
 //     memory once per block where they fit (render/wave.py::scene_staged;
 //     2-7% faster than the read-only cache in interleaved pairs, PERF.md
 //     section 6), else read from device memory by the same code;
+//   * on the MXU tables a face's row holds only the pair test's 24
+//     columns (96 B instead of 160; the winner's shading columns are a
+//     table of their own, read once per instance), so more of the faces a
+//     walk tests stay in L2; and each launch first orders its blocks
+//     (block_order): the few blocks whose rays enter a mesh's root box
+//     walk for several times as long as the rest, and start first instead
+//     of forming the launch's tail; a closest hit's pair loop is unrolled
+//     four ways, so that independent face tests overlap (PERF.md section
+//     6);
 //   * each thread walks the mesh's box hierarchy with its own slab tests
 //     capped by its own best t (above), so it tests the faces of the
 //     16-face leaves its segment enters; the boxes are padded on the host
@@ -126,6 +135,7 @@ constexpr float INV_2PI_F = 0.15915494309189535f;   // 0.5 / pi
 constexpr float INV_PI_F = 0.3183098861837907f;
 constexpr int RT_REFLECT = 1, RT_REFRACT = 2;
 constexpr int INST_W = 24, FACE_W = 40, MAT_W = 24, LIGHT_W = 16;
+constexpr int PAIR_W = 24, SHADE_W = 16;   // the MXU tables' face rows
 constexpr int TEXMAP_W = 10, TEX_W = 10;
 constexpr float TEX_FILE = 0.0f;
 constexpr int THREADS = 128;
@@ -179,10 +189,13 @@ struct Args {
   const float* planes; int np;
   const float* insts; int ni;
   const float* roots;  // [ni, 8] padded root boxes, group range
-  const float* faces;  // [T * 128, 40]
+  const float* faces;  // [T * 128, 40]; MXU: [T * 128, 24] pair columns
   const float* groups; int ng;   // [ng, 24] groups of 8 tiles
   const float* tnodes;           // [T, 24] the walk's tile rows
   const float* leaves;           // [T * 8, 8] 16-face leaves
+  const float* shade;  // MXU: [T * 128, 16] the winner's shading columns
+  const int* order;    // the blocks' heavy-first order (block_order), or
+                       // null: block b runs lanes 128 b..
   int staged;          // roots and groups in shared memory
   int scene_staged;    // spheres, planes, instances, lights too
   int stats_blocks;    // per-block cycles after the counters
@@ -385,19 +398,19 @@ __device__ __forceinline__ bool face_test(const Args& A, int f,
                                           const float l[3], const float c[3],
                                           float& t, float& s0, float& s1,
                                           float& s2, float& dn) {
-  const float* F = A.faces + FACE_W * f;
   if constexpr (MXU)
-    return plucker::pair(reinterpret_cast<const float4*>(F), true, l, c, lo,
-                         t, s0, s1, s2, dn);
-  return boxwalk::tri(F, true, lo, l, t, dn, s0, s1, s2);
+    return plucker::pair(
+        reinterpret_cast<const float4*>(A.faces + PAIR_W * f), true, l, c,
+        lo, t, s0, s1, s2, dn);
+  return boxwalk::tri(A.faces + FACE_W * f, true, lo, l, t, dn, s0, s1, s2);
 }
 
 // fused.py::_closest_hit's mesh part (_mesh_closest, _mesh_closest_mxu)
 // for one ray: per instance the least t below the best so far, then the
 // least key; the winner's normal, material, front and uv are read from its
-// shade row once per instance.  Immediates rows: 12-20 vertex normals
-// a/b/c, 21-29 uvw a/b/c, 30 material; MXU rows: 22 nc, 25 na - nc, 28
-// nb - nc, 31 material, 32 uv_c, 34 uv_a - uv_c, 36 uv_b - uv_c.
+// shade row once per instance.  Immediates face rows: 12-20 vertex
+// normals a/b/c, 21-29 uvw a/b/c, 30 material; MXU shade rows: 0 nc, 3
+// na - nc, 6 nb - nc, 9 material, 10 uv_c, 12 uv_a - uv_c, 14 uv_b - uv_c.
 template <bool MXU>
 __device__ void mesh_closest(const Args& A, const Scene& S, const float o[3],
                              const float d[3], Hit& h,
@@ -413,7 +426,10 @@ __device__ void mesh_closest(const Args& A, const Scene& S, const float o[3],
     // bkey -1: the best t is from before this instance, so a tie loses
     int best = -1, bkey = -1;
     float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, bdn = 0.0f;
-    boxwalk::walk<false, 1>(L, k, lo, l, ild, [&]() { return h.t; },
+    // the MXU pair loop unrolled four ways (its independent face tests
+    // overlap); the immediates' loop is faster as it is (PERF.md section 6)
+    boxwalk::walk<false, MXU ? 4 : 1>(L, k, lo, l, ild,
+                  [&]() { return h.t; },
                   [&](int f, int key0) {
                     if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
                     float t, s0, s1, s2, dn;
@@ -434,20 +450,21 @@ __device__ void mesh_closest(const Args& A, const Scene& S, const float o[3],
     }
     if (best < 0) continue;
     const float* I = S.insts + INST_W * k;
-    const float* F = A.faces + FACE_W * best;
     float lnx, lny, lnz;
     if constexpr (MXU) {
+      const float* F = A.shade + SHADE_W * best;
       float ba, bb;
       plucker::bary(b0, b1, b2, ba, bb);
-      lnx = ld(F + 22) + ba * ld(F + 25) + bb * ld(F + 28);
-      lny = ld(F + 23) + ba * ld(F + 26) + bb * ld(F + 29);
-      lnz = ld(F + 24) + ba * ld(F + 27) + bb * ld(F + 30);
-      h.mtl = (int)ld(F + 31);
+      lnx = ld(F + 0) + ba * ld(F + 3) + bb * ld(F + 6);
+      lny = ld(F + 1) + ba * ld(F + 4) + bb * ld(F + 7);
+      lnz = ld(F + 2) + ba * ld(F + 5) + bb * ld(F + 8);
+      h.mtl = (int)ld(F + 9);
       if (A.need_uv) {
-        h.u = ld(F + 32) + ba * ld(F + 34) + bb * ld(F + 36);
-        h.v = ld(F + 33) + ba * ld(F + 35) + bb * ld(F + 37);
+        h.u = ld(F + 10) + ba * ld(F + 12) + bb * ld(F + 14);
+        h.v = ld(F + 11) + ba * ld(F + 13) + bb * ld(F + 15);
       }
     } else {
+      const float* F = A.faces + FACE_W * best;
       lnx = ld(F + 12) * b0 + ld(F + 15) * b1 + ld(F + 18) * b2;
       lny = ld(F + 13) * b0 + ld(F + 16) * b1 + ld(F + 19) * b2;
       lnz = ld(F + 14) * b0 + ld(F + 17) * b1 + ld(F + 20) * b2;
@@ -718,13 +735,48 @@ __device__ __forceinline__ void write_rows(const Args& A, int i, int b,
   }
 }
 
+// The heavy-first order of a launch's blocks (MXU tables): a block in
+// which some live lane's ray enters a mesh instance's padded root box walks
+// the mesh and takes several times as long as one that does not (8 times
+// on average on the 327,680-face ball's frame, PERF.md section 6); those
+// blocks take the first slots of `order`, the others the last, so that the
+// walking blocks start with the launch instead of forming its tail.
+// order[nb] and order[nb + 1] count the slots taken from each end (zero
+// before the launch).  A lane's work and random stream follow its own
+// index, so the outputs do not depend on the order.
+__global__ void __launch_bounds__(THREADS)
+block_order(const Args A, int* order) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  bool enter = false;
+  if (i < A.n && A.rays[6 * A.n + i] > 0.0f) {
+    float o[3], d[3], lo[3], l[3], ild[3];
+    for (int a = 0; a < 3; ++a) {
+      o[a] = A.rays[a * A.n + i];
+      d[a] = A.rays[(3 + a) * A.n + i];
+    }
+    const Scene S{A.spheres, A.planes, A.insts, A.lights};
+    const boxwalk::Levels L{A.roots, A.groups, A.tnodes, A.leaves};
+    for (int k = 0; k < A.ni && !enter; ++k)
+      enter = enter_instance(S, L, k, o, d, BIG, lo, l, ild, nullptr);
+  }
+  const int nb = gridDim.x;
+  if (__syncthreads_or(enter)) {
+    if (threadIdx.x == 0) order[atomicAdd(order + nb, 1)] = blockIdx.x;
+  } else if (threadIdx.x == 0) {
+    order[nb - 1 - atomicAdd(order + nb + 1, 1)] = blockIdx.x;
+  }
+}
+
 // (THREADS, 1): at most THREADS threads a block, and no occupancy target,
 // so ptxas gives each variant the registers it needs (126-199, no spill)
 // instead of spilling to fit 64-80 (PERF.md section 6, PR 7)
 template <bool TEXTURED, bool GI, bool MXU, bool COUNT>
 __global__ void __launch_bounds__(THREADS, 1)
 wave_kernel(const Args A) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // the immediates variants take no block order (their code, and so their
+  // registers, stay as they were: 126-128, four blocks an SM)
+  const int blk = MXU && A.order ? A.order[blockIdx.x] : (int)blockIdx.x;
+  int i = blk * blockDim.x + threadIdx.x;
   const long long k0 = COUNT && A.stats_blocks ? clock64() : 0;
   const Scene S = stage(A);   // before any lane leaves: the one barrier
   if (i >= A.n) return;
@@ -995,7 +1047,7 @@ wave_kernel(const Args A) {
     for (int s = 0; s < NSTAT; ++s)
       if (cnt_[s]) atomicAdd(A.stats + s, cnt_[s]);
   if (cnt && A.stats_blocks)
-    atomicMax(A.stats + NSTAT + blockIdx.x,
+    atomicMax(A.stats + NSTAT + blk,
               (unsigned long long)(clock64() - k0));
 }
 
@@ -1030,7 +1082,7 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                     int has_gloss, int mxu, const float* groups, int ng,
                     const float* tnodes, const float* leaves,
                     int staged, int stats_blocks, int scene_staged,
-                    void* stream) {
+                    const float* shade, int* order, void* stream) {
   if (n <= 0) return 0;
   Args A;
   A.rays = rays;
@@ -1069,6 +1121,8 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
   A.groups = groups; A.ng = ng;
   A.tnodes = tnodes;
   A.leaves = leaves;
+  A.shade = shade;
+  A.order = nullptr;
   A.staged = staged;
   A.scene_staged = scene_staged;
   A.stats_blocks = stats_blocks;
@@ -1082,6 +1136,14 @@ int rtf_wave_launch(const float* rays, int has_state, float* out,
                                            + LIGHT_W * nl) : 0);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e;
+  if (mxu && order) {
+    e = cudaMemsetAsync(order + blocks, 0, 2 * sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+    block_order<<<blocks, THREADS, 0, st>>>(A, order);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    A.order = order;
+  }
   if (mxu) {
     if (textured && gi)
       e = launch<true, true, true>(blocks, smem, st, A);

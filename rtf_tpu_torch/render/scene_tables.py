@@ -24,7 +24,15 @@ Row layouts (float32; integer fields are stored as exact floats):
                      per-face rows of ops/pack.py, Morton order, padding
                      and degenerate columns dropped, each slot padded with
                      zero rows (which never hit) to whole tiles; on the MXU
-                     tables ops/mxu_pack.py's Plücker and shade rows
+                     tables [T * 128, 24], the pair test's columns of
+                     ops/mxu_pack.py's face rows: 0-17 the Plücker rows,
+                     18-20 n, 21 n.a, 22-23 zero
+  shade     [T * 128, 16]  on the MXU tables the rest of those face rows,
+                     read once per winner: 0 nc, 3 na - nc, 6 nb - nc, 9
+                     material, 10 uv_c, 12 uv_a - uv_c, 14 uv_b - uv_c; [0,
+                     16] on the immediates.  Split so that the faces a walk
+                     tests take 96 bytes each instead of 160, and more of
+                     them stay in the card's L2 cache
   groups    [G, 24]  ops/mxu_pack.py's groups of 8 tiles: 0-5 the padded
                      box, 6 first tile, 7 tile count, 8-15 the slot's group
                      visit orders, 16-23 the packed orders of the group's
@@ -84,6 +92,7 @@ MXU_STREAM_MAX_FACES = 1 << 20  # rtf_tpu's fused gate (fused.py:61)
 MAX_MATERIALS = 16
 MAX_LIGHTS = 2         # non-ambient lights (shadow casters)
 INST_W, FACE_W, MAT_W, LIGHT_W = 24, 40, 24, 16
+PAIR_W, SHADE_W = 24, 16   # the MXU face rows' pair and shade columns
 TEXMAP_W, TEX_W = 10, 10
 
 _KIND = {"ambient": LIGHT_AMBIENT, "direct": LIGHT_DIRECT,
@@ -173,10 +182,11 @@ class WaveTables:
     planes: torch.Tensor      # [P, 24]
     mesh_insts: torch.Tensor  # [I, 24]
     roots: torch.Tensor       # [I, 8]
-    faces: torch.Tensor       # [T * 128, 40]
+    faces: torch.Tensor       # [T * 128, 40]; MXU: [T * 128, 24]
     groups: torch.Tensor      # [G, 24]
     tnodes: torch.Tensor      # [T, 24]
     leaves: torch.Tensor      # [T * 8, 8]
+    shade: torch.Tensor       # MXU: [T * 128, 16], else [0, 16]
     materials: torch.Tensor   # [M, 24]
     lights: torch.Tensor      # [L, 16]
     texmaps: torch.Tensor     # [Q, 10]
@@ -239,8 +249,9 @@ def _imm_pack(scene: Scene):
 
 def _mesh_tables(scene: Scene, mxu: bool):
     """faces, groups, tnodes, leaves, and per mesh instance its slot's tile
-    range and root row; on the MXU tables also its slot's unpadded
-    bounds."""
+    range and root row; on the MXU tables also its slot's unpadded bounds,
+    and faces [T * 128, 40] are the pair columns (PAIR_W) then the shade
+    columns (SHADE_W)."""
     if scene.mesh is None or scene.num_mesh_inst == 0:
         return (np.zeros((0, FACE_W), np.float32),
                 np.zeros((0, NODE_W), np.float32),
@@ -250,6 +261,8 @@ def _mesh_tables(scene: Scene, mxu: bool):
     if mxu:
         pack = mesh_mxu_pack(scene.mesh)
         faces = pack["faces"]
+        faces = np.concatenate([faces[:, 0:22], np.zeros(
+            (faces.shape[0], PAIR_W - 22), np.float32), faces[:, 22:38]], 1)
     else:
         faces, pack = _imm_pack(scene)
     groups, tnodes, leaves, roots = walk_tables(pack)
@@ -328,8 +341,10 @@ def scene_tables(scene: Scene, device=None) -> WaveTables:
         planes=t(_instances(scene.planes, scene.num_planes)),
         mesh_insts=t(_instances(scene.mesh_inst, scene.num_mesh_inst,
                                 ranges if len(ranges) else None)),
-        roots=t(roots), faces=t(faces), groups=t(groups), tnodes=t(tnodes),
-        leaves=t(leaves), materials=t(mats),
+        roots=t(roots), faces=t(faces[:, 0:PAIR_W] if mxu else faces),
+        groups=t(groups), tnodes=t(tnodes), leaves=t(leaves),
+        shade=t(faces[:, PAIR_W:] if mxu else np.zeros((0, SHADE_W))),
+        materials=t(mats),
         lights=t(_lights(scene)),
         texmaps=t(texmaps), textures=t(textures), atlas=t(atlas),
         atlas_w=int(atlas_w),

@@ -260,6 +260,7 @@ class _Host:
         self.ranges = tables.tnodes[:, 6:8].tolist()
         self.lights = tables.lights.tolist()
         self.faces = tables.faces
+        self.shade = tables.shade
         self.mats = tables.materials
         self.mxu = tables.mxu
         if self.mxu:
@@ -458,18 +459,19 @@ def _mesh_closest_mxu(h, o3, d3, st, need_uv):
         wcol[pl[wp]] = cp[wp]
         # re-evaluate each winner alone: the same elementwise ops, so the
         # same values as in the block
-        Fw = h.faces[wtile[win] * MXU_TILE + wcol[win]]
+        fw = wtile[win] * MXU_TILE + wcol[win]
+        Fw, Sw = h.faces[fw], h.shade[fw]
         l3, r3, x3 = (tuple(v[win] for v in x) for x in (lo3, ld3, c3))
         tw, _, sa, sb, sc, dn = plucker_pair(
             [Fw[:, c] for c in range(22)], r3, x3, l3)
         ba, bb = plucker_bary(sa, sb, sc)
-        ln3 = [Fw[:, 22 + c] + ba * Fw[:, 25 + c] + bb * Fw[:, 28 + c]
+        ln3 = [Sw[:, c] + ba * Sw[:, 3 + c] + bb * Sw[:, 6 + c]
                for c in range(3)]
         w3 = _mat3(h.insts[k][12:21], *ln3)
-        vals = [tw, w3[0], w3[1], w3[2], Fw[:, 31],
+        vals = [tw, w3[0], w3[1], w3[2], Sw[:, 9],
                 (dn <= 0.0).to(torch.float32)]
         if need_uv:
-            vals += [Fw[:, 32 + c] + ba * Fw[:, 34 + c] + bb * Fw[:, 36 + c]
+            vals += [Sw[:, 10 + c] + ba * Sw[:, 12 + c] + bb * Sw[:, 14 + c]
                      for c in range(2)]
         idx = lanes[win]
         for j, v in enumerate(vals):
@@ -938,8 +940,8 @@ def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
     for name in ("spheres", "planes", "mesh_insts", "roots",
-                 "faces", "groups", "tnodes", "leaves", "materials",
-                 "lights", "texmaps", "textures", "atlas"):
+                 "faces", "groups", "tnodes", "leaves", "shade",
+                 "materials", "lights", "texmaps", "textures", "atlas"):
         x = getattr(tables, name)
         if x.device != dev or x.dtype != torch.float32 \
                 or not x.is_contiguous():
@@ -957,6 +959,10 @@ def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
                          f"on {dev}")
     n = rays.shape[1]
     prm = shade_params(cfg, tables)
+    # on the MXU tables the launch orders its blocks (csrc/wave_kernel.cu::
+    # block_order) in this scratch: a slot a block and two counters
+    order = torch.empty((n + THREADS - 1) // THREADS + 2, dtype=torch.int32,
+                        device=dev) if tables.mxu else None
     out = torch.empty((out_rows(nbounce, surf_out, gi_from), n),
                       dtype=torch.float32, device=dev)
 
@@ -991,7 +997,9 @@ def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
             ptr(tables.groups), tables.groups.shape[0], ptr(tables.tnodes),
             ptr(tables.leaves), int(smem_staged(tables)),
             int(stats is not None and stats.numel() >= stats_size(n)),
-            int(scene_staged(tables)), ctypes.c_void_p(stream))
+            int(scene_staged(tables)), ptr(tables.shade),
+            ctypes.c_void_p(0) if order is None else ptr(order),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wave kernel launch failed: "
                            f"{_build.error_string(rc)} ({rc})")

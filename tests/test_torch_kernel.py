@@ -22,8 +22,9 @@ instances, the 81,920-face ball, shared or device memory for the upper
 levels, the textured variant's GI rows), the same on the immediates
 variants (all four: untextured and textured, with GI rows or not),
 mesh_closest_hit (csrc/mesh_hit.cu; ties across tiles, two instances,
-dead and padding lanes) and the wavefront frame's determinism are exact:
-max abs error 0.0.  The GI rows
+dead and padding lanes), every MXU variant on the 20,480-face ball (its
+launches' block order changing no output and no work count) and the
+wavefront frame's determinism are exact: max abs error 0.0.  The GI rows
 (surface and photon-query rows, render/wave.py::split_rows) of bounce 0
 agree on every lane within 2e-4 + 1e-4 |x|, past bounce 0 on all but 1%
 of lanes with the mean within 1%."""
@@ -368,6 +369,95 @@ def test_mxu_walk_counters(cuda_dev):
     assert len(blocks) == (n + 127) // 128 and min(blocks) > 0
 
 
+def _ball_tables(dev, textured=False, soft=False):
+    """The wave's inputs on the 20,480-face ball (20 groups),
+    the textured box's ball for `textured`: tables, the 64x48 frame's
+    rays plus one ray per face and one per face vertex, all alive."""
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    desc = textured_desc(64, 48, mesh_subdiv=5) if textured \
+        else box_scene(64, 48, mesh_subdiv=5, light_size=1.0 if soft else 0.0)
+    tables, o3, d3, _ = _setup(desc, dev)
+    assert tables.mxu and tables.textured == textured
+    assert int(tables.roots[0, 7]) == 20
+    scene = build_scene(desc, device=dev)
+    fo, fd = face_rays(scene, dev)
+    vo, vd = vertex_rays(scene, dev)
+    o3, d3 = torch.cat([o3, fo, vo], 1), torch.cat([d3, fd, vd], 1)
+    return tables, o3, d3, torch.ones(o3.shape[1], dtype=torch.bool,
+                                      device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bounces,staged", [
+    ("box", 0, True), ("box", 4, True), ("box", 4, False), ("soft", 4, True),
+    ("gi", 2, True), ("gi", 2, False), ("textured", 4, True),
+    ("textured-gi", 2, True), ("textured-gi", 2, False)])
+def test_ball_walk_exact(cuda_dev, monkeypatch, case, bounces, staged):
+    """Every MXU variant of the wave kernel (untextured or textured, with
+    GI rows or not: the pair rows, the shade rows, the block order),
+    closest hits and shadow rays (hard, or soft with up to 16), the roots
+    and groups in shared memory or in device memory: against wave_plain
+    with max abs error 0.0 on the 20,480-face ball's frame, face and
+    vertex rays."""
+    from rtf_tpu_torch.render import wave as W
+    if not staged:
+        monkeypatch.setattr(W, "SMEM_BYTES", 0)
+    soft = case == "soft"
+    tables, o3, d3, alive = _ball_tables(cuda_dev, "textured" in case, soft)
+    assert W.smem_staged(tables) == staged
+    cfg = _cfg(bounces=bounces, split_mode="rr", hemisphere_samples=4,
+               shadow_min=4 if soft else 1, shadow_max=16 if soft else 1,
+               env_on_reflect_miss="textured" in case)
+    kw = dict(surf_out=True, gi_from=0) if case.endswith("gi") else {}
+    plain = W.wave_plain(cfg, tables, o3, d3, alive, 21, **kw)
+    key = W.launch_counter(tables)
+    before = counter(key)
+    kern = W.wave(cfg, tables, o3, d3, alive, 21, **kw)
+    torch.cuda.synchronize()
+    assert counter(key) == before + 1
+    assert int(kern[1].sum()) > 1000
+    _assert_exact(plain, kern)
+
+
+@pytest.mark.cuda
+def test_block_order_keeps_outputs(cuda_dev, monkeypatch):
+    """The MXU launch's block order pass (csrc/wave_kernel.cu::block_order)
+    changes only when each block runs: on the 20,480-face ball's rays the
+    outputs and every work count but the cycles equal, bit for bit, those
+    of the same launch with its order scratch passed as null (the blocks
+    in their own order)."""
+    import ctypes
+    from rtf_tpu_torch import _build
+    from rtf_tpu_torch.render import wave as W
+    tables, o3, d3, alive = _ball_tables(cuda_dev)
+    cfg = _cfg(bounces=2, split_mode="rr")
+    lib = _build.load()
+
+    class Unordered:
+        def rtf_wave_launch(self, *args):
+            return lib.rtf_wave_launch(*args[:-2], ctypes.c_void_p(0),
+                                       args[-1])
+
+        def rtf_error_string(self, code):
+            return lib.rtf_error_string(code)
+    runs = {}
+    for name in ("ordered", "unordered"):
+        if name == "unordered":
+            monkeypatch.setattr(_build, "load",
+                                lambda name="wave": Unordered())
+        stats = torch.zeros(W.NSTAT, dtype=torch.int64, device=cuda_dev)
+        out = W.wave(cfg, tables, o3, d3, alive, 7, stats=stats)
+        torch.cuda.synchronize()
+        runs[name] = out, stats.tolist()
+    _assert_exact(runs["ordered"][0], runs["unordered"][0])
+    cycles = {14, 15, 16, 17, 23, 24, 25}     # STAT_CYC_*
+    for s, (a, b) in enumerate(zip(runs["ordered"][1],
+                                   runs["unordered"][1])):
+        assert s in cycles or a == b, s
+    assert runs["ordered"][1][22] > 1000      # STAT_ROOT_IN: walks
+
+
 @pytest.mark.cuda
 def test_wavefront_frame_is_deterministic(cuda_dev):
     """The 160x120 wavefront frame (soft shadows, the 'both' split)
@@ -543,16 +633,19 @@ def _mesh_inputs(case, dev):
     "capped": a finite t_init that cuts the ball; "tie": the 2,561-face
     ball whose faces are listed twice; "two": the second of two instances
     of one ball), or 4096 random rays aimed at it ("random"; "padding":
-    the first 1000 of them, padded to 1024, a quarter with t_init 0)."""
+    the first 1000 of them, padded to 1024, a quarter with t_init 0);
+    "ball", "ball-random": the camera or random rays on the 20,480-face
+    ball, 20 groups)."""
     from rtf_tpu_torch.ops.mesh_hit import pack_rays
     from rtf_tpu_torch.ops.trace import _to_local
     from rtf_tpu_torch.render.camera import pixel_order, primary_rays
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
     desc = mxu_walk_desc(case, 64, 48) if case in ("tie", "two") \
-        else box_scene(64, 48, mesh_subdiv=2)
+        else box_scene(64, 48, mesh_subdiv=5 if case.startswith("ball")
+                       else 2)
     scene = build_scene(desc, device=dev)
-    if case in ("random", "padding"):
+    if case in ("random", "padding", "ball-random"):
         g = torch.Generator(dev).manual_seed(7)
         o = torch.rand((4096, 3), generator=g, device=dev) * 40.0 - 20.0
         d = torch.rand((4096, 3), generator=g, device=dev) * 6.0 \
@@ -585,7 +678,8 @@ def _mesh_inputs(case, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["camera", "dead", "capped", "random",
-                                  "tie", "two", "padding", "unpacked"])
+                                  "tie", "two", "padding", "unpacked",
+                                  "ball", "ball-random"])
 def test_mesh_kernel_matches_plain(cuda_dev, case):
     """csrc/mesh_hit.cu against mesh_closest_hit_plain on the same inputs:
     faces (and so hit masks) equal, t, front, ba and bb with max abs error

@@ -10,8 +10,12 @@ frame, on seeded random rays, on one ray per face and on one ray per face
 vertex.  Cases: the box scene, a ball whose faces are listed twice (ties
 across tiles), one ball instanced twice, a ball with degenerate faces
 (dropped from the immediates tables, empty-area faces of the slot's
-MeshTree).  Port only (no JAX); 32x24, icosphere balls of subdivision 1-3
-(80-1280 faces; the immediates tables take at most 512)."""
+MeshTree), and "ball": the box scene's ball at the largest size each table
+takes (the immediates' 320 faces; the MeshTree's 20,480 in 20 groups,
+whose face and vertex rays are a seeded 2048 of each).  The packed tables
+are byte for byte those of the table code frozen at 224dbd1.  Port only
+(no JAX); 32x24, icosphere balls of subdivision 1-5 (80-20,480 faces; the
+immediates tables take at most 512)."""
 import numpy as np
 import pytest
 import torch
@@ -21,17 +25,18 @@ from test_torch_common import (  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-CASES = ["box", "tie", "two", "degenerate"]
+CASES = ["box", "tie", "two", "degenerate", "ball"]
 # per table, the ball's subdivision of each case
-SUBDIV = {"imm": {"box": 2, "tie": 1, "two": 1, "degenerate": 2},
-          "hit": {"box": 3, "tie": 3, "two": 1, "degenerate": 2}}
+SUBDIV = {"imm": {"box": 2, "tie": 1, "two": 1, "degenerate": 2, "ball": 2},
+          "hit": {"box": 3, "tie": 3, "two": 1, "degenerate": 2, "ball": 5}}
+RAYS_PER_KIND = 2048     # face and vertex rays kept on the largest balls
 
 
 def _scene(table, case):
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
     sub = SUBDIV[table][case]
-    desc = box_scene(32, 24, mesh_subdiv=sub) if case == "box" \
+    desc = box_scene(32, 24, mesh_subdiv=sub) if case in ("box", "ball") \
         else mxu_walk_desc(case, 32, 24, sub)
     return build_scene(desc, device="cpu")
 
@@ -188,6 +193,11 @@ def _rays(scene, seed=0, n_random=2000):
     d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
     o_p, d_p = face_rays(scene, "cpu")
     o_v, d_v = vertex_rays(scene, "cpu", seed)
+    if o_p.shape[1] > 4 * RAYS_PER_KIND:     # the 20,480-face ball
+        keep = [torch.as_tensor(rng.permutation(x.shape[1])[:RAYS_PER_KIND])
+                for x in (o_p, o_v)]
+        o_p, d_p = o_p[:, keep[0]], d_p[:, keep[0]]
+        o_v, d_v = o_v[:, keep[1]], d_v[:, keep[1]]
     o = torch.cat([o_f, torch.as_tensor(o_r.T, dtype=torch.float32), o_p,
                    o_v], 1)
     d = torch.cat([d_f, torch.as_tensor(d_r.T, dtype=torch.float32), d_p,
@@ -290,3 +300,26 @@ def _tri_test_rows(faces, rows, lo3, ld3, hit):
     F = faces[rows]
     return _tri_test([F[:, c] for c in range(12)],
                      tuple(v[hit] for v in lo3), tuple(v[hit] for v in ld3))
+
+
+@pytest.mark.parametrize("table", ["imm", "hit"])
+@pytest.mark.parametrize("case", CASES)
+def test_packed_tables_unchanged(table, case):
+    """The packed tables against the table code frozen at 224dbd1
+    (rtbench/reference/frozen/ops/mxu_pack.py) on the same faces: groups,
+    tiles, leaves and root rows equal byte for byte, on slots of at most 8
+    groups and on the MeshTree's ball of 20."""
+    from rtbench.reference.frozen.ops import mxu_pack as old
+    from rtf_tpu_torch.ops import mxu_pack as new
+    scene = _scene(table, case)
+    boxes = []
+    for slot in range(len(scene.mesh.slot_faces)):
+        _, lo, hi = _slot_faces(table, scene, slot)
+        boxes.append((lo, hi))
+    got = new.walk_tables(new.packed_hierarchy(boxes))
+    want = old.walk_tables(old.packed_hierarchy(boxes))
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert sorted(got[3]) == sorted(want[3])
+    for slot, row in got[3].items():
+        assert row.tobytes() == want[3][slot].tobytes()

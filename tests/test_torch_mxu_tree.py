@@ -7,8 +7,11 @@ winner that the plain version picks (least t, then least key = rank * 128
 + column) lies inside its leaf, tile, group and root boxes with a slab
 entry below its t, on the rays of a small frame, on seeded random rays,
 on one ray per face and on one ray per face vertex (a hit on a box's face,
-where only the padding keeps the entry below t).  Port only (no JAX);
-32x24, 1280-face balls."""
+where only the padding keeps the entry below t).  The walk's tables are
+byte for byte those of the table code frozen at 224dbd1, and the pair and
+shade rows are the face rows' columns.  Port only (no JAX); 32x24,
+1280-face balls and the 20,480-face ball ("ball": 20 groups; its face and
+vertex rays a seeded 2048 of each)."""
 import numpy as np
 import pytest
 import torch
@@ -18,14 +21,15 @@ from test_torch_common import (  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-CASES = ["box", "tie", "twin", "two"]
+CASES = ["box", "tie", "twin", "two", "ball"]
+RAYS_PER_KIND = 2048     # face and vertex rays kept on the "ball"
 
 
 def _scene(case):
     from rtf_tpu_torch.scene.build import build_scene
     from rtf_tpu_torch.scene.procedural import box_scene
-    desc = box_scene(32, 24, mesh_subdiv=3) if case == "box" \
-        else mxu_walk_desc(case)
+    desc = box_scene(32, 24, mesh_subdiv={"box": 3, "ball": 5}[case]) \
+        if case in ("box", "ball") else mxu_walk_desc(case)
     return build_scene(desc, device="cpu")
 
 
@@ -156,6 +160,11 @@ def _rays(scene, seed=0, n_random=2000):
     d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
     o_p, d_p = face_rays(scene, "cpu")
     o_v, d_v = vertex_rays(scene, "cpu", seed)
+    if o_p.shape[1] > 4 * RAYS_PER_KIND:     # the ball: a seeded subset
+        keep = [torch.as_tensor(rng.permutation(x.shape[1])[:RAYS_PER_KIND])
+                for x in (o_p, o_v)]
+        o_p, d_p = o_p[:, keep[0]], d_p[:, keep[0]]
+        o_v, d_v = o_v[:, keep[1]], d_v[:, keep[1]]
     o = torch.cat([o_f, torch.as_tensor(o_r.T, dtype=torch.float32), o_p,
                    o_v], 1)
     d = torch.cat([d_f, torch.as_tensor(d_r.T, dtype=torch.float32), d_p,
@@ -250,3 +259,47 @@ def test_winner_inside_its_boxes(case):
     st = [torch.full((n,), W.BIG)] + [torch.zeros(n) for _ in range(7)]
     W._mesh_closest_mxu(h, o3, d3, st, False)
     assert torch.equal(st[0], best)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_walk_tables_unchanged(case):
+    """The walk's tables against the table code frozen at 224dbd1
+    (rtbench/reference/frozen/ops/mxu_pack.py) on the same mesh: groups,
+    tiles, leaves and root rows equal byte for byte, on slots of at most
+    8 groups and on the ball's slot of 20."""
+    from rtbench.reference.frozen.ops import mxu_pack as old
+    from rtf_tpu_torch.ops import mxu_pack as new
+    scene = _scene(case)
+    got = new.walk_tables(new.mesh_mxu_pack(scene.mesh))
+    want = old.walk_tables(old.mesh_mxu_pack(scene.mesh))
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert sorted(got[3]) == sorted(want[3])
+    for slot, row in got[3].items():
+        assert row.tobytes() == want[3][slot].tobytes()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pair_and_shade_rows_are_the_face_columns(case):
+    """The MXU tables' faces hold the pair test's columns of each face row
+    (0-21, then two zero columns: six float4 a face) and shade the rest
+    (columns 22-37 of ops/mxu_pack.py's rows), bit for bit, contiguous
+    and 16-byte aligned; the immediates tables have no shade rows."""
+    from rtf_tpu_torch.render.scene_tables import scene_tables
+    from rtf_tpu_torch.scene.build import build_scene
+    from rtf_tpu_torch.scene.procedural import box_scene
+    _, tab, pack = _tables(case)
+    rows = torch.as_tensor(pack["faces"])
+    assert tab.faces.shape == (rows.shape[0], 24)
+    assert tab.shade.shape == (rows.shape[0], 16)
+    for x in (tab.faces, tab.shade):
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+    assert torch.equal(tab.faces[:, 0:22].view(torch.int32),
+                       rows[:, 0:22].contiguous().view(torch.int32))
+    assert not tab.faces[:, 22:24].any()
+    assert torch.equal(tab.shade.view(torch.int32),
+                       rows[:, 22:38].contiguous().view(torch.int32))
+    imm = scene_tables(build_scene(box_scene(32, 24, mesh_subdiv=1),
+                                   device="cpu"))
+    assert not imm.mxu and tuple(imm.shade.shape) == (0, 16)
+    assert imm.faces.shape[1] == 40
