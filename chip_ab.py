@@ -70,14 +70,10 @@ launches are chip_smoke.py's, on the same inputs:
    flat (PR 6's launch takes a tile count), that kernel launched with no
    tiles (nt = 0: reading the rays and writing the outputs, its floor);
    then the frames of phases 3-7 through `render`.  The parent's wave
-   library is called through the change's wrapper with the change's
-   arguments; where its launch takes a tiles table (PR 6's layout: after
-   the roots) that table is put back, the change's tnodes columns 0-7
-   (padded box, first face, face count), which its flat walk reads, and
-   the arguments it does not take are dropped (those before the stream);
-   a parent whose MXU face rows are whole (its csrc/wave_kernel.cu
-   without SHADE_W) gets them back, the change's pair columns 0-21, its
-   shade rows and two zero columns: 40 floats a face.
+   library is launched by the parent's own render/wave.py (its `_launch`
+   behind the change's `wave`) on the change's tables; a parent whose MXU face rows are whole (its
+   csrc/wave_kernel.cu without SHADE_W) gets them back, the change's pair
+   columns 0-21, its shade rows and two zero columns: 40 floats a face.
    The parent's mesh_closest_hit(_rays) is its own ops/mesh_hit.py on its
    own library, with the change's arguments that it takes.
 
@@ -124,7 +120,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 W, H = 800, 600
-PARENT_TILES_ARG = 17      # the parent's (PR 6's) tiles pointer, after roots
 
 
 def fail(msg):
@@ -137,35 +132,15 @@ def check(ok, msg):
         fail(msg)
 
 
-class Lib:
-    """The parent's wave library behind the change's `_build.load` call:
-    its tiles pointer put back where its launch takes one, and the
-    change's arguments past its count dropped but the stream (the last)."""
-
-    def __init__(self, lib, nargs, tiles=None):
-        self.lib, self.nargs, self.tiles = lib, nargs, tiles
-
-    def rtf_wave_launch(self, *args):
-        if self.tiles is not None:
-            args = (args[:PARENT_TILES_ARG] + (self.tiles(),)
-                    + args[PARENT_TILES_ARG:])
-        return self.lib.rtf_wave_launch(*args[:self.nargs - 1], args[-1])
-
-    def rtf_error_string(self, code):
-        return self.lib.rtf_error_string(code)
-
-
 class NoOrder:
     """The change's wave library with the launch's block order scratch
-    (the argument before the stream) passed as null: no block_order pass,
-    the blocks in their own order."""
+    passed as None: no block_order pass, the blocks in their own order."""
 
     def __init__(self, lib):
         self.lib = lib
 
-    def rtf_wave_launch(self, *args):
-        return self.lib.rtf_wave_launch(*args[:-2], ctypes.c_void_p(0),
-                                        args[-1])
+    def rtf_wave_launch(self, args, textured, mxu, order, stream):
+        return self.lib.rtf_wave_launch(args, textured, mxu, None, stream)
 
     def rtf_error_string(self, code):
         return self.lib.rtf_error_string(code)
@@ -576,22 +551,16 @@ def main(argv):
             "unordered": {"wave": NoOrder(change_load("wave"))}}
     change_load("mesh_hit")
     PM = PX = None
+    # each side's render/wave.py::_launch, which the change's `wave` calls
+    wave_launch = {"change": W_._launch}
     flat_mesh = False    # the parent's mesh kernel walks its tiles flat
     whole_faces = False  # the parent's MXU face rows are 40 floats
     if parent is not None:
         whole_faces = "SHADE_W" not in (parent / "rtf_tpu_torch" / "csrc"
                                         / "wave_kernel.cu").read_text()
-        pw = pb.KERNELS["wave"][2]
-        # PR 6's launch: a tiles pointer after the roots, no scene staging
-        put_tiles = "tiles" in (parent / "rtf_tpu_torch" / "csrc"
-                                / "wave_kernel.cu").read_text().split(
-                                    "int rtf_wave_launch")[1].split("{")[0]
         libs["parent"] = {
-            "wave": Lib(bind(dlls["parent"], "rtf_wave_launch", pw), len(pw),
-                        (lambda: ctypes.c_void_p(cur["tiles"].data_ptr()
-                                                 if cur["tiles"].numel()
-                                                 else 0))
-                        if put_tiles else None),
+            "wave": bind(dlls["parent"], "rtf_wave_launch",
+                         pb.KERNELS["wave"][2]),
             "mesh_hit": bind(dlls["parent_mesh_hit"], "rtf_mesh_hit_launch",
                              pb.KERNELS["mesh_hit"][2]),
             "mesh_hit_mxu": bind(dlls["parent_mesh_hit_mxu"],
@@ -601,6 +570,9 @@ def main(argv):
                          / "ops" / "mesh_hit_mxu.py")
         PM = load_module("parent_mesh_hit",
                          parent / "rtf_tpu_torch" / "ops" / "mesh_hit.py")
+        wave_launch["parent"] = load_module(
+            "parent_wave", parent / "rtf_tpu_torch" / "render"
+            / "wave.py")._launch
         flat_mesh = "tree" not in inspect.signature(
             PM.mesh_closest_hit).parameters
 
@@ -630,6 +602,7 @@ def main(argv):
         got = libs[tag]
         _build.load = (lambda name="wave": got[name] if name in got
                        else change_load(name))
+        W_._launch = wave_launch[side]
         M_.mesh_closest_hit_rays = (parent_mesh_hit if tag == "parent"
                                     else change_mesh_hit)
         W_.scene_staged = ((lambda tables: False) if tag == "device memory"
@@ -801,12 +774,8 @@ def main(argv):
     }
     tabs["change"] = {k: scene_tables(s) for k, s in scenes.items()}
     if parent is not None:
-        # the parent's immediates walk reads [T, 8] tile rows: box, first
-        # face, face count
         tabs["parent"] = dict(tabs["change"])
         for k, tab in tabs["change"].items():
-            if not tab.mxu and not hasattr(tab, "tiles"):
-                tabs["parent"]["tiles/" + k] = tab.tnodes[:, 0:8].contiguous()
             if tab.mxu and whole_faces:
                 f = tab.faces
                 tabs["parent"][k] = dataclasses.replace(tab, faces=torch.cat(
@@ -816,8 +785,7 @@ def main(argv):
             for k in ("hybrid", "hybrid_mxu")}
 
     def cur_tab(key):
-        """The current side's tables of `key`, and the parent's tiles."""
-        cur["tiles"] = cur.get("tiles/" + key, torch.zeros(0, device=dev))
+        """The current side's tables of `key`."""
         return cur[key]
 
     launches = {}     # name: (fn(**kw), lanes, group, rows in, rows out)

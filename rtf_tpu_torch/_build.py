@@ -7,6 +7,14 @@ the shared headers (csrc/*.cuh) and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  `build()` starts one nvcc
 per source, all at once.
 
+This module is the port's one boundary to compiled code.  `launch` makes
+every kernel call (the device, the current stream, tensors as pointers,
+a failed launch as RuntimeError); `check_tables` holds a kernel's tables
+to what it reads in place, once, where they are built; `check_stats` the
+work counters a launch is handed.  The wave kernel takes its inputs as
+one struct, csrc/wave_kernel.cu's `Args`, mirrored here as `WaveArgs`
+(the other launch functions are short enough to take them positionally).
+
   wave          csrc/wave_kernel.cu   rtf_wave_launch     (render/wave.py)
   mesh_hit      csrc/mesh_hit.cu      rtf_mesh_hit_launch (ops/mesh_hit.py)
   mesh_hit_mxu  csrc/mesh_hit_mxu.cu  rtf_mesh_hit_mxu_launch
@@ -28,6 +36,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 ROOT = Path(__file__).resolve().parent
 BUILD_DIR = ROOT.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,24 +46,36 @@ HOST_SOURCE = ROOT / "native" / "bvh_builder.cpp"
 HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class WaveArgs(ctypes.Structure):
+    """csrc/wave_kernel.cu's `struct Args`, field by field: one launch's
+    inputs, which render/wave.py fills by name and rtf_wave_launch takes by
+    pointer (see that struct for each field)."""
+    _fields_ = [
+        ("rays", _P), ("has_state", _I), ("out", _P), ("surf_out", _I),
+        ("gi_from", _I), ("stats", _P), ("n", _I),
+        ("seed", ctypes.c_uint32), ("blk0", ctypes.c_uint32),
+        ("nbounce", _I),
+        ("spheres", _P), ("ns", _I), ("planes", _P), ("np", _I),
+        ("insts", _P), ("ni", _I),
+        ("roots", _P), ("faces", _P), ("groups", _P), ("ng", _I),
+        ("tnodes", _P), ("leaves", _P), ("shade", _P), ("order", _P),
+        ("staged", _I), ("scene_staged", _I), ("stats_blocks", _I),
+        ("mats", _P), ("lights", _P), ("nl", _I),
+        ("texmaps", _P), ("textures", _P), ("atlas", _P), ("atlas_w", _I),
+        ("env_tm", _I), ("env_l2", _I), ("env", _F * 3), ("coef", _F),
+        ("inverse_square", _I), ("env_on_reflect_miss", _I),
+        ("tot_thr", _F), ("col_thr", _F),
+        ("shadow_max", _I), ("shadow_min", _I),
+        ("need_uv", _I), ("has_gloss", _I)]
+
+
 # per library: its source, its launch function and that function's argtypes
 KERNELS = {
     "wave": ("wave_kernel.cu", "rtf_wave_launch", [
-        _P, _I, _P, _I, _I,      # rays, has_state, out, surf_out, gi_from
-        _P, _I,                  # stats, n
-        _I, _I, _I,              # seed, blk0, nbounce
-        _P, _I, _P, _I, _P, _I,  # spheres, ns, planes, np, insts, ni
-        _P, _P, _P, _P, _I,      # roots, faces, mats, lights, nl
-        _P, _P, _P, _I,          # texmaps, textures, atlas, atlas_w
-        _I, _I, _I,              # env_tm, env_l2, textured
-        _F, _F, _F,              # env rgb
-        _F, _I, _I, _F, _F,      # coef, inv-square, env-on-reflect, thr x2
-        _I, _I, _I, _I, _I,      # shadow max/min, need_uv, has_gloss, mxu
-        _P, _I, _P, _P,          # groups, ng, tnodes, leaves
-        _I, _I,                  # roots and groups staged, block cycles
-        _I,                      # scene tables staged
-        _P, _P,                  # shade rows, block order scratch
-        _P]),                    # stream
+        ctypes.POINTER(WaveArgs), _I, _I,  # args, textured, mxu
+        _P, _P]),                # block order scratch, stream
     "mesh_hit": ("mesh_hit.cu", "rtf_mesh_hit_launch", [
         _P, _P, _I, _P, _I, _I,  # origins, directions, their row stride,
                                  # t_init, its stride, n
@@ -150,7 +172,8 @@ def build() -> dict:
 
 
 def load(name: str = "wave"):
-    """The kernel library `name`, built on first use."""
+    """The kernel library `name`, built on first use.  A wave library whose
+    `struct Args` has another size than WaveArgs raises RuntimeError."""
     if name not in _LIBS:
         if not library_path(name).exists():
             build()
@@ -161,12 +184,65 @@ def load(name: str = "wave"):
             getattr(lib, f).restype = ctypes.c_int
         lib.rtf_error_string.argtypes = [ctypes.c_int]
         lib.rtf_error_string.restype = ctypes.c_char_p
+        if name == "wave" and lib.rtf_wave_args_size() != ctypes.sizeof(
+                WaveArgs):
+            raise RuntimeError(
+                f"{library_path(name)}: struct Args takes "
+                f"{lib.rtf_wave_args_size()} bytes, its mirror WaveArgs "
+                f"{ctypes.sizeof(WaveArgs)}")
         _LIBS[name] = lib
     return _LIBS[name]
 
 
-def error_string(code: int, name: str = "wave") -> str:
-    return load(name).rtf_error_string(code).decode()
+def pointer(x) -> int:
+    """A tensor's data pointer for a kernel; None or an empty tensor is
+    NULL (the kernels read no table that is empty)."""
+    return x.data_ptr() if x is not None and x.numel() else 0
+
+
+def launch(name: str, fn: str, dev, *args):
+    """Call the launch function `fn` of the kernel library `name` on the
+    current stream of the CUDA device `dev`: each tensor or None of `args`
+    passed as its `pointer`, the rest as they are, the stream last.  A
+    nonzero return raises RuntimeError with the library's error string."""
+    lib = load(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(
+            *(pointer(a) if a is None or isinstance(a, torch.Tensor) else a
+              for a in args), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: "
+                           f"{lib.rtf_error_string(rc).decode()} ({rc})")
+
+
+def check_stats(owner: str, stats, nstat: int, dev):
+    """Refuse (ValueError) a work-counter tensor that is not int64 with at
+    least `nstat` entries on `dev`; None (no counting) passes."""
+    if stats is not None and (stats.device != dev
+                              or stats.dtype != torch.int64
+                              or stats.numel() < nstat):
+        raise ValueError(f"{owner}: stats must be an int64 [{nstat}] tensor "
+                         f"on {dev}")
+
+
+def check_tables(owner: str, tables: dict, int32=()):
+    """What a kernel needs of the tables it reads in place, checked once by
+    their constructor: every tensor of `tables` ({name: tensor or None})
+    float32 (int32 where its name is in `int32`), contiguous, on one
+    device, and its data 16-byte aligned (the kernels read rows as float4;
+    an empty table is passed as NULL).  Raises ValueError."""
+    dev = None
+    for name, x in tables.items():
+        if x is None:
+            continue
+        dev = x.device if dev is None else dev
+        dtype = torch.int32 if name in int32 else torch.float32
+        if x.dtype != dtype or x.device != dev or not x.is_contiguous() \
+                or pointer(x) % 16:
+            raise ValueError(f"{owner}: the {name} table must be a "
+                             f"contiguous 16-byte aligned {dtype} tensor on "
+                             f"{dev}")
 
 
 def cxx() -> str:

@@ -175,6 +175,9 @@ enum Stat {
                          // longest lane) follow at 26 + block
 };
 
+// One launch's inputs, what the kernels receive by value.  rtf_wave_launch
+// takes a pointer to them; the host fills their mirror, _build.py::
+// WaveArgs, by field name, and its fields follow these one by one.
 struct Args {
   const float* rays;   // [7, n]: o xyz, d xyz, alive; with has_state
                        // [14, n]: + tput rgb, absorb rgb, ray type
@@ -1067,73 +1070,25 @@ cudaError_t launch(int blocks, size_t smem, cudaStream_t st,
 
 extern "C" {
 
-int rtf_wave_launch(const float* rays, int has_state, float* out,
-                    int surf_out, int gi_from, long long* stats, int n,
-                    int seed, int blk0, int nbounce,
-                    const float* spheres, int ns, const float* planes,
-                    int np, const float* insts, int ni, const float* roots,
-                    const float* faces, const float* mats,
-                    const float* lights, int nl, const float* texmaps,
-                    const float* textures, const float* atlas, int atlas_w,
-                    int env_tm, int env_l2, int textured, float env_r,
-                    float env_g, float env_b, float coef, int inverse_square,
-                    int env_on_reflect_miss, float tot_thr, float col_thr,
-                    int shadow_max, int shadow_min, int need_uv,
-                    int has_gloss, int mxu, const float* groups, int ng,
-                    const float* tnodes, const float* leaves,
-                    int staged, int stats_blocks, int scene_staged,
-                    const float* shade, int* order, void* stream) {
+// _build.load refuses a library whose Args has another size than its mirror
+int rtf_wave_args_size() { return (int)sizeof(Args); }
+
+// args points to an Args; its type stays in the kernels' unnamed
+// namespace, where a C++ signature would give this entry internal linkage
+int rtf_wave_launch(const void* args, int textured, int mxu, int* order,
+                    void* stream) {
+  Args A = *static_cast<const Args*>(args);
+  const int n = A.n;
   if (n <= 0) return 0;
-  Args A;
-  A.rays = rays;
-  A.has_state = has_state;
-  A.out = out;
-  A.surf_out = surf_out;
-  A.gi_from = gi_from;
-  A.stats = reinterpret_cast<unsigned long long*>(stats);
-  A.n = n;
-  A.seed = (uint32_t)seed;
-  A.blk0 = (uint32_t)blk0;
-  A.nbounce = nbounce;
-  A.spheres = spheres; A.ns = ns;
-  A.planes = planes; A.np = np;
-  A.insts = insts; A.ni = ni;
-  A.roots = roots;
-  A.faces = faces;
-  A.mats = mats;
-  A.lights = lights; A.nl = nl;
-  A.texmaps = texmaps;
-  A.textures = textures;
-  A.atlas = reinterpret_cast<const float4*>(atlas);
-  A.atlas_w = atlas_w;
-  A.env_tm = env_tm;
-  A.env_l2 = env_l2;
-  A.env[0] = env_r; A.env[1] = env_g; A.env[2] = env_b;
-  A.coef = coef;
-  A.inverse_square = inverse_square;
-  A.env_on_reflect_miss = env_on_reflect_miss;
-  A.tot_thr = tot_thr;
-  A.col_thr = col_thr;
-  A.shadow_max = shadow_max;
-  A.shadow_min = shadow_min;
-  A.need_uv = need_uv;
-  A.has_gloss = has_gloss;
-  A.groups = groups; A.ng = ng;
-  A.tnodes = tnodes;
-  A.leaves = leaves;
-  A.shade = shade;
   A.order = nullptr;
-  A.staged = staged;
-  A.scene_staged = scene_staged;
-  A.stats_blocks = stats_blocks;
   int blocks = (n + THREADS - 1) / THREADS;
-  const bool gi = has_state || surf_out || gi_from >= 0;
+  const bool gi = A.has_state || A.surf_out || A.gi_from >= 0;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem =
-      (A.staged ? sizeof(float) * (boxwalk::ROOT_W * ni
-                                   + boxwalk::NODE_W * ng) : 0)
-      + (A.scene_staged ? sizeof(float) * (INST_W * (ns + np + ni)
-                                           + LIGHT_W * nl) : 0);
+      (A.staged ? sizeof(float) * (boxwalk::ROOT_W * A.ni
+                                   + boxwalk::NODE_W * A.ng) : 0)
+      + (A.scene_staged ? sizeof(float) * (INST_W * (A.ns + A.np + A.ni)
+                                           + LIGHT_W * A.nl) : 0);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (mxu && order) {

@@ -48,12 +48,12 @@ root) and each ray's sequence of tests does not depend on the other rays.
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from rtf_tpu_torch import _build
 from rtf_tpu_torch.ops.intersect import (
     ZERO, intersect_box_enter, intersect_triangle, triangle_face)
 from rtf_tpu_torch.utils import tracing
@@ -97,6 +97,11 @@ class BvhWalk:
     face_rows: torch.Tensor = None
     wide_root: dict = None
     stack: int = 0
+
+    def __post_init__(self):
+        _build.check_tables("BvhWalk", {
+            k: getattr(self, k)
+            for k in ("nodes", "leaf_tris", "wnodes", "face_rows")})
 
 
 def tree_levels(child: np.ndarray, root: int) -> int:
@@ -235,36 +240,34 @@ def build_walk(mesh, walk=None) -> BvhWalk:
     levels = max(tree_levels(child, r) for r in roots)
     if walk is None:
         walk = "binary" if levels > mesh.max_depth - 2 else "wide"
-    out = BvhWalk(walk=walk, roots=roots, levels=levels,
-                  max_depth=int(mesh.max_depth))
+    head = dict(walk=walk, roots=roots, levels=levels,
+                max_depth=int(mesh.max_depth))
     dev = mesh.bvh_min.device
     f = mesh.bvh_elems.to(torch.int64)
     if walk == "binary":
         n_test = torch.clamp(mesh.bvh_ecnt, max=mesh.max_leaf)
         leaf = mesh.bvh_eoff * 256 + n_test
-        out.nodes = torch.cat(
+        zero = torch.zeros((f.shape[0], 1), dtype=torch.float32, device=dev)
+        return BvhWalk(**head, nodes=torch.cat(
             [mesh.bvh_min, mesh.bvh_child[:, None].view(torch.float32),
              mesh.bvh_max, leaf.to(torch.int32)[:, None].view(torch.float32)],
-            dim=1).contiguous()
-        zero = torch.zeros((f.shape[0], 1), dtype=torch.float32, device=dev)
-        out.leaf_tris = torch.cat([mesh.tri_a[f], mesh.bvh_elems[:, None]
-                                   .view(torch.float32), mesh.tri_b[f], zero,
-                                   mesh.tri_c[f], zero], dim=1).contiguous()
-        return out
+            dim=1).contiguous(), leaf_tris=torch.cat(
+            [mesh.tri_a[f], mesh.bvh_elems[:, None].view(torch.float32),
+             mesh.tri_b[f], zero, mesh.tri_c[f], zero], dim=1).contiguous())
     if walk != "wide":
         raise ValueError(f"bvh_closest_hit: no walk {walk!r}")
-    wn, out.wide_root, out.stack, _ = collapse(
+    wn, wide_root, stack, _ = collapse(
         child, mesh.bvh_min.cpu().numpy(), mesh.bvh_max.cpu().numpy(),
         mesh.bvh_eoff.cpu().numpy(), mesh.bvh_ecnt.cpu().numpy(),
         int(mesh.max_leaf), roots)
-    if out.stack > LOCAL_STACK:
+    if stack > LOCAL_STACK:
         raise ValueError(f"bvh_closest_hit: the wide walk needs a stack of "
-                         f"{out.stack} entries, the kernel's holds "
+                         f"{stack} entries, the kernel's holds "
                          f"{LOCAL_STACK}")
-    out.wnodes = torch.as_tensor(wn, device=dev)
-    out.face_rows = face_rows(mesh.tri_a[f], mesh.tri_b[f], mesh.tri_c[f],
-                              mesh.bvh_elems)
-    return out
+    return BvhWalk(**head, wnodes=torch.as_tensor(wn, device=dev),
+                   face_rows=face_rows(mesh.tri_a[f], mesh.tri_b[f],
+                                       mesh.tri_c[f], mesh.bvh_elems),
+                   wide_root=wide_root, stack=stack)
 
 
 def bvh_walk(mesh) -> BvhWalk:
@@ -530,45 +533,21 @@ def launch_walk(walk: BvhWalk, root, o, d, t_init, stats=None):
         raise ValueError("bvh_closest_hit: o and d must be [N, 3] rows of "
                          "one stride, unit column stride, and t_init [N]")
     wide = walk.walk == "wide"
-    tables = ("wnodes", "face_rows") if wide else ("nodes", "leaf_tris")
-    for name in tables:
-        x = getattr(walk, name)
-        if x.device != dev or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"bvh_closest_hit: the BVH's {name} must be "
-                             f"contiguous and 16-byte aligned on {dev}")
+    fn, tree = ("rtf_bvh_wide_launch", (
+        walk.wnodes, walk.face_rows, walk.wide_root.get(int(root)),
+        walk.stack)) if wide else ("rtf_bvh_hit_launch", (
+            walk.nodes, walk.leaf_tris, int(root), walk.max_depth))
+    if tree[0].device != dev:
+        raise ValueError(f"bvh_closest_hit: the BVH lives on "
+                         f"{tree[0].device}, the rays on {dev}")
     if int(root) not in walk.roots:
         raise ValueError(f"bvh_closest_hit: node {root} is no slot's root")
-    if stats is not None and (stats.device != dev
-                              or stats.dtype != torch.int64
-                              or stats.numel() < NSTAT):
-        raise ValueError(f"bvh_closest_hit: stats must be an int64 "
-                         f"[{NSTAT}] tensor on {dev}")
-    from rtf_tpu_torch import _build
-    lib = _build.load("bvh_hit")
+    _build.check_stats("bvh_closest_hit", stats, NSTAT, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     front, ba, bb = (torch.empty_like(t) for _ in range(3))
-
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr())
-    st = ctypes.c_void_p(0) if stats is None else ptr(stats)
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if wide:
-            rc = lib.rtf_bvh_wide_launch(
-                ptr(o), ptr(d), o.stride(0), ptr(t_init), t_init.stride(0),
-                n, ptr(walk.wnodes), ptr(walk.face_rows),
-                walk.wide_root[int(root)], walk.stack, ptr(t), ptr(face),
-                ptr(front), ptr(ba), ptr(bb), st, stream)
-        else:
-            rc = lib.rtf_bvh_hit_launch(
-                ptr(o), ptr(d), o.stride(0), ptr(t_init), t_init.stride(0),
-                n, ptr(walk.nodes), ptr(walk.leaf_tris), int(root),
-                walk.max_depth, ptr(t), ptr(face), ptr(front), ptr(ba),
-                ptr(bb), st, stream)
-    if rc != 0:
-        raise RuntimeError(f"bvh_closest_hit kernel launch failed: "
-                           f"{_build.error_string(rc, 'bvh_hit')} ({rc})")
+    _build.launch("bvh_hit", fn, dev, o, d, o.stride(0), t_init,
+                  t_init.stride(0), n, *tree, t, face, front, ba, bb, stats)
     tracing.count("launches.bvh_closest_hit" if wide
                   else "launches.bvh_closest_hit.binary")
     return t, face, front, ba, bb

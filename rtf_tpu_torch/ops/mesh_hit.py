@@ -20,12 +20,12 @@ ops/trace.py calls).
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from rtf_tpu_torch import _build
 from rtf_tpu_torch.ops.mxu_pack import packed_hierarchy, walk_tables
 from rtf_tpu_torch.ops.pack import DZ_EPS, TRI_LANES, ZERO
 from rtf_tpu_torch.utils import tracing
@@ -58,6 +58,13 @@ class MeshTree:
     leaves: torch.Tensor
     face_base: tuple
     face_rows: tuple
+
+    def __post_init__(self):
+        _build.check_tables("MeshTree", {
+            k: getattr(self, k)
+            for k in ("faces", "roots", "groups", "tnodes", "leaves")})
+        if self.faces.dim() != 2 or self.faces.shape[1] != 12:
+            raise ValueError("MeshTree: faces must be [F_pad, 12]")
 
 
 def mesh_tree(tri_packed, slot_pack, slot_faces, device) -> MeshTree:
@@ -224,42 +231,19 @@ def _launch(o, d, t_init, face0, stats, tree, slot):
             or tuple(t_init.shape) != (n,):
         raise ValueError("mesh_closest_hit: o and d must be [N, 3] rows of "
                          "one stride, unit column stride, and t_init [N]")
-    for name in ("faces", "roots", "groups", "tnodes", "leaves"):
-        x = getattr(tree, name)
-        if x.device != dev or x.dtype != torch.float32 or x.dim() != 2 \
-                or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"mesh_closest_hit: the tree's {name} must be "
-                             f"a contiguous 16-byte aligned 2-D float32 "
-                             f"tensor on {dev}")
-    if tree.faces.shape[1] != 12:
-        raise ValueError("mesh_closest_hit: the tree's faces must be "
-                         "[F_pad, 12]")
-    if stats is not None and (stats.device != dev
-                              or stats.dtype != torch.int64
-                              or stats.numel() < NSTAT):
-        raise ValueError(f"mesh_closest_hit: stats must be an int64 "
-                         f"[{NSTAT}] tensor on {dev}")
-    from rtf_tpu_torch import _build
-    lib = _build.load("mesh_hit")
+    if tree.faces.device != dev:
+        raise ValueError(f"mesh_closest_hit: the tree lives on "
+                         f"{tree.faces.device}, the rays on {dev}")
+    _build.check_stats("mesh_closest_hit", stats, NSTAT, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     front, ba, bb = (torch.empty_like(t) for _ in range(3))
     base, rows = tree.face_base[slot], tree.face_rows[slot]
-
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rtf_mesh_hit_launch(
-            ptr(o), ptr(d), o.stride(0), ptr(t_init), t_init.stride(0), n,
-            ptr(tree.faces[base:base + rows]), rows,
-            int(rows * 12 * 4 <= SMEM_BYTES), ptr(tree.roots[slot]),
-            ptr(tree.groups), ptr(tree.tnodes), ptr(tree.leaves), base,
-            int(face0), ptr(t), ptr(face), ptr(front), ptr(ba), ptr(bb),
-            ctypes.c_void_p(0) if stats is None else ptr(stats),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"mesh_closest_hit kernel launch failed: "
-                           f"{_build.error_string(rc, 'mesh_hit')} ({rc})")
+    _build.launch("mesh_hit", "rtf_mesh_hit_launch", dev,
+                  o, d, o.stride(0), t_init, t_init.stride(0), n,
+                  tree.faces[base:base + rows], rows,
+                  int(rows * 12 * 4 <= SMEM_BYTES), tree.roots[slot],
+                  tree.groups, tree.tnodes, tree.leaves, base, int(face0),
+                  t, face, front, ba, bb, stats)
     tracing.count("launches.mesh_closest_hit")
     return t, face, front, ba, bb

@@ -22,13 +22,13 @@ its filter in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
-import ctypes
 import weakref
-from typing import NamedTuple
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from rtf_tpu_torch import _build
 from rtf_tpu_torch.ops.mxu_pack import plucker_bary, plucker_pair
 from rtf_tpu_torch.ops.pack import ZERO
 from rtf_tpu_torch.utils import tracing
@@ -111,7 +111,8 @@ def _matrix_cols(trim: torch.Tensor):
     return cols
 
 
-class FacePack(NamedTuple):
+@dataclass(frozen=True)
+class FacePack:
     """The kernel's face tables, packed from the matrix by `pack_faces`:
     frags [G, 192] float32, G groups of 8 faces (G * 8 the faces rounded
     up to whole STAGE_FACES) as mma.sync.m16n8k8 TF32 B fragments: per
@@ -130,6 +131,11 @@ class FacePack(NamedTuple):
     rows: torch.Tensor
     fmap: torch.Tensor
     exps: torch.Tensor
+
+    def __post_init__(self):
+        _build.check_tables("FacePack", {
+            "frags": self.frags, "rows": self.rows, "fmap": self.fmap},
+            int32=("fmap",))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -308,32 +314,15 @@ def mesh_closest_hit_mxu(rays16: torch.Tensor, trim: torch.Tensor,
     if trim.shape[1] != 16 or trim.shape[2] % 5:
         raise ValueError("mesh_closest_hit_mxu: trim must be "
                          "[n_tiles, 16, 5 * tile]")
-    if stats is not None and (stats.device != dev
-                              or stats.dtype != torch.int64
-                              or stats.numel() < NSTAT):
-        raise ValueError(f"mesh_closest_hit_mxu: stats must be an int64 "
-                         f"[{NSTAT}] tensor on {dev}")
-    from rtf_tpu_torch import _build
-    lib = _build.load("mesh_hit_mxu")
+    _build.check_stats("mesh_closest_hit_mxu", stats, NSTAT, dev)
     pack = _face_pack(trim)
     n = rays16.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     front, ba, bb = (torch.empty_like(t) for _ in range(3))
-
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rtf_mesh_hit_mxu_launch(
-            ptr(rays16), n, ptr(pack.frags), ptr(pack.rows), ptr(pack.fmap),
-            pack.rows.shape[0], int(face0), ptr(t), ptr(face), ptr(front),
-            ptr(ba), ptr(bb),
-            ctypes.c_void_p(0) if stats is None else ptr(stats),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"mesh_closest_hit_mxu kernel launch failed: "
-            f"{_build.error_string(rc, 'mesh_hit_mxu')} ({rc})")
+    _build.launch("mesh_hit_mxu", "rtf_mesh_hit_mxu_launch", dev,
+                  rays16, n, pack.frags, pack.rows, pack.fmap,
+                  pack.rows.shape[0], int(face0), t, face, front, ba, bb,
+                  stats)
     tracing.count("launches.mesh_closest_hit_mxu")
     return t, face, front, ba, bb

@@ -13,22 +13,20 @@ CPU rank) each:
   j % n_spp, and sum their accumulators before every variance decision
   (render/renderer.py::adaptive_ladder).
 
-The scene and its tables are replicated: every rank builds its own.  The
-only collectives are the spp group's sums and the final gather over the
-tile group.  Start the processes with parallel/distributed.py::
-init_multihost first.
+The scene and its tables are replicated: every rank holds its own (built
+by the rank, or handed in as `render` takes them).  The only collectives
+are the spp group's sums and the final gather over the tile group.  Start
+the processes with parallel/distributed.py::init_multihost first.
 """
 from __future__ import annotations
 
 import torch
 from torch import distributed as dist
 
-from rtf_tpu_torch.render.camera import pixel_order
-from rtf_tpu_torch.render.renderer import (
-    _prepare, adaptive_ladder, lanes_to_pixels,
-)
+from rtf_tpu_torch.render.renderer import _frame, lanes_to_pixels
 from rtf_tpu_torch.render.wave import BLOCK
 from rtf_tpu_torch.scene.build import resolve_device
+from rtf_tpu_torch.utils import tracing
 
 
 def make_mesh(n_tile: int = None, n_spp: int = 1, device_type="cuda"):
@@ -45,44 +43,46 @@ def make_mesh(n_tile: int = None, n_spp: int = 1, device_type="cuda"):
 
 
 def render_sharded(scene, cfg, mesh, seed: int = 0, fused: bool = None,
-                   gi_grid=None, caustic_grid=None, device="cuda"):
+                   gi_grid=None, caustic_grid=None, device="cuda",
+                   tables=None):
     """The full adaptive render, sharded over `mesh` (`make_mesh`).
     Returns (rad [3,P], hits [P], z [P], nsamples [P]) in pixel-id order
     on `device`, the same on every rank: the contract of
     render/renderer.py::render_device_host and of rtf_tpu's
-    render_sharded.
+    render_sharded, and its frame: the same prologue and spans (rtf.frame,
+    rtf.prepare, rtf.wave, rtf.finalize around the gathered lanes).
 
     fused: None takes the path `render` takes (render_path), True the
     wave kernel (ValueError where its gate refuses the scene), False the
     wavefront.  gi_grid and caustic_grid follow `render`'s conventions; on
     the fused path with cfg.photon_volume they are baked into volumes, as
-    rtf_tpu's render_sharded does (parallel/mesh.py:103-117).  On the
-    fused path a tile's first 1024-lane block, blk0, is its rank times the
+    rtf_tpu's render_sharded does (parallel/mesh.py:103-117).  tables:
+    the scene's tables on `device` (render/scene_tables.py), reused as
+    `render` reuses them; without, the rank builds them.  On the fused
+    path a tile's first 1024-lane block, blk0, is its rank times the
     blocks a tile has, so the kernel's random streams are those of the
     single-device frame where a tile's lane count is a multiple of 1024.
     """
-    dev = resolve_device(device)
-    w, h = scene.width, scene.height
-    num_px = w * h
+    num_px = scene.width * scene.height
     n_tile, n_spp = mesh["tile"].size(), mesh["spp"].size()
     if num_px % n_tile:
         raise ValueError(f"{num_px} pixels do not divide into {n_tile} "
                          f"tiles")
     tile, spp = mesh.get_local_rank("tile"), mesh.get_local_rank("spp")
-    path = None if fused is None else ("fused" if fused else "wavefront")
-    scene, tables, seed, path, gi_map, caustic = _prepare(
-        scene, cfg, seed, dev, None, gi_grid, caustic_grid, path)
-    order = torch.as_tensor(pixel_order(w, h), device=dev).to(torch.int64)
     per = num_px // n_tile
-    acc = adaptive_ladder(
-        scene, cfg, tables, order[tile * per:(tile + 1) * per], seed,
-        gi_map, caustic, wavefront=path == "wavefront", spp_rank=spp,
-        n_spp=n_spp, group=mesh.get_group("spp"),
-        blk0=tile * -(-per // BLOCK))
-    tile_group = mesh.get_group("tile")
-    full = []
-    for x in acc:
-        parts = [torch.empty_like(x) for _ in range(n_tile)]
-        dist.all_gather(parts, x.contiguous(), group=tile_group)
-        full.append(torch.cat(parts, dim=-1))
-    return lanes_to_pixels(*full, order)
+    with tracing.span(tracing.FRAME, width=scene.width,
+                      height=scene.height) as sp:
+        _, _, acc, order = _frame(
+            sp, scene, cfg, seed, resolve_device(device), tables, gi_grid,
+            caustic_grid, None if fused is None
+            else ("fused" if fused else "wavefront"),
+            slice(tile * per, (tile + 1) * per), spp_rank=spp, n_spp=n_spp,
+            group=mesh.get_group("spp"), blk0=tile * -(-per // BLOCK))
+        tile_group = mesh.get_group("tile")
+        full = []
+        for x in acc:
+            parts = [torch.empty_like(x) for _ in range(n_tile)]
+            dist.all_gather(parts, x.contiguous(), group=tile_group)
+            full.append(torch.cat(parts, dim=-1))
+        with tracing.span(tracing.FINALIZE):
+            return lanes_to_pixels(*full, order)

@@ -401,19 +401,22 @@ def _prepare(scene: Scene, cfg: RenderConfig, seed, dev: torch.device,
 
 def _frame(frame_span, scene: Scene, cfg: RenderConfig, seed,
            dev: torch.device, tables: WaveTables, gi_grid, caustic_grid,
-           sample_base: int = 0, progress_cb=None):
-    """One frame's accumulators in lane space (`render_device_host`), with
-    the scene on `dev` and its tables: (scene, tables, (rad, hits, z,
-    nsamples), order); the path goes on frame_span."""
+           path=None, lanes=slice(None), **ladder):
+    """One frame's accumulators in lane space, with the scene on `dev` and
+    its tables: (scene, tables, (rad, hits, z, nsamples), order).  The
+    prologue of every frame (`render`, `render_device_host`,
+    parallel/mesh.py::render_sharded) is the span rtf.prepare; the path
+    (`_prepare`'s) goes on frame_span.  The ladder renders the lanes
+    order[lanes] (a sharded frame's tile) with `ladder`'s arguments of
+    `adaptive_ladder`."""
     with tracing.span(tracing.PREPARE):
         scene, tables, seed, path, gi_map, caustic = _prepare(
-            scene, cfg, seed, dev, tables, gi_grid, caustic_grid)
+            scene, cfg, seed, dev, tables, gi_grid, caustic_grid, path)
         order = torch.as_tensor(pixel_order(scene.width, scene.height),
                                 device=dev).to(torch.int64)
     frame_span.set(path=path)
-    acc = adaptive_ladder(scene, cfg, tables, order, seed, gi_map, caustic,
-                          wavefront=path == "wavefront",
-                          sample_base=sample_base, progress_cb=progress_cb)
+    acc = adaptive_ladder(scene, cfg, tables, order[lanes], seed, gi_map,
+                          caustic, wavefront=path == "wavefront", **ladder)
     return scene, tables, acc, order
 
 
@@ -438,7 +441,8 @@ def render_device_host(scene: Scene, cfg: RenderConfig, seed=None,
                       height=scene.height) as sp:
         _, _, acc, order = _frame(sp, scene, cfg, seed,
                                   resolve_device(device), tables, gi_grid,
-                                  caustic_grid, sample_base, progress_cb)
+                                  caustic_grid, sample_base=sample_base,
+                                  progress_cb=progress_cb)
         with tracing.span(tracing.FINALIZE):
             return lanes_to_pixels(*acc, order)
 

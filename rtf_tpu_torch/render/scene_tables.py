@@ -73,11 +73,12 @@ face at exactly the lane's best t keeps a slab entry below that t.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
+from rtf_tpu_torch import _build
 from rtf_tpu_torch.gi.volume import IrradianceVolume
 from rtf_tpu_torch.ops.mxu_pack import (  # noqa: F401 (TILE_PAD)
     MXU_TILE, NODE_W, TILE_PAD, mesh_mxu_pack, packed_hierarchy,
@@ -176,8 +177,12 @@ def render_path(scene: Scene, cfg, caustic=None):
     return None, f"fused: {why}; wavefront: {wf}"
 
 
-@dataclass
+@dataclass(frozen=True)
 class WaveTables:
+    """The wave kernel's tables (the layouts above) and the statics it is
+    launched with.  Built by `scene_tables`; every table is checked where
+    it is built (`__post_init__`, also on `dataclasses.replace`), and the
+    tables cannot be swapped after."""
     spheres: torch.Tensor     # [S, 24]
     planes: torch.Tensor      # [P, 24]
     mesh_insts: torch.Tensor  # [I, 24]
@@ -204,6 +209,11 @@ class WaveTables:
     # (lo3, hi3) as Python floats, what fused.py's scene_consts gives
     # _gi_mesh_perm
     mesh_bounds: tuple = ()
+
+    def __post_init__(self):
+        _build.check_tables("WaveTables", {
+            f.name: getattr(self, f.name) for f in fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
     @property
     def textured(self) -> bool:

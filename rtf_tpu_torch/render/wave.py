@@ -37,6 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
+from rtf_tpu_torch import _build
 from rtf_tpu_torch.ops.mesh_hit import _tri_test
 from rtf_tpu_torch.ops.mxu_pack import (
     MXU_TILE, cross_od, plucker_bary, plucker_pair,
@@ -934,29 +935,14 @@ def wave(cfg, tables: WaveTables, o3, d3, alive, seed, bounces=None,
 
 def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
             absorb3, rtype, surf_out, gi_from, stats):
-    """`wave`'s launch of csrc/wave_kernel.cu on CUDA tensors."""
-    from rtf_tpu_torch import _build
-    lib = _build.load()
+    """`wave`'s launch of csrc/wave_kernel.cu on CUDA tensors (the tables
+    were checked when they were built: WaveTables.__post_init__)."""
     rays = pack_rays(o3, d3, alive, tput3, absorb3, rtype)
     dev = rays.device
-    for name in ("spheres", "planes", "mesh_insts", "roots",
-                 "faces", "groups", "tnodes", "leaves", "shade",
-                 "materials", "lights", "texmaps", "textures", "atlas"):
-        x = getattr(tables, name)
-        if x.device != dev or x.dtype != torch.float32 \
-                or not x.is_contiguous():
-            raise ValueError(f"wave: table {name} must be contiguous "
-                             f"float32 on {dev}")
-    for name in ("faces", "atlas", "roots", "groups", "tnodes", "leaves",
-                 "spheres", "planes", "mesh_insts", "lights"):
-        if getattr(tables, name).data_ptr() % 16:
-            raise ValueError(f"wave: the {name} table must be 16-byte "
-                             "aligned (the kernel reads its rows as float4)")
-    if stats is not None and (stats.device != dev
-                              or stats.dtype != torch.int64
-                              or stats.numel() < NSTAT):
-        raise ValueError(f"wave: stats must be an int64 [{NSTAT}] tensor "
-                         f"on {dev}")
+    if tables.device != dev:
+        raise ValueError(f"wave: the tables live on {tables.device}, the "
+                         f"rays on {dev}")
+    _build.check_stats("wave", stats, NSTAT, dev)
     n = rays.shape[1]
     prm = shade_params(cfg, tables)
     # on the MXU tables the launch orders its blocks (csrc/wave_kernel.cu::
@@ -965,44 +951,38 @@ def _launch(cfg, tables, o3, d3, alive, seed, nbounce, blk0, tput3,
                         device=dev) if tables.mxu else None
     out = torch.empty((out_rows(nbounce, surf_out, gi_from), n),
                       dtype=torch.float32, device=dev)
-
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr() if x.numel() else 0)
+    p = _build.pointer
+    args = _build.WaveArgs(
+        rays=p(rays), has_state=int(rays.shape[0] > 7), out=p(out),
+        surf_out=int(surf_out), gi_from=-1 if gi_from is None
+        else int(gi_from), stats=p(stats), n=n, seed=int(seed) & _M32,
+        blk0=int(blk0), nbounce=nbounce,
+        spheres=p(tables.spheres), ns=tables.spheres.shape[0],
+        planes=p(tables.planes), np=tables.planes.shape[0],
+        insts=p(tables.mesh_insts), ni=tables.mesh_insts.shape[0],
+        roots=p(tables.roots), faces=p(tables.faces),
+        groups=p(tables.groups), ng=tables.groups.shape[0],
+        tnodes=p(tables.tnodes), leaves=p(tables.leaves),
+        shade=p(tables.shade), staged=int(smem_staged(tables)),
+        scene_staged=int(scene_staged(tables)),
+        stats_blocks=int(stats is not None
+                         and stats.numel() >= stats_size(n)),
+        mats=p(tables.materials), lights=p(tables.lights),
+        nl=tables.lights.shape[0], texmaps=p(tables.texmaps),
+        textures=p(tables.textures), atlas=p(tables.atlas),
+        atlas_w=tables.atlas_w, env_tm=tables.env_tm,
+        env_l2=int(prm["env_l2"]), env=tables.env, coef=prm["coef"],
+        inverse_square=int(prm["inverse_square"]),
+        env_on_reflect_miss=int(prm["env_on_reflect_miss"]),
+        tot_thr=prm["total_reflection_threshold"],
+        col_thr=prm["color_threshold"], shadow_max=prm["shadow_max"],
+        shadow_min=prm["shadow_min"], need_uv=int(tables.need_uv),
+        has_gloss=int(tables.has_gloss))
     # the launch is asynchronous: `rays` may be freed when this returns,
     # which is safe because the caching allocator reuses it only for work
     # queued after the kernel on the same stream
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rtf_wave_launch(
-            ptr(rays), int(rays.shape[0] > 7), ptr(out), int(surf_out),
-            -1 if gi_from is None else int(gi_from),
-            ptr(stats) if stats is not None else ctypes.c_void_p(0), n,
-            _i32(int(seed)), int(blk0), nbounce,
-            ptr(tables.spheres), tables.spheres.shape[0],
-            ptr(tables.planes), tables.planes.shape[0],
-            ptr(tables.mesh_insts), tables.mesh_insts.shape[0],
-            ptr(tables.roots), ptr(tables.faces),
-            ptr(tables.materials), ptr(tables.lights),
-            tables.lights.shape[0],
-            ptr(tables.texmaps), ptr(tables.textures), ptr(tables.atlas),
-            tables.atlas_w, tables.env_tm, int(prm["env_l2"]),
-            int(tables.textured),
-            *(ctypes.c_float(v) for v in tables.env),
-            ctypes.c_float(prm["coef"]), int(prm["inverse_square"]),
-            int(prm["env_on_reflect_miss"]),
-            ctypes.c_float(prm["total_reflection_threshold"]),
-            ctypes.c_float(prm["color_threshold"]),
-            prm["shadow_max"], prm["shadow_min"],
-            int(tables.need_uv), int(tables.has_gloss), int(tables.mxu),
-            ptr(tables.groups), tables.groups.shape[0], ptr(tables.tnodes),
-            ptr(tables.leaves), int(smem_staged(tables)),
-            int(stats is not None and stats.numel() >= stats_size(n)),
-            int(scene_staged(tables)), ptr(tables.shade),
-            ctypes.c_void_p(0) if order is None else ptr(order),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"wave kernel launch failed: "
-                           f"{_build.error_string(rc)} ({rc})")
+    _build.launch("wave", "rtf_wave_launch", dev, ctypes.byref(args),
+                  int(tables.textured), int(tables.mxu), order)
     return split_rows(out, nbounce, surf_out, gi_from)
 
 

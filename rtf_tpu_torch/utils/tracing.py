@@ -9,9 +9,10 @@ the Unix-epoch clock of torch.profiler's kineto events, so a span and the
 device events of a profiler trace share one timeline (microseconds =
 ns / 1000).  The renderer's spans (render/renderer.py, render/wave.py):
 
-  rtf.frame     `render` (frame and finalize) or `render_device_host`;
-                attrs path, width, height.  Its id is the frame id of
-                every span inside it.
+  rtf.frame     `render` (frame and finalize), `render_device_host` or
+                parallel/mesh.py::render_sharded (a rank's frame, the
+                collectives included); attrs path, width, height.  Its
+                id is the frame id of every span inside it.
   rtf.prepare   `_prepare` and the pixel order on the device
   rtf.wave      one sample wave of `adaptive_ladder`, from the host seed
                 draw to the accumulators; attrs index (Halton), lanes

@@ -421,13 +421,37 @@ def test_ball_walk_exact(cuda_dev, monkeypatch, case, bounces, staged):
 
 
 @pytest.mark.cuda
+def test_wave_args_size(cuda_dev):
+    """The built library's struct Args has the size of its Python mirror
+    (_build.WaveArgs; tests/test_torch_launch.py holds their fields to
+    each other), which _build.load checks too."""
+    import ctypes
+    from rtf_tpu_torch import _build
+    lib = _build.load("wave")
+    assert lib.rtf_wave_args_size() == ctypes.sizeof(_build.WaveArgs)
+
+
+@pytest.mark.cuda
+def test_launch_failure_raises(cuda_dev):
+    """A launch function's error code comes back as RuntimeError naming
+    the function and the library's error string (the wide walk refuses a
+    stack need of 0)."""
+    from rtf_tpu_torch import _build
+    x = torch.zeros((4, 3), device=cuda_dev)
+    t = torch.zeros(4, device=cuda_dev)
+    with pytest.raises(RuntimeError, match="rtf_bvh_wide_launch failed: "
+                       "invalid argument"):
+        _build.launch("bvh_hit", "rtf_bvh_wide_launch", cuda_dev, x, x, 3,
+                      t, 1, 4, t, t, 0, 0, t, t, t, t, t, None)
+
+
+@pytest.mark.cuda
 def test_block_order_keeps_outputs(cuda_dev, monkeypatch):
     """The MXU launch's block order pass (csrc/wave_kernel.cu::block_order)
     changes only when each block runs: on the 20,480-face ball's rays the
     outputs and every work count but the cycles equal, bit for bit, those
     of the same launch with its order scratch passed as null (the blocks
     in their own order)."""
-    import ctypes
     from rtf_tpu_torch import _build
     from rtf_tpu_torch.render import wave as W
     tables, o3, d3, alive = _ball_tables(cuda_dev)
@@ -435,9 +459,8 @@ def test_block_order_keeps_outputs(cuda_dev, monkeypatch):
     lib = _build.load()
 
     class Unordered:
-        def rtf_wave_launch(self, *args):
-            return lib.rtf_wave_launch(*args[:-2], ctypes.c_void_p(0),
-                                       args[-1])
+        def rtf_wave_launch(self, args, textured, mxu, order, stream):
+            return lib.rtf_wave_launch(args, textured, mxu, None, stream)
 
         def rtf_error_string(self, code):
             return lib.rtf_error_string(code)

@@ -12,7 +12,9 @@ atol 3e-4 and 1e-4 (the wave kernel's plain version against the
 wavefront).  Exact (max abs error 0.0): a 1x1 mesh against
 render_device_host, and 2 tiles of 1024 lanes on the fused path at 2
 bounces, whose Russian roulette draws in the kernel's per-block streams
-(blk0), against the single-device frame."""
+(blk0), against the single-device frame; the same 2 tiles on tables the
+caller built (`tables=`: no rank builds its own) and traced (one rtf.frame
+a rank, holding its rtf.prepare, waves and rtf.finalize)."""
 import os
 import socket
 import subprocess
@@ -72,10 +74,35 @@ def _worker(world, rank, port, out):
             keep(name + "_single", render_device_host(
                 scene, _cfg(kw), seed=0, device="cpu"))
     elif world == 2:
+        from rtf_tpu_torch.render import renderer
+        from rtf_tpu_torch.render.scene_tables import scene_tables
+        from rtf_tpu_torch.utils import tracing
+        built = []
+
+        def counted(*a, **k):
+            built.append(1)
+            return scene_tables(*a, **k)
+        renderer.scene_tables = counted
+        mesh = make_mesh(2, 1, device_type="cpu")
         # two tiles of 1024 lanes on the fused path, Russian roulette on
-        keep("rr", render_sharded(_scene(64, 32), _cfg(RR),
-                                  make_mesh(2, 1, device_type="cpu"),
-                                  seed=0, fused=True, device="cpu"))
+        keep("rr", render_sharded(_scene(64, 32), _cfg(RR), mesh, seed=0,
+                                  fused=True, device="cpu"))
+        res["tables_built"] = len(built)
+        # the same frame on tables built once by the caller, then traced
+        scene = _scene(64, 32)
+        keep("rr_tables", render_sharded(
+            scene, _cfg(RR), mesh, seed=0, fused=True, device="cpu",
+            tables=scene_tables(scene, "cpu")))
+        res["tables_built_given"] = len(built) - res["tables_built"]
+        tracing.enable()
+        keep("rr_traced", render_sharded(scene, _cfg(RR), mesh, seed=0,
+                                         fused=True, device="cpu"))
+        spans = tracing.collect()["spans"]
+        tracing.disable()
+        res["span_names"] = np.array([s[0] for s in spans])
+        for i, k in enumerate(("id", "parent", "frame", "start", "end")):
+            res[f"span_{k}"] = np.array([-1 if s[i + 1] is None
+                                         else s[i + 1] for s in spans])
     elif world == 3:
         keep("adaptive", render_sharded(_scene(64, 48), _cfg(ADAPTIVE),
                                         make_mesh(1, 3, device_type="cpu"),
@@ -194,6 +221,40 @@ def test_sharded_fused_tiles_exact(runs):
                 _acc(runs[1][0], "rr")):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_reuses_given_tables(runs):
+    """render_sharded(..., tables=scene_tables(...)) gives the frame of the
+    call without them bit for bit, on each rank, and builds no tables;
+    without them each rank builds its own once."""
+    for res in runs[2]:
+        for a, b in zip(_acc(res, "rr_tables"), _acc(res, "rr")):
+            np.testing.assert_array_equal(a, b)
+        assert int(res["tables_built"]) == 1
+        assert int(res["tables_built_given"]) == 0
+
+
+def test_sharded_frame_spans(runs):
+    """With tracing on, a rank's sharded frame is one rtf.frame span that
+    holds one rtf.prepare, every rtf.wave and one rtf.finalize, as
+    `render`'s frame does; tracing changes no output bit."""
+    for res in runs[2]:
+        for a, b in zip(_acc(res, "rr_traced"), _acc(res, "rr")):
+            np.testing.assert_array_equal(a, b)
+        names = list(res["span_names"])
+        sp = {k: res[f"span_{k}"] for k in ("id", "frame", "start", "end")}
+        frames = [i for i, n in enumerate(names) if n == "rtf.frame"]
+        assert len(frames) == 1
+        f = frames[0]
+        waves = [i for i, n in enumerate(names) if n == "rtf.wave"]
+        assert len(waves) == RR["max_samples"]
+        for n in ("rtf.prepare", "rtf.finalize"):
+            assert [sp["frame"][i] for i, m in enumerate(names)
+                    if m == n] == [sp["id"][f]]
+        for i in waves:
+            assert sp["frame"][i] == sp["id"][f]
+            assert sp["start"][f] <= sp["start"][i] <= sp["end"][i] \
+                <= sp["end"][f]
 
 
 def test_one_rank_mesh_is_render_device_host(runs):
