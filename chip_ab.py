@@ -558,9 +558,15 @@ def main(argv):
     if parent is not None:
         whole_faces = "SHADE_W" not in (parent / "rtf_tpu_torch" / "csrc"
                                         / "wave_kernel.cu").read_text()
+        wave_types = pb.KERNELS["wave"][2]
+        if hasattr(pb, "WaveArgs"):
+            # the parent's render/wave.py fills this process's WaveArgs
+            # (its `_build` is the change's module): bind to that type
+            check(pb.WaveArgs._fields_ == _build.WaveArgs._fields_,
+                  "the parent's struct Args differs from the change's")
+            wave_types = _build.KERNELS["wave"][2]
         libs["parent"] = {
-            "wave": bind(dlls["parent"], "rtf_wave_launch",
-                         pb.KERNELS["wave"][2]),
+            "wave": bind(dlls["parent"], "rtf_wave_launch", wave_types),
             "mesh_hit": bind(dlls["parent_mesh_hit"], "rtf_mesh_hit_launch",
                              pb.KERNELS["mesh_hit"][2]),
             "mesh_hit_mxu": bind(dlls["parent_mesh_hit_mxu"],

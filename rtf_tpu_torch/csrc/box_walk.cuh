@@ -27,14 +27,27 @@
 // ray's local direction and each behind a slab test of the segment
 // [0, cap()) on the padded box, and calls face(f, key0) for each face f of
 // an entered leaf (its key is key0 + f), for a shadow ray until face
-// returns true.  A caller
+// returns true.  `walk_warp` (the wave kernel's MXU variants, in launches
+// whose walking blocks have little work: wave_kernel.cu::one_loop) visits
+// the same boxes and faces in the same order, as one loop: every iteration
+// a lane loads the next box of its own level (group, tile or leaf: columns
+// 0-5 are the box at every level) and makes one slab test, so lanes at
+// different levels run the same instructions side by side; a lane whose
+// test enters a leaf holds it and stops, and once 3 in 8 of the warp's
+// lanes in the loop hold one, those lanes run their faces in one loop
+// together, then traverse on (the while-while traversal of Aila and Laine,
+// HPG 2009, with a threshold in place of waiting for every lane).  A lane
+// does not traverse while it holds a leaf, so its own slab and face tests,
+// and the cap each reads, are those of `walk`; only the lanes' alignment
+// in the warp differs.  A caller
 // after the closest hit keeps the least t, then the least key, strictly
 // below the best t from before the slot: the plain versions' winner and a
 // strict-< flat loop's in key order.  The visit order then changes only
 // how early a ray stops culling, never the winner: a face at t <= cap lies
 // inside every padded box on its path with a slab entry < t, so an exactly
 // tied face is still visited (tests/test_torch_mesh_tree.py and
-// test_torch_mxu_tree.py check it on the tables).
+// test_torch_mxu_tree.py check it on the tables; test_torch_warp_walk.py
+// emulates `walk_warp`'s warps).
 //
 // Built with --fmad=false and without --use_fast_math: IEEE division and
 // no contraction into FMAs, so each test rounds like the plain version's
@@ -207,6 +220,108 @@ __device__ __forceinline__ bool walk(const Levels& L, int k,
         if (cnt && cpair) *cpair += clock64() - p0;
         if (stop) return true;
       }
+    }
+  }
+  return false;
+}
+
+// the same walk as one loop of one slab test a lane an iteration, with the
+// entered leaf held until 3 in 8 of the warp's lanes hold one (see the top
+// of the file); the same arguments, faces and return value as `walk`.
+// Votes take __activemask(): lanes reach a walk at different bounces, and
+// a lane that leaves the loop leaves the votes.
+template <bool ANY, int UNROLL, typename Cap, typename Face>
+__device__ __forceinline__ bool walk_warp(const Levels& L, int k,
+                                          const float lo[3], const float l[3],
+                                          const float ild[3], Cap cap,
+                                          Face face, unsigned long long* cnt,
+                                          long long* cpair) {
+  const int oct = octant(l);
+  const float* root = L.roots + ROOT_W * k;
+  const int g0 = (int)root[6], ng = (int)root[7];
+  // the lane's level (0 a group, 1 a tile, 2 a leaf, 3 done) and its step
+  // at each: s of the slot's groups, q of the group's tiles, r of the
+  // tile's leaves; the entered group's tiles (j0, nj, tord), the entered
+  // tile's leaves (j, nl, lord) and its key0; the held leaf's faces fa to
+  // fb (none where fa == fb)
+  int lvl = ng > 0 ? 0 : 3, s = 0, q = 0, r = 0;
+  int j0 = 0, nj = 0, j = 0, nl = 0, key0 = 0, fa = 0, fb = 0;
+  uint32_t tord = 0, lord = 0;
+  while (true) {
+    const bool held = fa < fb;
+    if (lvl == 3 && !held) break;
+    // traverse on while no lane holds a leaf, or fewer than 3 in 8 of the
+    // loop's lanes do (PERF.md section 6 measured waiting for every lane
+    // and 1-6 in 8); else the holding lanes test their faces
+    const unsigned m = __activemask();
+    const unsigned trav = __ballot_sync(m, !held);
+    const int nheld = __popc(m & ~trav);
+    if (trav != 0u && (nheld == 0 || 8 * nheld < 3 * __popc(m))) {
+      if (!held) {
+        const int row = lvl == 0 ? (int)L.groups[NODE_W * (g0 + s) + 8 + oct]
+            : lvl == 1 ? j0 + (int)((tord >> (3 * q)) & 7u)
+            : TILE_LEAVES * j + (int)((lord >> (3 * r)) & 7u);
+        const float* B = lvl == 0 ? L.groups + NODE_W * row
+            : lvl == 1 ? L.tnodes + NODE_W * row : L.leaves + LEAF_W * row;
+        const float4 b0 = reinterpret_cast<const float4*>(B)[0];
+        const float4 b1 = reinterpret_cast<const float4*>(B)[1];
+        if (cnt) {
+          cnt[lvl == 0 ? GROUPS : lvl == 1 ? TILES : LEAVES] += 1;
+          warp_step(cnt, WALK_ITERS);
+        }
+        const bool in = slab6(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, lo, ild,
+                              cap());
+        if (in && lvl == 0) {          // into the group's tiles
+          j0 = (int)b1.z;
+          nj = (int)b1.w;
+          tord = (uint32_t)B[16 + oct];
+          lvl = 1;
+          q = 0;
+        } else if (in && lvl == 1) {   // into the tile's leaves
+          j = row;
+          nl = ((int)b1.w + LEAF_FACES - 1) / LEAF_FACES;
+          key0 = (int)B[8 + oct] * TILE - (int)b1.z;
+          lord = (uint32_t)B[16 + oct];
+          lvl = 2;
+          r = 0;
+        } else {                       // a miss, or a leaf to hold
+          if (in) {
+            fa = (int)b1.z;
+            fb = fa + (int)b1.w;
+          }
+          if (lvl == 2) ++r;
+          else if (lvl == 1) ++q;
+          else ++s;
+        }
+        // climb out of the levels whose steps are spent
+        if (lvl == 2 && r >= nl) {
+          lvl = 1;
+          ++q;
+        }
+        if (lvl == 1 && q >= nj) {
+          lvl = 0;
+          ++s;
+        }
+        if (lvl == 0 && s >= ng) lvl = 3;
+      }
+    } else if (held) {   // the lanes that hold a leaf test its faces
+      const long long p0 = cnt ? clock64() : 0;
+      bool stop = false;
+      if constexpr (ANY) {
+        for (int f = fa; f < fb && !stop; ++f) {
+          if (cnt) warp_step(cnt, PAIR_ITERS);
+          stop = face(f, key0);
+        }
+      } else {
+#pragma unroll UNROLL
+        for (int f = fa; f < fb; ++f) {
+          if (cnt) warp_step(cnt, PAIR_ITERS);
+          face(f, key0);
+        }
+      }
+      fa = fb = 0;
+      if (cnt && cpair) *cpair += clock64() - p0;
+      if (stop) return true;
     }
   }
   return false;

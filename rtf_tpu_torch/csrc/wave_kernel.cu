@@ -22,11 +22,13 @@
 // a ray block against a whole 128-face tile in one matrix product (MXU) or
 // against every baked face (immediates); one thread per ray wants fewer
 // tests instead, so every variant walks one box hierarchy per mesh
-// instance (box_walk.cuh::walk, shared with csrc/mesh_hit.cu): the
-// instance's padded root box, then its groups of 8 tiles in the near-to-far
-// order of the lane's own local direction's octant, within an entered
-// group its tiles, within an entered tile its 16-face leaves (each level
-// near to far), within an entered leaf its faces.  Every slab test is
+// instance (box_walk.cuh: `walk`, shared with csrc/mesh_hit.cu, and in
+// the MXU variants' launches whose walking blocks have little work,
+// `walk_warp`, the same boxes in the same order as one loop): the
+// instance's padded root box, then its groups of 8 tiles in the
+// near-to-far order of the lane's own local direction's octant, within an
+// entered group its tiles, within an entered tile its 16-face leaves (each
+// level near to far), within an entered leaf its faces.  Every slab test is
 // capped by the lane's current best t.  The winner is the least t, then
 // the least key (MXU: rank * 128 + column, the tile's rank in the octant's
 // visit order; immediates: the face's packed row), strictly below the best
@@ -89,6 +91,20 @@
 //     of forming the launch's tail; a closest hit's pair loop is unrolled
 //     four ways, so that independent face tests overlap (PERF.md section
 //     6);
+//   * where a launch's walking blocks have little work (one_loop), their
+//     own time sets the launch's, and on the MXU tables they walk in one
+//     loop (box_walk.cuh::walk_warp): each iteration a lane makes one slab
+//     test at its own level, group, tile or leaf, so the lanes of a warp
+//     walk side by side instead of one lane's tiles, leaves and faces
+//     after another's; a lane that enters a leaf holds it, and once 3 in
+//     8 of the warp's lanes hold one they test their leaves' faces in one
+//     loop together.  A lane never traverses while it holds a leaf, so
+//     its own tests and caps are the nested walk's and the winner is
+//     unchanged.  Where the walking work is large (many blocks, long
+//     walks, or a mesh that fills the view) the launch is bound by
+//     throughput, and the nested walk, which runs fewer instructions a
+//     test and whose coherent lanes read the same rows, is faster; the
+//     immediates (at most one group and four tiles) walk nested;
 //   * each thread walks the mesh's box hierarchy with its own slab tests
 //     capped by its own best t (above), so it tests the faces of the
 //     16-face leaves its segment enters; the boxes are padded on the host
@@ -408,6 +424,27 @@ __device__ __forceinline__ bool face_test(const Args& A, int f,
   return boxwalk::tri(A.faces + FACE_W * f, true, lo, l, t, dn, s0, s1, s2);
 }
 
+// Whether this block walks instance k's MXU tables in one loop (box_walk.
+// cuh::walk_warp) rather than nested.  The one loop shortens a walking
+// block's own time but runs more instructions a test, so it wins where
+// the walking blocks' work is small enough for their own time to set the
+// launch's, and loses where it is large: many blocks walking long walks,
+// or a mesh that fills the view, whose coherent lanes the nested walk
+// keeps on the same rows.  That work is estimated as block_order's count
+// of walking blocks (order[nb]) times a walk's slab tests, the instance's
+// groups plus about 64 tiles and leaves; at most WALK_WORK picks the one
+// loop on every view measured (PERF.md section 6).  A launch without a
+// block order walks nested.
+constexpr long long WALK_WORK = 200000;
+
+template <bool MXU>
+__device__ __forceinline__ bool one_loop(const Args& A,
+                                         const boxwalk::Levels& L, int k) {
+  return MXU && A.order
+      && A.order[gridDim.x]
+      * ((long long)L.roots[boxwalk::ROOT_W * k + 7] + 64) <= WALK_WORK;
+}
+
 // fused.py::_closest_hit's mesh part (_mesh_closest, _mesh_closest_mxu)
 // for one ray: per instance the least t below the best so far, then the
 // least key; the winner's normal, material, front and uv are read from its
@@ -429,24 +466,27 @@ __device__ void mesh_closest(const Args& A, const Scene& S, const float o[3],
     // bkey -1: the best t is from before this instance, so a tie loses
     int best = -1, bkey = -1;
     float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, bdn = 0.0f;
+    auto cap = [&]() { return h.t; };
+    auto face = [&](int f, int key0) {
+      if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
+      float t, s0, s1, s2, dn;
+      if (!face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn)) return false;
+      const int key = key0 + f;
+      if (t < h.t || (t == h.t && key < bkey)) {
+        h.t = t;
+        best = f;
+        bkey = key;
+        b0 = s0; b1 = s1; b2 = s2; bdn = dn;
+      }
+      return false;
+    };
     // the MXU pair loop unrolled four ways (its independent face tests
     // overlap); the immediates' loop is faster as it is (PERF.md section 6)
-    boxwalk::walk<false, MXU ? 4 : 1>(L, k, lo, l, ild,
-                  [&]() { return h.t; },
-                  [&](int f, int key0) {
-                    if (cnt) cnt[STAT_TRI_CLOSEST] += 1;
-                    float t, s0, s1, s2, dn;
-                    if (!face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn))
-                      return false;
-                    const int key = key0 + f;
-                    if (t < h.t || (t == h.t && key < bkey)) {
-                      h.t = t;
-                      best = f;
-                      bkey = key;
-                      b0 = s0; b1 = s1; b2 = s2; bdn = dn;
-                    }
-                    return false;
-                  }, cnt, &cpair);
+    if (one_loop<MXU>(A, L, k))
+      boxwalk::walk_warp<false, 4>(L, k, lo, l, ild, cap, face, cnt, &cpair);
+    else
+      boxwalk::walk<false, MXU ? 4 : 1>(L, k, lo, l, ild, cap, face, cnt,
+                                        &cpair);
     if (cnt) {
       cnt[STAT_CYC_PAIR] += cpair;
       cnt[STAT_CYC_WALK] += clock64() - c0 - cpair;
@@ -497,14 +537,18 @@ __device__ bool mesh_anyhit(const Args& A, const Scene& S, const float o[3],
     long long cpair = 0;
     float c[3] = {0.0f, 0.0f, 0.0f};
     if constexpr (MXU) plucker::cross_od(lo, l, c);
-    const bool hit = boxwalk::walk<true, 1>(
-        L, k, lo, l, ild, [&]() { return cap; },
-        [&](int f, int) {
-          if (cnt) cnt[STAT_TRI_SHADOW] += 1;
-          float t, s0, s1, s2, dn;
-          return face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn)
-              && t > 1e-14f && t < cap;
-        }, cnt, &cpair);
+    auto shadow_cap = [&]() { return cap; };
+    auto face = [&](int f, int) {
+      if (cnt) cnt[STAT_TRI_SHADOW] += 1;
+      float t, s0, s1, s2, dn;
+      return face_test<MXU>(A, f, lo, l, c, t, s0, s1, s2, dn)
+          && t > 1e-14f && t < cap;
+    };
+    const bool hit = one_loop<MXU>(A, L, k)
+        ? boxwalk::walk_warp<true, 1>(L, k, lo, l, ild, shadow_cap, face,
+                                      cnt, &cpair)
+        : boxwalk::walk<true, 1>(L, k, lo, l, ild, shadow_cap, face, cnt,
+                                 &cpair);
     if (cnt) {
       cnt[STAT_CYC_PAIR] += cpair;
       cnt[STAT_CYC_WALK] += clock64() - c0 - cpair;

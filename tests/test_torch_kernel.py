@@ -448,10 +448,14 @@ def test_launch_failure_raises(cuda_dev):
 @pytest.mark.cuda
 def test_block_order_keeps_outputs(cuda_dev, monkeypatch):
     """The MXU launch's block order pass (csrc/wave_kernel.cu::block_order)
-    changes only when each block runs: on the 20,480-face ball's rays the
-    outputs and every work count but the cycles equal, bit for bit, those
-    of the same launch with its order scratch passed as null (the blocks
-    in their own order)."""
+    changes only when each block runs and how its warps walk: on the
+    20,480-face ball's rays the outputs and every work count but the
+    cycles and the warp-iterations equal, bit for bit, those of the same
+    launch with its order scratch passed as null (the blocks in their own
+    order).  The order's count of walking blocks picks the one-loop walk
+    (one_loop), whose lanes test their leaves' faces together, so its face
+    loops take fewer warp-iterations for the same face tests; a launch
+    without an order walks nested."""
     from rtf_tpu_torch import _build
     from rtf_tpu_torch.render import wave as W
     tables, o3, d3, alive = _ball_tables(cuda_dev)
@@ -475,10 +479,12 @@ def test_block_order_keeps_outputs(cuda_dev, monkeypatch):
         runs[name] = out, stats.tolist()
     _assert_exact(runs["ordered"][0], runs["unordered"][0])
     cycles = {14, 15, 16, 17, 23, 24, 25}     # STAT_CYC_*
+    iters = {18, 20}                          # STAT_WALK_ITERS, _PAIR_ITERS
     for s, (a, b) in enumerate(zip(runs["ordered"][1],
                                    runs["unordered"][1])):
-        assert s in cycles or a == b, s
+        assert s in cycles | iters or a == b, s
     assert runs["ordered"][1][22] > 1000      # STAT_ROOT_IN: walks
+    assert runs["ordered"][1][20] < runs["unordered"][1][20]
 
 
 @pytest.mark.cuda
