@@ -104,14 +104,16 @@ def _span(spans: dict, name: str, dev):
     spans[name] = time.perf_counter() - t
 
 
-def build(config: dict, dev, width=None, height=None):
-    """The program's scene and tables for a configuration file."""
+def build(config: dict, dev, width=None, height=None,
+          bench_dir: Path = manifest.BENCH_DIR):
+    """The program's scene and tables for a configuration file (its maker
+    found under bench_dir)."""
     from rtf_tpu_torch.core import transform
     from rtf_tpu_torch.render.scene_tables import scene_tables
     from rtf_tpu_torch.scene import model
     from rtf_tpu_torch.scene.build import build_scene
     desc = scenes.make(config, scenes.kinds_of(model, transform), width,
-                       height)
+                       height, bench_dir)
     scene = build_scene(desc, device=dev)
     algo = config.get("mesh_algo", "auto")
     if algo != scene.mesh_algo:
@@ -126,7 +128,8 @@ def set_up(cell, dev, width=None, height=None):
     from rtf_tpu_torch.render.scene_tables import render_path
     spans = {}
     with _span(spans, "scene_build_s", dev):
-        scene, tables = build(cell.config, dev, width, height)
+        scene, tables = build(cell.config, dev, width, height,
+                              cell.bench_dir)
     path = render_path(scene, render_config(cell.traffic))[0]
     if path != cell.traffic["path"]:
         raise RuntimeError(f"{cell.name} declares the {cell.traffic['path']}"
@@ -332,7 +335,8 @@ def verify(cell, seed, kseed, program, dev, width, height):
     from rtbench.reference import frames
     t = time.perf_counter()
     ref = frames.reference(cell.config, cell.traffic, kseed, dev,
-                           derived_seed(seed, 4), width, height)
+                           derived_seed(seed, 4), width, height,
+                           bench_dir=cell.bench_dir)
     ok, compared = check.judge(check.numbers(program, ref),
                                cell.traffic["check"]["limits"])
     return ok, compared, time.perf_counter() - t

@@ -2,7 +2,11 @@
 
 A cell names a configuration (BENCHMARK.json's `configs`, whose `file`
 holds the scene) and a traffic mix (rtbench/traffic/<traffic>.json); a
-per-layer metric <name> is read by rtbench/metrics/<name>.py.  Adding a
+per-layer metric <name> is read by rtbench/metrics/<name>.py.  A
+configuration's "scene" other than the built-in `box` is made by
+rtbench/makers/<scene>.py (rtbench/scenes.py), whose data comes from the
+configuration file alone: arrays such as texels are drawn from a seed in
+its "args", never read from a file outside the repo nor fetched.  Adding a
 scene, a mix, a cell or a metric is adding files and entries: nothing here
 lists them.
 """
@@ -40,6 +44,9 @@ class Cell:
         workload = by_name(manifest["workloads"], name, "workloads")
         entry = by_name(manifest["configs"], workload["config"], "configs")
         self.config = json.loads((root / entry["file"]).read_text())
+        self.bench_dir = bench_dir
+        from rtbench import scenes
+        scenes.maker(self.config["scene"], bench_dir)  # raises before set-up
         self.traffic = traffic(workload["traffic"], bench_dir)
         self.chips = int(workload["chips"])
         self.end_to_end = [m for m in manifest["end_to_end"]
@@ -65,8 +72,12 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     path = bench_dir / "metrics" / f"{name}.py"
     if not path.exists():
         raise FileNotFoundError(f"no reader {path} for metric {name!r}")
-    spec = importlib.util.spec_from_file_location(
-        f"rtbench_metric_{name.replace('.', '_')}", path)
+    return load_module(path, f"rtbench_metric_{name.replace('.', '_')}")
+
+
+def load_module(path: Path, modname: str):
+    """The module of a file, loaded from its path."""
+    spec = importlib.util.spec_from_file_location(modname, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

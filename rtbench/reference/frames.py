@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from rtbench import scenes
+from rtbench import manifest, scenes
 from rtbench.reference.frozen.core import transform as _transform
 from rtbench.reference.frozen.core.math import BIGFLOAT
 from rtbench.reference.frozen.ops.texture import sample_background
@@ -75,9 +76,11 @@ class _LowerRays:
         R.primary_rays_ch = self.saved
 
 
-def build(config: dict, device, width=None, height=None, lower=False):
-    """The reference's scene and tables for a configuration file."""
-    desc = scenes.make(config, KINDS, width, height)
+def build(config: dict, device, width=None, height=None, lower=False,
+          bench_dir: Path = manifest.BENCH_DIR):
+    """The reference's scene and tables for a configuration file (its maker
+    found under bench_dir)."""
+    desc = scenes.make(config, KINDS, width, height, bench_dir)
     scene = build_scene(desc, device=device)
     algo = config.get("mesh_algo", "auto")
     if algo != scene.mesh_algo:
@@ -158,7 +161,7 @@ def fused_blocks(scene, tables, cfg, seed: int, blocks) -> dict:
 
 def reference(config: dict, traffic: dict, seed: int, device,
               block_seed: int = 0, width=None, height=None,
-              lower=False) -> dict:
+              lower=False, bench_dir: Path = manifest.BENCH_DIR) -> dict:
     """The reference's answer for one frame of a cell, over the traffic's
     count of blocks drawn from block_seed (with the blocks that see the
     configuration's "sample_points")."""
@@ -167,7 +170,8 @@ def reference(config: dict, traffic: dict, seed: int, device,
                                   f"path yet")
     cfg = render_config(traffic)
     with torch.no_grad():
-        scene, tables = build(config, device, width, height, lower)
+        scene, tables = build(config, device, width, height, lower,
+                              bench_dir)
         always = [block_of_point(scene, p)
                   for p in config.get("sample_points", [])]
         blocks = sample_blocks(scene.width, scene.height,

@@ -1,8 +1,9 @@
-"""The benchmark's scene maker: a frozen copy of rtf_tpu_torch/scene/
-procedural.py::box_scene (commit 224dbd1) with a vectorised icosphere.
+"""The benchmark's scene makers.  The built-in one, `box`, is a frozen copy
+of rtf_tpu_torch/scene/procedural.py::box_scene (commit 224dbd1) with a
+vectorised icosphere.
 
-The maker builds the description from the classes it is handed
-(`Kinds`), so the program (rtf_tpu_torch.scene.model) and the reference
+A maker builds the description from the classes it is handed (`Kinds`),
+so the program (rtf_tpu_torch.scene.model) and the reference
 (rtbench/reference/frozen/scene/model.py) each get a description of their
 own from the same numbers, and a later edit of the port's procedural
 module cannot change the benchmark's input.  `icosphere` gives
@@ -11,14 +12,26 @@ order (rtbench/tests/test_rtbench_scenes.py), without its Python loop
 over faces (4.7 s at subdivision 7).
 
 A configuration file (rtbench/configs/<name>.json) names its maker under
-"scene" and gives the maker's arguments under "args"; MAKERS maps the
-name to the function.
+"scene" and gives the maker's arguments under "args".  `box` is built in;
+any other name is the function `make(k: Kinds, **args) -> SceneDesc` of
+rtbench/makers/<scene>.py, loaded from its path, so a new scene is a new
+file.  A maker takes `width` and `height` among its arguments (the
+rehearsal and the tests override them), builds every description from
+`k` and imports no model module itself; it may use this module's helpers
+(`icosphere`, `icosphere_mesh`, `material`, `node`, `box`).  Its data
+comes from the configuration file alone: texels and any other array are
+drawn from a seed among the file's "args", never read from a file outside
+the repo nor fetched.
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
+
+from rtbench import manifest
 
 
 class Kinds(NamedTuple):
@@ -31,6 +44,8 @@ class Kinds(NamedTuple):
     LightDesc: type
     CameraDesc: type
     TexturedColorDesc: type
+    TextureDesc: type
+    TexMapDesc: type
 
 
 def kinds_of(model, transform) -> Kinds:
@@ -84,9 +99,9 @@ def icosphere(subdiv: int):
     return v, f
 
 
-def _mtl(k: Kinds, name, diffuse, specular=(0.7, 0.7, 0.7), gloss=20.0,
-         reflection=(0, 0, 0), refraction=(0, 0, 0), ior=1.0,
-         absorption=(0, 0, 0), emission=(0, 0, 0)):
+def material(k: Kinds, name, diffuse, specular=(0.7, 0.7, 0.7), gloss=20.0,
+             reflection=(0, 0, 0), refraction=(0, 0, 0), ior=1.0,
+             absorption=(0, 0, 0), emission=(0, 0, 0)):
     m = k.MaterialDesc(name=name)
     m.diffuse = k.TexturedColorDesc(np.array(diffuse, np.float64))
     m.specular = k.TexturedColorDesc(np.array(specular, np.float64))
@@ -99,13 +114,13 @@ def _mtl(k: Kinds, name, diffuse, specular=(0.7, 0.7, 0.7), gloss=20.0,
     return m
 
 
-def _node(k: Kinds, name, kind, mtl, transform, mesh=None):
+def node(k: Kinds, name, kind, mtl, transform, mesh=None):
     n = k.NodeDesc(name=name, obj_kind=kind, mtl_name=mtl, mesh=mesh)
     n.transform = transform
     return n
 
 
-def _mesh(k: Kinds, subdiv: int):
+def icosphere_mesh(k: Kinds, subdiv: int):
     v, f = icosphere(subdiv)
     mesh = k.MeshDesc(name="icosphere")
     mesh.v = v.astype(np.float32)
@@ -125,31 +140,31 @@ def box(k: Kinds, width: int = 200, height: int = 150,
     walls = k.NodeDesc(name="box")
     walls.transform = T().translate([0, 0, 12])
     walls.children = [
-        _node(k, "floor", "plane", "wall", T().scale(32).translate([0, 0, -12])),
-        _node(k, "ceiling", "plane", "wall", T().scale(32).rotate([1, 0, 0], 180).translate([0, 0, 12])),
-        _node(k, "back", "plane", "wall", T().scale(32).rotate([1, 0, 0], 90).translate([0, 20, 0])),
-        _node(k, "left", "plane", "wallRed", T().scale(32).rotate([0, 1, 0], 90).translate([-15, 0, 0])),
-        _node(k, "right", "plane", "wallBlue", T().scale(32).rotate([0, 1, 0], -90).translate([15, 0, 0])),
+        node(k, "floor", "plane", "wall", T().scale(32).translate([0, 0, -12])),
+        node(k, "ceiling", "plane", "wall", T().scale(32).rotate([1, 0, 0], 180).translate([0, 0, 12])),
+        node(k, "back", "plane", "wall", T().scale(32).rotate([1, 0, 0], 90).translate([0, 20, 0])),
+        node(k, "left", "plane", "wallRed", T().scale(32).rotate([0, 1, 0], 90).translate([-15, 0, 0])),
+        node(k, "right", "plane", "wallBlue", T().scale(32).rotate([0, 1, 0], -90).translate([15, 0, 0])),
     ]
     s.root.children.append(walls)
     s.root.children.append(
-        _node(k, "mirror", "sphere", "mirror", T().scale(4).translate([8, -6, 4])))
+        node(k, "mirror", "sphere", "mirror", T().scale(4).translate([8, -6, 4])))
     s.root.children.append(
-        _node(k, "glass", "sphere", "glass", T().scale(4).translate([-8, -6, 4])))
+        node(k, "glass", "sphere", "glass", T().scale(4).translate([-8, -6, 4])))
     if with_mesh:
         s.root.children.append(
-            _node(k, "ball", "mesh", "redball",
-                  T().scale(3).translate([1, 4, 3]),
-                  mesh=_mesh(k, mesh_subdiv)))
+            node(k, "ball", "mesh", "redball",
+                 T().scale(3).translate([1, 4, 3]),
+                 mesh=icosphere_mesh(k, mesh_subdiv)))
     s.materials = {
-        "wall": _mtl(k, "wall", (1, 1, 1), specular=(0, 0, 0)),
-        "wallRed": _mtl(k, "wallRed", (1, 0.5, 0.5), specular=(0, 0, 0)),
-        "wallBlue": _mtl(k, "wallBlue", (0.5, 0.5, 1), specular=(0, 0, 0)),
-        "mirror": _mtl(k, "mirror", (0, 0, 0), specular=(1, 1, 1), gloss=80,
-                       reflection=(1, 1, 1)),
-        "glass": _mtl(k, "glass", (0, 0, 0), specular=(1, 1, 1), gloss=80,
-                      refraction=(1, 1, 1), ior=1.52),
-        "redball": _mtl(k, "redball", (1.0, 0.3, 0.3)),
+        "wall": material(k, "wall", (1, 1, 1), specular=(0, 0, 0)),
+        "wallRed": material(k, "wallRed", (1, 0.5, 0.5), specular=(0, 0, 0)),
+        "wallBlue": material(k, "wallBlue", (0.5, 0.5, 1), specular=(0, 0, 0)),
+        "mirror": material(k, "mirror", (0, 0, 0), specular=(1, 1, 1), gloss=80,
+                           reflection=(1, 1, 1)),
+        "glass": material(k, "glass", (0, 0, 0), specular=(1, 1, 1), gloss=80,
+                          refraction=(1, 1, 1), ior=1.52),
+        "redball": material(k, "redball", (1.0, 0.3, 0.3)),
     }
     s.lights = [k.LightDesc(kind="point", name="L",
                             intensity=np.full(3, 100.5),
@@ -172,14 +187,36 @@ def box(k: Kinds, width: int = 200, height: int = 150,
     return s
 
 
-MAKERS = {"box": box}
+MAKERS = {"box": box}          # built in; any other scene is a file
+SCENE_NAME = re.compile(r"[A-Za-z0-9_]+")
 
 
-def make(config: dict, k: Kinds, width: int = None, height: int = None):
+def maker(scene: str, bench_dir: Path = manifest.BENCH_DIR):
+    """The function a configuration's "scene" names: a built-in maker, or
+    `make` of rtbench/makers/<scene>.py.  Raises ValueError for a name that
+    is not [A-Za-z0-9_]+, FileNotFoundError naming the path looked for where
+    there is no file."""
+    if scene in MAKERS:
+        return MAKERS[scene]
+    if not isinstance(scene, str) or not SCENE_NAME.fullmatch(scene):
+        raise ValueError(f"scene {scene!r} is not a name of [A-Za-z0-9_]+")
+    path = Path(bench_dir) / "makers" / f"{scene}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no maker {path} for scene {scene!r}")
+    return manifest.load_module(path, f"rtbench_maker_{scene}").make
+
+
+def make(config: dict, k: Kinds, width: int = None, height: int = None,
+         bench_dir: Path = manifest.BENCH_DIR):
     """The description a configuration file names, built from `k`'s
     classes; width and height override the file's (the CPU rehearsal and
     the tests run tiny frames)."""
     args = dict(config["args"])
     if width is not None:
         args["width"], args["height"] = width, height
-    return MAKERS[config["scene"]](k, **args)
+    desc = maker(config["scene"], bench_dir)(k, **args)
+    if not isinstance(desc, k.SceneDesc):
+        raise TypeError(f"scene {config['scene']!r} made a "
+                        f"{type(desc).__module__}.{type(desc).__name__}, "
+                        f"not the SceneDesc it was handed")
+    return desc

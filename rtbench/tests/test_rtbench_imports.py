@@ -47,3 +47,10 @@ def test_the_scan_compares_whole_names(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import rtf_tpu_torch.render\nfrom jax.numpy import x\n")
     assert top_level_imports(p) == {"rtf_tpu_torch", "jax"}
+
+
+def test_scene_makers_import_nothing_of_the_program():
+    """The reference builds its scene through rtbench/scenes.py and the
+    makers of rtbench/makers/, so they take their classes from `Kinds`."""
+    for path in [BENCH / "scenes.py", *(BENCH / "makers").glob("*.py")]:
+        assert "rtf_tpu_torch" not in top_level_imports(path), path
